@@ -1,0 +1,34 @@
+"""cusmc_tpu_torch — the PyTorch and CUDA port of cusmc_tpu.
+
+A second package beside the JAX reference ``cusmc_tpu``, with the same
+module paths: ``cusmc_tpu/x/y.py`` has its counterpart at
+``cusmc_tpu_torch/x/y.py``, and each module's docstring names the JAX lines
+it replaces. It imports torch and numpy, never jax and never cusmc_tpu.
+
+This slice ports ``run()``'s main path: the bootstrap particle filter over
+the DLM in packed [d, N] layout, with hand-written Hopper kernels
+(``csrc/*.cu``, built by ``nvcc`` at first use) for the prefix sum, the
+inverse-CDF search-and-apply and the roll-Metropolis walk. On a CUDA
+tensor each kernel wrapper launches its kernel or raises; only a CPU
+tensor takes the plain PyTorch version.
+
+TF32 is turned off here: the quadratic form feeds the weights, and TF32
+would cost about three digits there.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from cusmc_tpu_torch.api import run  # noqa: E402
+from cusmc_tpu_torch.device import resolve_device  # noqa: E402
+from cusmc_tpu_torch.models.dlm import DLM  # noqa: E402
+from cusmc_tpu_torch.smc.kalman import kalman_filter  # noqa: E402
+from cusmc_tpu_torch.smc.particle_filter import (  # noqa: E402
+    FilterResult,
+    bootstrap_filter,
+)
+
+__all__ = ["DLM", "FilterResult", "bootstrap_filter", "kalman_filter",
+           "resolve_device", "run"]

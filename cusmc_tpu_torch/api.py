@@ -1,0 +1,84 @@
+"""Public API: ``run``, the reference's full filter run.
+
+Port of ``cusmc_tpu/api.py:91-147`` with the same positional signature and
+return dict; the values are torch tensors on the run's device. ``device``
+(default: the card when there is one, else the CPU) is the one new
+argument. ``MVN``, ``MVNPDF``, ``MVT``, ``MVTPDF`` and
+``metropolis_hastings`` are not ported yet (ROADMAP queue 1, item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cusmc_tpu_torch.device import KeyLike, resolve_device
+from cusmc_tpu_torch.models.dlm import DLM
+from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+
+
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def run(N: int, d: int, timeSteps: int, Y, m0, C0, F, G, V, W,
+        df: float = 4.0, resampler: str = "metropolis",
+        distribution: str = "mvn", p: int = 0,
+        key: KeyLike = None, output_dir: Optional[str] = None,
+        ess_threshold: Optional[float] = None, dtype=torch.float32,
+        sqrt_method: str = "cholesky", return_diagnostics: bool = False,
+        engine: str = "auto", B: int = 10, device=None):
+    """Full bootstrap particle-filter run.
+
+    N particles, d state dim, timeSteps T, Y observations [k, T] (column
+    t = y_t; [T, k] also accepted), prior (m0, C0), transition (G, W),
+    observation (F, V), MVT df, resampler/distribution names, tracked
+    particle p (for ``output_dir``), ``key`` an int seed or a
+    ``torch.Generator``.
+
+    Returns ``weights`` [T, N] raw observation densities, ``posterior_x``
+    [T, N, d], ``ess`` [T] and ``log_evidence``; with
+    ``return_diagnostics`` also ``ancestors`` and ``obs_loglik``.
+    """
+    dev = resolve_device(device)
+    Y = _host(Y)
+    k_obs = _host(F).shape[0]
+    if Y.shape == (k_obs, timeSteps):
+        ys = Y.T
+    elif Y.shape == (timeSteps, k_obs):
+        ys = Y
+    else:
+        raise ValueError(
+            f"Y shape {Y.shape} matches neither (k,T)=({k_obs},{timeSteps}) "
+            f"nor (T,k)")
+    model = DLM.create(F=_host(F), G=_host(G), m0=_host(m0), C0=_host(C0),
+                       V=_host(V), W=_host(W),
+                       df=df if distribution == "mvt" else None,
+                       noise=distribution, sqrt_method=sqrt_method,
+                       dtype=dtype, device=dev)
+    resampler_kwargs = {"num_steps": B} if resampler == "metropolis" else None
+    result = bootstrap_filter(
+        key, model, torch.as_tensor(np.ascontiguousarray(ys), dtype=dtype), N,
+        resampler=resampler, resampler_kwargs=resampler_kwargs,
+        ess_threshold=ess_threshold, return_history=True, engine=engine)
+
+    weights = torch.exp(result.obs_loglik)  # raw densities
+    out = {
+        "weights": weights,
+        "posterior_x": result.particles,
+        "ess": result.ess,
+        "log_evidence": result.log_evidence,
+    }
+    if return_diagnostics:
+        out["ancestors"] = result.ancestors
+        out["obs_loglik"] = result.obs_loglik
+    if output_dir is not None:
+        from cusmc_tpu_torch.io.data import write_output
+
+        write_output(output_dir, ys, _host(weights), _host(result.particles),
+                     p)
+    return out

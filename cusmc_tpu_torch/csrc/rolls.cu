@@ -1,0 +1,80 @@
+// Roll-Metropolis resample in exp space: B sweeps, the apply and the
+// ancestors in one pass.
+//
+// Replaces the XLA roll sweeps of
+// cusmc_tpu/resampling/rolls.py::roll_metropolis_sweeps_expspace
+// (roll_metropolis_weight_walk + apply_winning_rolls + winning_ancestors,
+// rolls.py:57-117), which reach no Pallas kernel on the TPU. Sweep b
+// proposes j = (i + s_b) mod n for every chain i, with one shift per sweep
+// (jnp.roll(w, -s)[i] == w[(i + s) mod n]); chain i accepts iff
+// u[b, i] * w_cur < w[j], in float32 and strict, so a 0/0 pair rejects
+// (rolls.py:46-51,74). The winner is the last accepted proposal; then
+// a[i] = winner and out[r, i] = X[r, a[i]].
+//
+// On the TPU the walk runs as lane rotations and the apply as a (B+1)-way
+// select over rotated copies of X, because a random gather is slow there.
+// On Hopper one thread per chain reads w[j] directly: within a warp the j
+// are consecutive, so the B weight reads are coalesced and hit L2, and the
+// state is read once at the winner.
+//
+// Bound on the card: memory. Per particle it reads B uniforms (4B bytes),
+// B + 1 weights (mostly L2), d state values at the winner, and writes d
+// state values and one ancestor: 4B + 8d + 8 bytes of device traffic, about
+// 60 MB at N = 2^20, B = 10, d = 2.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+roll_metropolis_kernel(const float* __restrict__ w,
+                       const int* __restrict__ shifts,
+                       const float* __restrict__ u,
+                       const float* __restrict__ X, float* __restrict__ out,
+                       int* __restrict__ anc, long long n, int num_sweeps,
+                       int d) {
+  // Shifts reduced into [0, n) once per block, so any int32 shift is safe.
+  extern __shared__ long long shift_mod[];
+  for (int b = threadIdx.x; b < num_sweeps; b += blockDim.x) {
+    long long s = static_cast<long long>(shifts[b]) % n;
+    shift_mod[b] = s < 0 ? s + n : s;
+  }
+  __syncthreads();
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  float w_cur = w[i];
+  long long a = i;
+  for (int b = 0; b < num_sweeps; ++b) {
+    long long j = i + shift_mod[b];
+    if (j >= n) j -= n;
+    const float w_cand = w[j];
+    const float ub = u[static_cast<long long>(b) * n + i];
+    if (__fmul_rn(ub, w_cur) < w_cand) {
+      w_cur = w_cand;
+      a = j;
+    }
+  }
+  anc[i] = static_cast<int>(a);
+  for (int r = 0; r < d; ++r) {
+    const long long row = static_cast<long long>(r) * n;
+    out[row + i] = X[row + a];
+  }
+}
+
+}  // namespace
+
+// w [n] f32, shifts [B] int32, u [B, n] f32, X [d, n] f32 (contiguous) ->
+// out [d, n] f32 and anc [n] int32.
+CUSMC_EXPORT int cusmc_roll_metropolis(const float* w, const int* shifts,
+                                       const float* u, const float* X,
+                                       float* out, int* anc, long long n,
+                                       int num_sweeps, int d, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  const size_t smem = sizeof(long long) * (num_sweeps > 0 ? num_sweeps : 1);
+  roll_metropolis_kernel<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+      w, shifts, u, X, out, anc, n, num_sweeps, d);
+  return static_cast<int>(cudaGetLastError());
+}

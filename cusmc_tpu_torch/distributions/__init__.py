@@ -1,0 +1,1 @@
+"""distributions of the PyTorch port (see the matching cusmc_tpu.distributions)."""

@@ -1,0 +1,66 @@
+"""Multivariate Student-T: log-density and sampling on batched tensors.
+
+Port of ``cusmc_tpu/distributions/mvt.py:79-131`` (``mvt_logpdf``,
+``mvt_sample``): what ``DLM`` and ``DLM.simulate`` need. The normaliser
+keeps the pi term, ``(pi * nu)^{-d/2}`` (``mvt.py:91-96``); the original
+CUDA code's defect of leaving it out is not brought back.
+
+``mvt_sample`` draws its chi-square with the port's own samplers
+(``ops/random``: the exact integer-df construction, else the fixed-round
+Marsaglia-Tsang sampler), because no torch gamma sampler takes an explicit
+``torch.Generator``; the JAX function calls ``jax.random.gamma``. The
+reference's per-dimension chi-square (``per_dim_chi=True``) is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from cusmc_tpu_torch.ops.random import chi2_draws, chi2_transform, integer_df
+from cusmc_tpu_torch.utils.linalg import log_det_from_chol, tri_solve
+
+
+def mvt_log_norm(df: float, d: int, log_det: torch.Tensor) -> torch.Tensor:
+    """lgamma((nu+d)/2) - lgamma(nu/2) - (d/2) log(nu*pi) - (1/2) log|Sigma|,
+    evaluated in the dtype of ``log_det``."""
+    df_t = torch.as_tensor(df, dtype=log_det.dtype, device=log_det.device)
+    return (torch.lgamma(0.5 * (df_t + d)) - torch.lgamma(0.5 * df_t)
+            - 0.5 * d * (torch.log(df_t) + math.log(math.pi))
+            - 0.5 * log_det)
+
+
+def mvt_logpdf(x: torch.Tensor, mean, scale_tril: torch.Tensor,
+               df) -> torch.Tensor:
+    """log MVT(x; mean, Sigma = L L^T, nu) for batched x [..., d]."""
+    d = x.shape[-1]
+    z = tri_solve(scale_tril, x - mean)
+    quad = torch.sum(z * z, dim=-1)
+    log_norm = mvt_log_norm(float(df), d, log_det_from_chol(scale_tril))
+    return log_norm - 0.5 * (float(df) + d) * torch.log1p(quad / float(df))
+
+
+def mvt_sample(gen: Optional[torch.Generator], mean: torch.Tensor,
+               scale: torch.Tensor, df, shape: tuple = (),
+               per_dim_chi: bool = False) -> torch.Tensor:
+    """Draw from MVT(mean, Sigma = scale scale^T, df), shape
+    ``shape + (d,)``: ``x = mean + (scale @ z) * sqrt(df / g)`` with one
+    ``g ~ chi2(df)`` per sample vector."""
+    if per_dim_chi:
+        raise NotImplementedError(
+            "per_dim_chi=True is not ported yet (ROADMAP queue 1, item 2)")
+    d = scale.shape[-1]
+    shape = tuple(shape)
+    z = torch.randn(shape + (d,), generator=gen, dtype=scale.dtype,
+                    device=scale.device)
+    lz = z @ scale.T
+    df, df_int = float(df), integer_df(df)
+    g = chi2_transform(df, df_int, chi2_draws(gen, df, df_int, shape + (1,),
+                                              torch.float32, scale.device))
+    # torch.div, not ``df / g``: a Python scalar over a tensor is computed
+    # as ``g.reciprocal() * df``, which rounds twice.
+    df_t = torch.tensor(df, dtype=g.dtype, device=g.device)
+    return mean + lz * torch.sqrt(torch.div(df_t, g)).to(scale.dtype)

@@ -1,0 +1,1 @@
+"""io of the PyTorch port (see the matching cusmc_tpu.io)."""

@@ -1,0 +1,1 @@
+"""models of the PyTorch port (see the matching cusmc_tpu.models)."""

@@ -1,0 +1,227 @@
+"""Dynamic linear model (state-space model) specification.
+
+Port of ``cusmc_tpu/models/dlm.py``: ``DLM.create`` (``:57-100``, with
+the ``df_int`` dispatch at ``:80-87``), the packed [d, N] methods
+(``:155-207``), ``sample_initial``/``propagate`` (``:112-120``) and
+``simulate`` (``:219-239``)::
+
+    x_0 ~ Dist(m0, C0)
+    x_t = G x_{t-1} + w_t,  w_t ~ Dist(0, W)
+    y_t = F x_t + v_t,      v_t ~ Dist(0, V)
+
+with Dist in {MVN, MVT(df)}. ``DLM`` is an ``nn.Module`` whose factors are
+buffers, so ``.to(device)`` moves the whole model. The MVT normaliser and
+the half log-determinant of V are computed once, as buffers, instead of on
+every step.
+
+Randomness: every sampling method takes a ``torch.Generator``. The packed
+methods also take ``noise=``, the draws of ``packed_noise``, so that tests
+can hand them the numbers JAX drew (``_sample_packed`` splits its key as
+``kz, kg``: z from ``kz``, the chi-square draws from ``kg``).
+
+Not ported yet (ROADMAP queue 1, item 3): ``state_dtype=bfloat16`` mixed
+precision and ``per_dim_chi=True``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from cusmc_tpu_torch.distributions.mvn import mvn_sample
+from cusmc_tpu_torch.distributions.mvt import mvt_sample
+from cusmc_tpu_torch.ops.packed import matvec, quadform
+from cusmc_tpu_torch.ops.random import chi2_draws, chi2_transform, integer_df
+from cusmc_tpu_torch.utils.linalg import chol_sqrt, cov_sqrt
+
+
+class DLM(nn.Module):
+    """DLM with precomputed covariance factors, held as buffers.
+
+    ``noise`` selects the family for the prior, transition and
+    observation noise alike; ``df`` is used only for "mvt". ``df_int``
+    is the integer df when it is a small integer (the exact one-log
+    chi-square path), else None.
+    """
+
+    def __init__(self, F, G, m0, C0_sqrt, W_sqrt, V_chol, V_chol_inv,
+                 df=None, noise: str = "mvn", df_int: Optional[int] = None):
+        super().__init__()
+        if noise not in ("mvn", "mvt"):
+            raise ValueError(f"unknown noise family {noise!r}")
+        if noise == "mvt" and df is None:
+            raise ValueError("mvt noise requires df")
+        self.noise = noise
+        self.df_int = df_int
+        self.df_value = None if df is None else float(df)
+        for name, val in (("F", F), ("G", G), ("m0", m0),
+                          ("C0_sqrt", C0_sqrt), ("W_sqrt", W_sqrt),
+                          ("V_chol", V_chol), ("V_chol_inv", V_chol_inv)):
+            self.register_buffer(name, val)
+        wdtype = V_chol.dtype
+        self.register_buffer(
+            "df", None if df is None else torch.tensor(float(df), dtype=wdtype,
+                                                       device=V_chol.device))
+        k = F.shape[-2]
+        half_logdet = torch.sum(torch.log(torch.diagonal(V_chol)))
+        if noise == "mvt":
+            log_norm = (torch.lgamma(0.5 * (self.df + k))
+                        - torch.lgamma(0.5 * self.df)
+                        - 0.5 * k * (torch.log(self.df) + math.log(math.pi))
+                        - half_logdet)
+        else:
+            log_norm = -0.5 * k * math.log(2.0 * math.pi) - half_logdet
+        self.register_buffer("log_norm", log_norm)
+
+    # -- construction ----------------------------------------------------
+
+    @classmethod
+    def create(cls, F, G, m0, C0, V, W, df=None, noise: str = "mvn",
+               sqrt_method: str = "cholesky", dtype=torch.float32,
+               per_dim_chi: bool = False, state_dtype=None,
+               device=None) -> "DLM":
+        """Factor the covariances (in ``dtype``, on the CPU) and build the
+        model on ``device``."""
+        if state_dtype is not None and state_dtype != dtype:
+            raise NotImplementedError(
+                "state_dtype (mixed precision) is not ported yet "
+                "(ROADMAP queue 1, item 3)")
+        if per_dim_chi:
+            raise NotImplementedError(
+                "per_dim_chi=True is not ported yet (ROADMAP queue 1, item 2)")
+        if noise == "mvt" and df is None:
+            raise ValueError("mvt noise requires df")
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype)
+
+        V_chol = chol_sqrt(t(V))
+        eye_k = torch.eye(V_chol.shape[-1], dtype=dtype)
+        V_chol_inv = torch.linalg.solve_triangular(V_chol, eye_k, upper=False)
+        model = cls(F=t(F), G=t(G), m0=t(m0),
+                    C0_sqrt=cov_sqrt(t(C0), sqrt_method),
+                    W_sqrt=cov_sqrt(t(W), sqrt_method),
+                    V_chol=V_chol, V_chol_inv=V_chol_inv,
+                    df=None if noise != "mvt" else float(df), noise=noise,
+                    df_int=integer_df(df) if noise == "mvt" else None)
+        return model.to(device) if device is not None else model
+
+    @classmethod
+    def from_jax_arrays(cls, *, F, G, m0, C0_sqrt, W_sqrt, V_chol,
+                        V_chol_inv, df=None, noise: str = "mvn",
+                        df_int: Optional[int] = None, device=None) -> "DLM":
+        """Carry a JAX ``DLM``'s parameters across WITHOUT re-factorising:
+        each field is given as a numpy array (``np.asarray(jax_model.F)``
+        and so on), so both packages compute with the same factors."""
+        def t(a):
+            return torch.from_numpy(np.array(a, copy=True))
+
+        df_f = None if df is None else float(np.asarray(df))
+        model = cls(F=t(F), G=t(G), m0=t(m0), C0_sqrt=t(C0_sqrt),
+                    W_sqrt=t(W_sqrt), V_chol=t(V_chol),
+                    V_chol_inv=t(V_chol_inv), df=df_f, noise=noise,
+                    df_int=df_int)
+        return model.to(device) if device is not None else model
+
+    @property
+    def state_dim(self) -> int:
+        return self.G.shape[-1]
+
+    @property
+    def obs_dim(self) -> int:
+        return self.F.shape[-2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.G.device
+
+    # -- batch layout (x as [..., d]): what ``simulate`` needs ------------
+
+    def sample_initial(self, gen: Optional[torch.Generator],
+                       shape: tuple) -> torch.Tensor:
+        """x_0 draws, ``shape + (d,)``."""
+        return self._sample(gen, self.m0, self.C0_sqrt, shape)
+
+    def propagate(self, gen: Optional[torch.Generator],
+                  x_prev: torch.Tensor) -> torch.Tensor:
+        """x_t | x_{t-1} for a batch [..., d]: G x plus Dist(0, W)."""
+        mean = x_prev @ self.G.T
+        return self._sample(gen, mean, self.W_sqrt, x_prev.shape[:-1])
+
+    def _sample(self, gen, mean, scale, shape):
+        if self.noise == "mvt":
+            return mvt_sample(gen, mean, scale, self.df_value, shape)
+        return mvn_sample(gen, mean, scale, shape)
+
+    # -- packed [d, N] layout: the filter's hot path ----------------------
+
+    def packed_noise(self, gen: Optional[torch.Generator], n: int) -> tuple:
+        """The draws of one packed sample of n particles: ``(z,)`` for
+        MVN; ``(z, chi2_draws)`` for MVT, with ``chi2_draws`` the draws of
+        ``chi2_integer_df`` (integer df) or ``fast_gamma`` (otherwise)."""
+        d = self.state_dim
+        dev = self.device
+        z = torch.randn((d, n), generator=gen, dtype=self.W_sqrt.dtype,
+                        device=dev)
+        if self.noise != "mvt":
+            return (z,)
+        return (z, chi2_draws(gen, self.df_value, self.df_int, (1, n),
+                              self.V_chol.dtype, dev))
+
+    def sample_initial_packed(self, gen: Optional[torch.Generator], n: int,
+                              noise: Optional[tuple] = None) -> torch.Tensor:
+        """x_0 draws in packed layout [d, n]."""
+        return self._sample_packed(gen, self.m0[:, None], self.C0_sqrt, n,
+                                   noise)
+
+    def propagate_packed(self, gen: Optional[torch.Generator],
+                         X_prev: torch.Tensor,
+                         noise: Optional[tuple] = None) -> torch.Tensor:
+        """X_t | X_{t-1} for packed X [d, n]: G @ X plus Dist(0, W)."""
+        mean = matvec(self.G, X_prev)
+        return self._sample_packed(gen, mean, self.W_sqrt, X_prev.shape[-1],
+                                   noise)
+
+    def observation_logpdf_packed(self, y: torch.Tensor,
+                                  X: torch.Tensor) -> torch.Tensor:
+        """log p(y | x) for packed X [d, n] -> [n], through the inverse
+        Cholesky factor of V."""
+        resid = y[:, None] - matvec(self.F, X)
+        quad = quadform(self.V_chol_inv, resid)
+        if self.noise == "mvt":
+            k = self.obs_dim
+            return self.log_norm - 0.5 * (self.df_value + k) * torch.log1p(
+                quad / self.df)
+        return self.log_norm - 0.5 * quad
+
+    def _sample_packed(self, gen, mean, scale, n, noise):
+        """mean [d, n] (or [d, 1]) + scale @ z; MVT applies the chi-square
+        scale mixture along the particle axis."""
+        if noise is None:
+            noise = self.packed_noise(gen, n)
+        z = noise[0]
+        if self.noise != "mvt":
+            return mean + matvec(scale, z)
+        lz = matvec(scale, z)
+        g = chi2_transform(self.df_value, self.df_int, noise[1])
+        return mean + lz * torch.sqrt(torch.div(self.df, g)).to(scale.dtype)
+
+    # -- data generation --------------------------------------------------
+
+    def simulate(self, gen: Optional[torch.Generator], num_steps: int):
+        """Draw a latent path and observations. Returns (xs [T, d],
+        ys [T, k]); row 0 of ys is zero like the bundled trace."""
+        x = self.sample_initial(gen, ())
+        xs = [x]
+        ys = [torch.zeros(self.obs_dim, dtype=x.dtype, device=x.device)]
+        zero_k = torch.zeros(self.obs_dim, dtype=x.dtype, device=x.device)
+        for _ in range(num_steps - 1):
+            x = self.propagate(gen, x)
+            y = x @ self.F.T + self._sample(gen, zero_k, self.V_chol, ())
+            xs.append(x)
+            ys.append(y)
+        return torch.stack(xs), torch.stack(ys)

@@ -1,0 +1,169 @@
+"""Fast fixed-round random samplers for the hot loop.
+
+Port of ``cusmc_tpu/ops/random.py:24-104``: ``fast_gamma`` (a
+Marsaglia-Tsang squeeze sampler with a FIXED number of proposal rounds,
+unresolved lanes fall back to the mean, bias < 1e-5 relative) and
+``chi2_integer_df`` (exact chi-square for small integer df from one log of
+a product of uniforms).
+
+Each sampler is split into a draw step (a ``torch.Generator`` -> normals
+and uniforms) and a pure transform of those draws, so that a test can feed
+the transform the exact numbers JAX drew and compare the results to f32
+rounding. ``sampler(gen, ...)`` is ``transform(*draws(gen, ...))``.
+
+JAX draws its uniforms with ``minval=finfo.tiny``, i.e. in [tiny, 1); the
+port clamps ``torch.rand``'s [0, 1) to the same range.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+_DEFAULT_ROUNDS = 4
+
+# Integer-df chi-square beats Marsaglia-Tsang up to roughly here (the JAX
+# package's own bound, ``cusmc_tpu/ops/random.py:66-70``).
+MAX_INTEGER_DF = 30
+
+
+def tiny_uniform(gen: Optional[torch.Generator], shape, dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    """U[tiny, 1) draws (log-safe)."""
+    u = torch.rand(tuple(shape), generator=gen, dtype=dtype, device=device)
+    return u.clamp_(min=torch.finfo(dtype).tiny)
+
+
+def _gamma_consts(alpha: float):
+    """(boosted, a, d, c) of Marsaglia-Tsang in float32, computed the way
+    the JAX sampler computes them on an f32 scalar."""
+    alpha32 = np.float32(alpha)
+    boosted = bool(alpha32 < 1.0)
+    a = np.float32(alpha32 + np.float32(1.0)) if boosted else alpha32
+    d = np.float32(a - np.float32(1.0 / 3.0))
+    c = np.float32(np.float32(1.0) / np.sqrt(np.float32(9.0) * d))
+    return boosted, float(a), float(d), float(c)
+
+
+def fast_gamma_draws(gen: Optional[torch.Generator], alpha: float, shape,
+                     dtype=torch.float32, device=None,
+                     rounds: int = _DEFAULT_ROUNDS):
+    """(xs [rounds, *shape] normals, us [rounds, *shape] uniforms,
+    u_boost [*shape] or None) — the boost uniform only when alpha < 1."""
+    shape = tuple(shape)
+    xs = torch.randn((rounds,) + shape, generator=gen, dtype=dtype,
+                     device=device)
+    us = tiny_uniform(gen, (rounds,) + shape, dtype, device)
+    boosted = _gamma_consts(alpha)[0]
+    u_boost = tiny_uniform(gen, shape, dtype, device) if boosted else None
+    return xs, us, u_boost
+
+
+def fast_gamma_transform(alpha: float, xs: torch.Tensor, us: torch.Tensor,
+                         u_boost: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Gamma(alpha, 1) from the draws of ``fast_gamma_draws``."""
+    boosted, a, d, c = _gamma_consts(alpha)
+    shape = xs.shape[1:]
+    accepted = torch.zeros(shape, dtype=torch.bool, device=xs.device)
+    out = torch.full(shape, a, dtype=xs.dtype, device=xs.device)
+    for r in range(xs.shape[0]):
+        x = xs[r]
+        t = 1.0 + c * x
+        v = t * t * t
+        pos = v > 0.0
+        ok = pos & (torch.log(us[r]) < 0.5 * x * x + d - d * v
+                    + d * torch.log(torch.where(pos, v, torch.ones_like(v))))
+        take = ok & ~accepted
+        out = torch.where(take, d * v, out)
+        accepted = accepted | ok
+    if boosted:
+        if u_boost is None:
+            raise ValueError("alpha < 1 needs the boost uniforms")
+        out = out * u_boost ** float(np.float32(1.0) / np.float32(alpha))
+    return out
+
+
+def fast_gamma(gen: Optional[torch.Generator], alpha: float, shape,
+               dtype=torch.float32, device=None,
+               rounds: int = _DEFAULT_ROUNDS) -> torch.Tensor:
+    """Gamma(alpha, 1) draws of ``shape``; statistically exact except for
+    a < 1e-5 mean-fallback tail."""
+    return fast_gamma_transform(
+        alpha, *fast_gamma_draws(gen, alpha, shape, dtype, device, rounds))
+
+
+def _check_df(df) -> Tuple[int, int]:
+    if not (isinstance(df, int) and not isinstance(df, bool)
+            and 1 <= df <= MAX_INTEGER_DF):
+        raise ValueError(f"df must be an int in [1, {MAX_INTEGER_DF}], "
+                         f"got {df!r}")
+    return divmod(df, 2)
+
+
+def chi2_integer_df_draws(gen: Optional[torch.Generator], df: int, shape,
+                          dtype=torch.float32, device=None):
+    """(us [df // 2, *shape] uniforms or None, z [*shape] normals or
+    None) for ``chi2_integer_df_transform``."""
+    m, r = _check_df(df)
+    shape = tuple(shape)
+    us = tiny_uniform(gen, (m,) + shape, dtype, device) if m > 0 else None
+    z = (torch.randn(shape, generator=gen, dtype=dtype, device=device)
+         if r else None)
+    return us, z
+
+
+def chi2_integer_df_transform(df: int, us: Optional[torch.Tensor],
+                              z: Optional[torch.Tensor]) -> torch.Tensor:
+    """chi2_{2m+r} = -2 log(prod_{i<m} U_i) + r z^2 (exact)."""
+    m, r = _check_df(df)
+    ref = us if us is not None else z
+    out = torch.zeros(ref.shape[1:] if us is not None else ref.shape,
+                      dtype=ref.dtype, device=ref.device)
+    if m > 0:
+        prod = us[0]
+        for i in range(1, m):
+            prod = prod * us[i]
+        # Guard the (astronomically unlikely) f32 underflow of the product.
+        prod = torch.clamp(prod, min=torch.finfo(prod.dtype).tiny)
+        out = -2.0 * torch.log(prod)
+    if r:
+        out = out + z * z
+    return out
+
+
+def chi2_integer_df(gen: Optional[torch.Generator], df: int, shape,
+                    dtype=torch.float32, device=None) -> torch.Tensor:
+    """EXACT chi-square(df) draws for small integer df."""
+    return chi2_integer_df_transform(
+        df, *chi2_integer_df_draws(gen, df, shape, dtype, device))
+
+
+def integer_df(df) -> Optional[int]:
+    """df as an int when it is a small integer (the exact one-log
+    chi-square path, ``cusmc_tpu/models/dlm.py:80-87``), else None."""
+    if df is None:
+        return None
+    df_f = float(df)
+    if df_f.is_integer() and 1 <= df_f <= MAX_INTEGER_DF:
+        return int(df_f)
+    return None
+
+
+def chi2_draws(gen: Optional[torch.Generator], df: float,
+               df_int: Optional[int], shape, dtype=torch.float32,
+               device=None):
+    """Draws of one chi-square(df) sample: those of ``chi2_integer_df``
+    when ``df_int`` is set, else those of ``fast_gamma(df / 2)``."""
+    if df_int is not None:
+        return chi2_integer_df_draws(gen, df_int, shape, dtype, device)
+    return fast_gamma_draws(gen, 0.5 * df, shape, dtype, device)
+
+
+def chi2_transform(df: float, df_int: Optional[int], draws) -> torch.Tensor:
+    """chi-square(df) from the draws of ``chi2_draws``."""
+    if df_int is not None:
+        return chi2_integer_df_transform(df_int, *draws)
+    return 2.0 * fast_gamma_transform(0.5 * df, *draws)

@@ -1,0 +1,1 @@
+"""resampling of the PyTorch port (see the matching cusmc_tpu.resampling)."""

@@ -1,0 +1,29 @@
+"""Inputs shared by the PyTorch-port tests, made with numpy from a seed.
+
+Imports neither jax nor cusmc_tpu, so tests/test_torch_cuda.py can use it
+on a machine that has only the port's dependencies.
+"""
+
+import numpy as np
+
+
+def search_inputs(rng, case, n, d):
+    """A monotone float32 cdf, sorted systematic positions scaled by its
+    total, and a packed state [d, n], for the inverse-CDF search: weights
+    "uniform" (random), "concentrated" (one particle holds ~all the mass)
+    or "zero-runs" (floor counts of sharp weights, mostly zeros)."""
+    if case == "uniform":
+        logw = rng.standard_normal(n)
+        w = np.exp(logw - logw.max())
+    elif case == "concentrated":
+        w = np.full(n, np.exp(-20.0))
+        w[0] = 1.0
+    else:
+        p = np.exp(3.0 * rng.standard_normal(n))
+        w = np.floor(n * p / p.sum())
+    cdf = np.cumsum(w.astype(np.float32), dtype=np.float32)
+    u = np.float32(rng.uniform())
+    pos = ((np.arange(n, dtype=np.float32) + u) / np.float32(n)
+           * cdf[-1]).astype(np.float32)
+    X = rng.standard_normal((d, n)).astype(np.float32)
+    return cdf, pos, X
