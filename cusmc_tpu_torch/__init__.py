@@ -5,12 +5,14 @@ module paths: ``cusmc_tpu/x/y.py`` has its counterpart at
 ``cusmc_tpu_torch/x/y.py``, and each module's docstring names the JAX lines
 it replaces. It imports torch and numpy, never jax and never cusmc_tpu.
 
-This slice ports ``run()``'s main path: the bootstrap particle filter over
-the DLM in packed [d, N] layout, with hand-written Hopper kernels
+The port so far runs ``run()``'s main path: the bootstrap particle filter
+over the DLM in packed [d, N] layout, with hand-written Hopper kernels
 (``csrc/*.cu``, built by ``nvcc`` at first use) for the prefix sum, the
-inverse-CDF search-and-apply and the roll-Metropolis walk. On a CUDA
-tensor each kernel wrapper launches its kernel or raises; only a CPU
-tensor takes the plain PyTorch version.
+inverse-CDF search-and-apply and the roll-Metropolis walk; and
+``engine="pallas"``, one fused resample-propagate-reweight kernel per step
+(windowed Metropolis, or systematic/stratified inverse CDF) with Philox
+bits made in the kernel. On a CUDA tensor each kernel wrapper launches its
+kernel or raises; only a CPU tensor takes the plain PyTorch version.
 
 TF32 is turned off here: the quadratic form feeds the weights, and TF32
 would cost about three digits there.

@@ -3,8 +3,11 @@
 Port of ``cusmc_tpu/api.py:91-147`` with the same positional signature and
 return dict; the values are torch tensors on the run's device. ``device``
 (default: the card when there is one, else the CPU) is the one new
-argument. ``MVN``, ``MVNPDF``, ``MVT``, ``MVTPDF`` and
-``metropolis_hastings`` are not ported yet (ROADMAP queue 1, item 7).
+argument. ``engine`` goes to ``bootstrap_filter`` as in the JAX package:
+"auto" and "xla" run the composed path, "pallas" one fused kernel per step
+(metropolis, systematic or stratified; no ESS threshold). ``MVN``,
+``MVNPDF``, ``MVT``, ``MVTPDF`` and ``metropolis_hastings`` are not ported
+yet (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ def run(N: int, d: int, timeSteps: int, Y, m0, C0, F, G, V, W,
     observation (F, V), MVT df, resampler/distribution names, tracked
     particle p (for ``output_dir``), ``key`` an int seed or a
     ``torch.Generator``.
+
+    ``engine``: "auto" or "xla" (the composed path) or "pallas" (the fused
+    step kernels; ``B`` is then the windowed Metropolis sweep count).
 
     Returns ``weights`` [T, N] raw observation densities, ``posterior_x``
     [T, N, d], ``ess`` [T] and ``log_evidence``; with

@@ -33,4 +33,24 @@ __device__ __forceinline__ float warp_inclusive_max(float v, int lane) {
   return v;
 }
 
+// Inverse-CDF search: #{j < n : cdf[j] <= p}, clipped to n - 1
+// (searchsorted, side right). `<=` never picks a zero-weight particle
+// (equal consecutive cdf values). One binary search of the cdf in global
+// memory: at N = 2^20 its 4 MB stay in L2, and neighbouring threads with
+// sorted queries walk the same upper levels.
+__device__ __forceinline__ long long upper_bound_clipped(
+    const float* __restrict__ cdf, long long n, float p) {
+  long long lo = 0;
+  long long hi = n;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (cdf[mid] <= p) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo < n - 1 ? lo : n - 1;
+}
+
 }  // namespace cusmc

@@ -1,0 +1,169 @@
+// Fused filter step, windowed Metropolis: resample, propagate and reweight
+// in one pass.
+//
+// Replaces cusmc_tpu/ops/fused_step.py::_step_kernel (behind
+// fused_filter_step). For tile i of `tile` particles, the candidate window
+// is the source tiles (i + s0) mod nb and (i + s0 + 1) mod nb, plus tile
+// (i + s1) mod nb when num_window_tiles = 3, read through a lane rotation
+// r (one per tile). Each of the B sweeps proposes, for lane l, window
+// position db + l of the rotated window, with a 128-aligned offset db per
+// tile and sweep; the chain accepts when u * w_cur < w_cand (exp space,
+// float32, strict). The ancestor map is the TPU kernel's
+// (fused_step.py:257-270); propagate and reweight follow in registers
+// (propagate.cuh). Random bits: Philox (philox.cuh); stream 1 of the tile
+// gives r (row 0, lane 0) and the B offsets (row 1, lane b), stream 0 of
+// the particle gives its B accept uniforms, then the noise rows.
+//
+// The TPU kernel double-buffers the window through VMEM with DMAs, because
+// a random gather is slow there. Here one thread per particle reads its
+// candidates straight from global memory: the window is 2-3 tiles, so it
+// sits in L2, and a warp's lanes read consecutive addresses. The block's
+// tile id is the particle index over the tile (blocks of 128 threads never
+// straddle a tile, as tile % 128 == 0). The matrices go to shared memory
+// when they fit in 48 KB (d = k <= 55), else they are read through L1
+// (propagate.cuh). No matrix unit: the products run as float32 FMAs, which
+// is what the JAX package computes on the CPU.
+//
+// Bound on the card: at d = 2, memory: per particle it reads X[:, a] and
+// B + 1 weights (L2), writes d states, ll and a (8d + 12 bytes of device
+// traffic counting each input once). At d = 32, the 2d^2 + 2k^2 FMAs of
+// the four products (4096 at d = k = 32) and the Philox rounds bind.
+#include "propagate.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kMaxSweeps = 128;
+
+struct Window {
+  long long n;
+  long long tile;
+  long long ws;   // start of the contiguous pair
+  long long ws2;  // start of the third tile
+  long long len;  // num_window_tiles * tile
+
+  // Global index of pre-rotation window position q in [0, len).
+  __device__ __forceinline__ long long at(long long q) const {
+    if (q < 2 * tile) {
+      const long long g = ws + q;
+      return g >= n ? g - n : g;
+    }
+    return ws2 + (q - 2 * tile);
+  }
+
+  __device__ __forceinline__ long long wrap(long long q) const {
+    return q >= len ? q - len : q;
+  }
+};
+
+template <int D, int K>
+__global__ void __launch_bounds__(kThreads)
+fused_step_kernel(const float* __restrict__ X, const float* __restrict__ logw,
+                  const int* __restrict__ s, const int* __restrict__ seed,
+                  cusmc::StepModel m, float* __restrict__ Xo,
+                  float* __restrict__ ll, int* __restrict__ anc, long long n,
+                  long long tile, int num_sweeps, int num_window_tiles,
+                  int staged) {
+  extern __shared__ float smem[];
+  __shared__ int s_db[kMaxSweeps];
+  __shared__ int s_r;
+  const long long p =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long ti = p / tile;
+  const long long lane = p - ti * tile;
+  const uint2 key = cusmc::philox_key(seed, ti);
+  const int n_off = static_cast<int>((num_window_tiles - 1) * tile / 128 + 1);
+  if (threadIdx.x < (num_sweeps > 0 ? num_sweeps : 1)) {
+    const uint4 c = cusmc::philox4x32_10(
+        make_uint4(threadIdx.x, 0u, 1u, 0u), key);
+    if (threadIdx.x == 0) s_r = static_cast<int>(c.x & 127u);
+    if (static_cast<int>(threadIdx.x) < num_sweeps) {
+      s_db[threadIdx.x] =
+          128 * static_cast<int>((c.y & 0x7FFFFFFFu) %
+                                 static_cast<uint32_t>(n_off));
+    }
+  }
+  m = cusmc::stage_model(m, smem, staged != 0);
+  __syncthreads();
+
+  const long long nb = n / tile;
+  long long s0 = s[0] % nb;
+  long long s1 = s[1] % nb;
+  s0 += s0 < 0 ? nb : 0;
+  s1 += s1 < 0 ? nb : 0;
+  Window win;
+  win.n = n;
+  win.tile = tile;
+  win.ws = ((ti + s0) % nb) * tile;
+  win.ws2 = ((ti + s1) % nb) * tile;
+  win.len = num_window_tiles * tile;
+
+  const long long base = lane + s_r;
+  float w_cur = expf(logw[win.at(win.wrap(base))]);
+  int a_off = 0;
+  cusmc::BitStream bs(key, static_cast<uint32_t>(lane), 0u);
+  for (int sw = 0; sw < num_sweeps; ++sw) {
+    const int db = s_db[sw];
+    const float w_cand = expf(logw[win.at(win.wrap(base + db))]);
+    const float u = cusmc::to_uniform(bs.bits(sw));
+    if (__fmul_rn(u, w_cur) < w_cand) {
+      w_cur = w_cand;
+      a_off = db;
+    }
+  }
+  const long long a = win.at(win.wrap(base + a_off));
+  anc[p] = static_cast<int>(a);
+  cusmc::propagate_reweight<D, K>(m, X, n, a, Xo, ll, p, bs, num_sweeps);
+}
+
+template <int D, int K>
+int launch(const float* X, const float* logw, const int* s, const int* seed,
+           const cusmc::StepModel& m, float* Xo, float* ll, int* anc,
+           long long n, long long tile, int num_sweeps, int wt,
+           cudaStream_t stream) {
+  const size_t bytes = cusmc::model_bytes(m.d, m.k);
+  const int staged = bytes <= cusmc::kStageBytes ? 1 : 0;
+  const long long blocks = n / kThreads;
+  fused_step_kernel<D, K><<<static_cast<unsigned>(blocks), kThreads,
+                            staged ? bytes : 0, stream>>>(
+      X, logw, s, seed, m, Xo, ll, anc, n, tile, num_sweeps, wt, staged);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// X [d, n], logw [n], y [k], G, Q [d, d], F [k, d], Li [k, k] (f32,
+// contiguous), s [2] and seed [2] int32 on the device -> Xo [d, n] f32,
+// ll [n] f32, anc [n] int32. The caller checks n % tile == 0,
+// tile % 128 == 0, n >= num_window_tiles * tile, d, k <= 128 and
+// num_sweeps <= 128. noise: 0 MVN, 1 MVT; df_int 0 selects
+// Marsaglia-Tsang.
+CUSMC_EXPORT int cusmc_fused_step(
+    const float* X, const float* logw, const float* y, const float* G,
+    const float* Q, const float* F, const float* Li, const int* s,
+    const int* seed, float* Xo, float* ll, int* anc, long long n,
+    long long tile, int d, int k, int num_sweeps, int num_window_tiles,
+    int noise, int df_int, float df, float log_norm, void* stream) {
+  const cusmc::StepModel m{G, Q, F, Li, y, d, k, noise, df_int, df, log_norm};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d == k ? d : 0) {
+    case 2:
+      return launch<2, 2>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
+                          num_sweeps, num_window_tiles, st);
+    case 4:
+      return launch<4, 4>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
+                          num_sweeps, num_window_tiles, st);
+    case 8:
+      return launch<8, 8>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
+                          num_sweeps, num_window_tiles, st);
+    case 16:
+      return launch<16, 16>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
+                            num_sweeps, num_window_tiles, st);
+    case 32:
+      return launch<32, 32>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
+                            num_sweeps, num_window_tiles, st);
+    default:
+      return launch<0, 0>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
+                          num_sweeps, num_window_tiles, st);
+  }
+}

@@ -34,18 +34,7 @@ inverse_cdf_apply_kernel(const float* __restrict__ cdf,
   const long long i =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= nq) return;
-  const float p = pos[i];
-  long long lo = 0;
-  long long hi = n;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (cdf[mid] <= p) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  const long long a = lo < n - 1 ? lo : n - 1;
+  const long long a = cusmc::upper_bound_clipped(cdf, n, pos[i]);
   anc[i] = static_cast<int>(a);
   for (int r = 0; r < d; ++r) {
     out[static_cast<long long>(r) * nq + i] = X[static_cast<long long>(r) * n + a];

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels (``cusmc_tpu_torch/csrc``).
 
 The ``.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build happens
-at first use, never on import, into ``build/cusmc_tpu_torch/`` beside the
+library with a plain C interface, loaded with ``ctypes``: one ``nvcc -c``
+per source, all started together, then one link. The build happens at
+first use, never on import, into ``build/cusmc_tpu_torch/`` beside the
 package; the file name carries a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses the library. A failing ``nvcc``
 raises with its output.
@@ -28,18 +29,28 @@ import torch
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
     "cusmc_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17")
+COMPILE_FLAGS = ARCH_FLAGS + ("-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                              "-c")
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name -> argtypes; every pointer and the stream are c_void_p.
 SIGNATURES = {
     "cusmc_blocked_cumsum": (_P, _P, _P, _LL, _P),
     "cusmc_inverse_cdf_apply": (_P, _P, _P, _P, _P, _LL, _LL, _I, _P),
     "cusmc_roll_metropolis": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P),
     "cusmc_cumsum_tile": (),
+    # X, logw, y, G, Q, F, Li, s, seed, Xo, ll, anc, n, tile, d, k,
+    # num_sweeps, num_window_tiles, noise, df_int, df, log_norm, stream
+    "cusmc_fused_step": (_P,) * 12 + (_LL, _LL) + (_I,) * 6 + (_F, _F, _P),
+    # cdf, X, y, G, Q, F, Li, u, seed, Xo, ll, anc, n, tile, d, k, mode,
+    # noise, df_int, df, log_norm, stream
+    "cusmc_fused_cdf_step": (_P,) * 12 + (_LL, _LL) + (_I,) * 5
+    + (_F, _F, _P),
 }
 
 # Filled by ``library()``: the build's wall time and nvcc's output (ptxas
@@ -66,11 +77,35 @@ def _sources():
 
 def library_path() -> Path:
     cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in cu + cuh:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"libcusmc_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds) -> str:
+    """Run the commands in parallel; raise with the output of the first
+    that fails, else return all their output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], None
+    for cmd, proc in zip(cmds, procs):
+        try:
+            out, _ = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            raise
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed with code {rc}:\n{' '.join(cmd)}\n"
+                           f"{out}")
+    return "".join(logs)
 
 
 def build() -> Path:
@@ -81,17 +116,22 @@ def build() -> Path:
         return out
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        log = _run_all([[nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)]
+                        for src, obj in zip(cu, objs)])
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp),
+                          *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    build_info.update(seconds=seconds, log=proc.stdout + proc.stderr,
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    build_info.update(seconds=time.perf_counter() - t0, log=log,
                       path=str(out))
     return out
 

@@ -21,10 +21,20 @@ initial cloud, then per step the resample draws (when it resamples) and
 the propagation noise. A step can instead be handed ``draws=(resample
 draws, noise)``, which is how the tests replay JAX's numbers.
 
-Not ported yet (``NotImplementedError``, see ROADMAP queue 1): the fused
-Pallas engines (``engine="pallas"``), ``layout="batch"``, the residual
-resampler, injected ``resample_op``s and the sharded filter
-(``axis_name``).
+``engine="pallas"`` (``:538-601``, ``:337-414``, ``:662-793``) runs one
+fused kernel per step: ``ops/fused_step`` (windowed Metropolis; the step
+carries normalised log weights) or ``ops/fused_cdf_step`` (systematic and
+stratified; the step carries exp-space weights and runs ``blocked_cumsum``
+first). Their draws per step are ``(s, seed)`` or ``(u, seed)``, and the
+kernels make their own noise. ``engine="xla"`` is the composed path above,
+and ``"auto"`` always takes it: the windowed proposal is biased at finite
+B and the fused CDF step was never faster on the TPU (``:680-716``).
+``pallas_interpret`` is TPU-only and not ported: on a CPU tensor the fused
+ops run their plain versions.
+
+Not ported yet (``NotImplementedError``, see ROADMAP queue 1):
+``layout="batch"``, the residual resampler, injected ``resample_op``s and
+the sharded filter (``axis_name``).
 """
 
 from __future__ import annotations
@@ -36,9 +46,25 @@ from typing import Callable, Optional
 import torch
 
 from cusmc_tpu_torch.device import KeyLike, make_generator, resolve_device
-from cusmc_tpu_torch.diagnostics.metrics import effective_sample_size
+from cusmc_tpu_torch.diagnostics.metrics import (
+    effective_sample_size,
+    log_normalize,
+)
 from cusmc_tpu_torch.models.base import supports_packed
+from cusmc_tpu_torch.models.dlm import DLM
 from cusmc_tpu_torch.ops.cumsum import blocked_cumsum
+from cusmc_tpu_torch.ops.fused_cdf_step import (
+    DEFAULT_SROWS,
+    cdf_auto_tile,
+    fused_cdf_filter_step,
+    fused_cdf_filter_step_draws,
+)
+from cusmc_tpu_torch.ops.fused_step import (
+    MAX_MXU_DIM,
+    auto_tile,
+    fused_filter_step,
+    fused_filter_step_draws,
+)
 from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply
 from cusmc_tpu_torch.resampling.classic import POSITION_FNS
 from cusmc_tpu_torch.resampling.rolls import (
@@ -157,6 +183,136 @@ def _fast_exp_step_factory(model, n_global: int, resample_op: ExpResampleOp,
     return step
 
 
+def _fused_factors(model: DLM):
+    """The fused kernels' model arguments: contiguous (G, Q = W_sqrt, F,
+    Li = V_chol_inv), df (None for MVN) and the observation log-normaliser
+    as floats (one read-back, when the step is built)."""
+    mats = tuple(m.contiguous() for m in (model.G, model.W_sqrt, model.F,
+                                          model.V_chol_inv))
+    df = model.df_value if model.noise == "mvt" else None
+    return mats, df, float(model.log_norm)
+
+
+def _pallas_step_factory(model: DLM, num_particles: int, tile: int,
+                         num_sweeps: int, num_window_tiles: int = 2
+                         ) -> Callable:
+    """The step around the fused windowed-Metropolis kernel
+    (``ops/fused_step.py``): ``step(x, logw, y_t, gen=None, draws=None) ->
+    (x_new, logw_new, ess, lz_inc, ll, a)``, carrying normalised log
+    weights; ``draws = (s, seed)``. Always resamples, so the evidence
+    increment is ``logsumexp(ll) - log N``."""
+    if not isinstance(num_sweeps, int):
+        raise ValueError(f"engine='pallas' needs an integer num_steps, got "
+                         f"{num_sweeps!r}")
+    (G, Q, F, Li), df, log_norm = _fused_factors(model)
+    log_n = math.log(num_particles)
+
+    def step(x, logw, y_t, gen=None, draws=None):
+        ess = effective_sample_size(logw)
+        if draws is None:
+            draws = fused_filter_step_draws(gen, num_particles, tile,
+                                            x.device)
+        x_new, ll, a = fused_filter_step(
+            x, logw, y_t, G, Q, F, Li, df, log_norm, draws,
+            noise=model.noise, num_sweeps=num_sweeps, tile=tile,
+            df_int=model.df_int, num_window_tiles=num_window_tiles)
+        logw_new, lse = log_normalize(ll)
+        return x_new, logw_new, ess, lse - log_n, ll, a
+
+    return step
+
+
+def _fused_cdf_step_factory(model: DLM, num_particles: int, pos_mode: str,
+                            tile: Optional[int], sr: int) -> Callable:
+    """The step around the fused inverse-CDF kernel
+    (``ops/fused_cdf_step.py``): ``step(x, w, y_t, gen=None, draws=None)``
+    with the exp-space carry and evidence algebra of
+    ``_fast_exp_step_factory``; ``draws = (u, seed)``. Outside the kernel
+    a step runs the blocked cumsum and the weight reductions."""
+    (G, Q, F, Li), df, log_norm = _fused_factors(model)
+    log_n = math.log(num_particles)
+
+    def step(x, w, y_t, gen=None, draws=None):
+        s1 = torch.sum(w)
+        s2 = torch.sum(w * w)
+        ess = s1 * s1 / s2
+        cdf, _ = blocked_cumsum(w)
+        if draws is None:
+            draws = fused_cdf_filter_step_draws(gen, x.device)
+        x_new, ll, a = fused_cdf_filter_step(
+            cdf, x, y_t, G, Q, F, Li, df, log_norm, draws,
+            noise=model.noise, mode=pos_mode, tile=tile, sr=sr,
+            df_int=model.df_int)
+        m = torch.max(ll)
+        w_new = torch.exp(ll - m)
+        lz_inc = m + torch.log(torch.sum(w_new)) - log_n
+        return x_new, w_new, ess, lz_inc, ll, a
+
+    return step
+
+
+def _fused_model_ok(model) -> bool:
+    """A float32 DLM within the kernels' dimension cap; MVT with df >= 2
+    (the in-kernel Marsaglia-Tsang sampler has no alpha < 1 boost)."""
+    if not (isinstance(model, DLM)
+            and max(model.state_dim, model.obs_dim) <= MAX_MXU_DIM
+            and model.G.dtype == torch.float32):
+        return False
+    return model.noise != "mvt" or model.df_value >= 2.0
+
+
+def _pallas_eligible(model, n: int, tile: int) -> bool:
+    """``particle_filter.py:577-601``, float32 only."""
+    return (_fused_model_ok(model) and n % tile == 0 and n >= 2 * tile
+            and tile % 128 == 0)
+
+
+def _fused_cdf_eligible(model, n: int) -> bool:
+    """``particle_filter.py:389-414``: the model check, and N divisible by
+    the auto tile, large enough for the window walk, at most 2^24."""
+    if not _fused_model_ok(model):
+        return False
+    tile = cdf_auto_tile(n, max(model.state_dim, model.obs_dim))
+    return (n % tile == 0 and n >= 2 * DEFAULT_SROWS * 128
+            and n % 128 == 0 and n <= 1 << 24)
+
+
+def _engine_step(engine: str, model, n: int, resampler: str,
+                 resampler_kwargs: dict, ess_threshold: Optional[float],
+                 pallas_tile: Optional[int]):
+    """``(step, carries_log_weights)`` for the engine (the dispatch of
+    ``particle_filter.py:662-729, 781-793``)."""
+    if engine in ("auto", "xla"):
+        op = packed_exp_resample_op(resampler, n, **resampler_kwargs)
+        return _fast_exp_step_factory(model, n, op, ess_threshold), False
+    if resampler in ("systematic", "stratified"):
+        if ess_threshold is not None or not _fused_cdf_eligible(model, n):
+            raise ValueError(
+                "engine='pallas' with a CDF resampler needs no ESS "
+                f"threshold and a float32 DLM with d,k <= {MAX_MXU_DIM} "
+                "(standard MVT df >= 2), N compatible with the window walk")
+        return _fused_cdf_step_factory(
+            model, n, resampler, pallas_tile,
+            resampler_kwargs.get("sr", DEFAULT_SROWS)), False
+    if resampler != "metropolis" or ess_threshold is not None:
+        raise ValueError("engine='pallas' requires a "
+                         "metropolis/systematic/stratified resampler and no "
+                         "ESS threshold")
+    if pallas_tile is None:
+        dk = (max(model.state_dim, model.obs_dim)
+              if isinstance(model, DLM) else 1)
+        pallas_tile = auto_tile(n, dk)
+    if not _pallas_eligible(model, n, pallas_tile):
+        raise ValueError(
+            f"pallas engine needs a DLM with d,k <= {MAX_MXU_DIM}, N a "
+            f"multiple of tile={pallas_tile} (and >= 2 tiles), tile a "
+            f"multiple of 128, standard MVT with df >= 2, and a float32 "
+            f"state")
+    return _pallas_step_factory(
+        model, n, pallas_tile, resampler_kwargs.get("num_steps", 10),
+        resampler_kwargs.get("num_window_tiles", 2)), True
+
+
 def bootstrap_filter(
     key: KeyLike,
     model,
@@ -168,6 +324,7 @@ def bootstrap_filter(
     return_history: bool = True,
     layout: str = "auto",
     engine: str = "auto",
+    pallas_tile: Optional[int] = None,
     axis_name: Optional[str] = None,
     num_particles_global: Optional[int] = None,
     resample_op: Optional[Callable] = None,
@@ -181,12 +338,15 @@ def bootstrap_filter(
     the model's device). ``resampler``: "metropolis" | "systematic" |
     "stratified" | "multinomial". ``ess_threshold=None`` resamples every
     step; a float in (0, 1] resamples when ESS < threshold * N.
+
+    ``engine``: "auto" or "xla" (the composed path), or "pallas" (one
+    fused kernel per step: metropolis, systematic or stratified, no ESS
+    threshold, a float32 DLM with d, k <= 128). ``pallas_tile``: the fused
+    kernels' tile (None: their auto choice). ``resampler_kwargs`` of the
+    fused path: ``num_steps`` and ``num_window_tiles`` (metropolis),
+    ``sr`` (the CDF family).
     """
-    if engine == "pallas":
-        raise NotImplementedError(
-            "engine='pallas' (the fused Pallas step kernels) is not ported "
-            "yet: ROADMAP queue 2, TPU kernels 5 and 6")
-    if engine != "auto":
+    if engine not in ("auto", "xla", "pallas"):
         raise ValueError(f"unknown engine {engine!r}")
     if layout == "batch":
         raise NotImplementedError("layout='batch' is not ported yet "
@@ -208,16 +368,19 @@ def bootstrap_filter(
         raise ValueError(f"model lives on {dev}, not on {device}")
 
     n = num_particles
-    op = packed_exp_resample_op(resampler, n, **(resampler_kwargs or {}))
-    step = _fast_exp_step_factory(model, n, op, ess_threshold)
+    step, log_carry = _engine_step(engine, model, n, resampler,
+                                   resampler_kwargs or {}, ess_threshold,
+                                   pallas_tile)
     gen = make_generator(key, dev)
     wdtype = model.V_chol.dtype
-    ys = torch.as_tensor(ys, dtype=wdtype).to(dev)
+    ys = torch.as_tensor(ys, dtype=wdtype).to(dev).contiguous()
     num_steps = ys.shape[0]
 
     x = model.sample_initial_packed(gen, n)
     logw0 = torch.full((n,), -math.log(n), dtype=wdtype, device=dev)
-    w = torch.exp(logw0 - torch.max(logw0))  # uniform -> ones
+    # The carry: normalised log weights (fused Metropolis) or exp-space
+    # weights, uniform -> ones.
+    w = logw0 if log_carry else torch.exp(logw0 - torch.max(logw0))
     esss = torch.empty((num_steps - 1,), dtype=wdtype, device=dev)
     lzs = torch.empty((num_steps - 1,), dtype=wdtype, device=dev)
     if return_history:
@@ -238,7 +401,7 @@ def bootstrap_filter(
             lls[t] = ll
             ancs[t] = a
 
-    logw_f = torch.log(w) - torch.log(torch.sum(w))
+    logw_f = w if log_carry else torch.log(w) - torch.log(torch.sum(w))
     ess = torch.cat([effective_sample_size(logw0)[None], esss])
     log_evidence = torch.sum(lzs)
     x_f = x.T

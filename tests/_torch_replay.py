@@ -6,6 +6,8 @@ and hand the exact draws to the port's pure transforms. Inputs cross
 between the packages as numpy arrays.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -63,6 +65,129 @@ def roll_draws(key, n, num_steps):
     u = jnp.stack([jax.random.uniform(jax.random.fold_in(k_u, b), (n,), F32)
                    for b in range(num_steps)])
     return to_torch(shifts), to_torch(u)
+
+
+def fused_step_draws(key, n, tile):
+    """``ops/fused_step.fused_filter_step``'s draws: ``k_s, k_seed =
+    split(key)``, the window offsets ``s`` and the seed pair."""
+    k_s, k_seed = jax.random.split(key)
+    s = jax.random.randint(k_s, (2,), 0, n // tile, jnp.int32)
+    seed = jax.random.bits(k_seed, (2,), jnp.uint32).astype(jnp.int32)
+    return to_torch(s), to_torch(seed)
+
+
+def fused_cdf_draws(key):
+    """``ops/fused_cdf_step.fused_cdf_filter_step``'s draws: ``k_u, k_seed
+    = split(key)``, the systematic offset ``u`` and the seed pair."""
+    k_u, k_seed = jax.random.split(key)
+    u = jax.random.uniform(k_u, (), F32)
+    seed = jax.random.bits(k_seed, (2,), jnp.uint32).astype(jnp.int32)
+    return to_torch(u), to_torch(seed)
+
+
+def filter_step_keys(key, num_steps):
+    """``bootstrap_filter``'s keys: ``k_init, k_scan = split(key)``, and
+    ``fold_in(k_scan, t)`` for t = 1 .. T-1."""
+    k_init, k_scan = jax.random.split(key)
+    return k_init, [jax.random.fold_in(k_scan, t) for t in range(1,
+                                                                 num_steps)]
+
+
+def zero_bits(seed, blocks, stream, rows, lanes):
+    """A bit source of zeros: what the JAX kernels' interpret mode gets
+    from ``pltpu.prng_random_bits`` on the CPU."""
+    return torch.zeros((rows, blocks.shape[0], lanes.shape[0]),
+                       dtype=torch.int64)
+
+
+def fused_log_norm(jmodel):
+    """The observation log-normaliser of the fused steps
+    (``particle_filter.py:349-361, 544-555``), float32."""
+    from jax.scipy.special import gammaln
+
+    k = jmodel.obs_dim
+    half_logdet = jnp.sum(jnp.log(jnp.diagonal(jmodel.V_chol)))
+    if jmodel.noise == "mvt":
+        df = jmodel.df
+        return float(gammaln(0.5 * (df + k)) - gammaln(0.5 * df)
+                     - 0.5 * k * (jnp.log(df) + math.log(math.pi))
+                     - half_logdet)
+    return float(-0.5 * k * math.log(2.0 * math.pi) - half_logdet)
+
+
+def fused_filter_parity(monkeypatch, jm, ys, n, resampler, tile, draw_name,
+                        draw_fn, rtol=1e-5, atol=1e-5):
+    """Both packages' ``bootstrap_filter(engine="pallas")`` from the same
+    x0, zero bits on both sides, the port replaying JAX's per-step draws
+    (``draw_fn(key_t)``) in place of its ``draw_name`` function.
+
+    Metropolis: ancestors equal. Systematic: the two packages sum the cdf
+    in different float32 orders (JAX's blocked cumsum, ``torch.cumsum``),
+    so an ancestor may differ where a position sits on a cdf boundary to
+    within that rounding; each such slot must be shown to be such a tie
+    (``|p - cdf[j]| <= 1e-5 total`` for every boundary j between the two
+    ancestors), and slots descended from one are left out of the state
+    comparison. Everything else at ``rtol``/``atol``. Returns the number
+    of tie slots."""
+    from cusmc_tpu.smc import particle_filter as jpf
+    from cusmc_tpu_torch.ops import fused_cdf_step, fused_step
+    from cusmc_tpu_torch.smc import particle_filter as tpf
+
+    key = jax.random.key(5)
+    ref = jpf.bootstrap_filter(key, jm, jnp.asarray(ys), n,
+                               resampler=resampler, engine="pallas",
+                               pallas_tile=tile, pallas_interpret=True)
+    k_init, step_keys = filter_step_keys(key, ys.shape[0])
+    x0 = to_torch(jm.sample_initial_packed(k_init, n))
+    draws = [draw_fn(k) for k in step_keys]
+    replay = iter(draws)
+    tm = port_model(jm)
+    monkeypatch.setattr(tm, "sample_initial_packed", lambda gen, m: x0)
+    monkeypatch.setattr(tpf, draw_name, lambda *a, **k: next(replay))
+    for module in (fused_step, fused_cdf_step):
+        monkeypatch.setattr(module, "philox_bits", zero_bits)
+    out = tpf.bootstrap_filter(0, tm, torch.from_numpy(ys), n,
+                               resampler=resampler, engine="pallas",
+                               pallas_tile=tile)
+    ours_a = out.ancestors.numpy()
+    ref_a = np.asarray(ref.ancestors)
+    clean = np.ones(n, bool)
+    ties = 0
+    for t in range(1, ys.shape[0]):
+        diff = np.nonzero(ours_a[t] != ref_a[t])[0]
+        if resampler == "metropolis":
+            np.testing.assert_array_equal(ours_a[t], ref_a[t])
+        elif diff.size:
+            ll = out.obs_loglik[t - 1].double()
+            w = (torch.ones(n, dtype=torch.float64) if t == 1
+                 else torch.exp(ll - ll.max()))
+            cdf = torch.cumsum(w.float(), 0).double().numpy()
+            u = float(draws[t - 1][0])
+            pos = (diff + u) * (cdf[-1] / n)
+            for g, p in zip(diff, pos):
+                lo, hi = sorted((ours_a[t][g], ref_a[t][g]))
+                assert np.all(np.abs(cdf[lo:hi] - p) <= 1e-5 * cdf[-1]), \
+                    f"step {t} slot {g}: ancestors {lo} / {hi} off a tie"
+            ties += diff.size
+        clean = clean[ours_a[t]] & (ours_a[t] == ref_a[t])
+        for ours, theirs in ((out.particles[t], ref.particles[t]),
+                             (out.obs_loglik[t], ref.obs_loglik[t])):
+            np.testing.assert_allclose(ours.numpy()[clean],
+                                       np.asarray(theirs)[clean],
+                                       rtol=rtol, atol=atol)
+    assert ties <= 1e-3 * n * (ys.shape[0] - 1), ties
+    np.testing.assert_allclose(out.final_particles.numpy()[clean],
+                               np.asarray(ref.final_particles)[clean],
+                               rtol=rtol, atol=atol)
+    for ours, theirs in ((out.ess, ref.ess),
+                         (out.log_evidence, ref.log_evidence)):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs),
+                                   rtol=rtol, atol=atol)
+    if resampler == "metropolis":
+        np.testing.assert_allclose(out.final_log_weights.numpy(),
+                                   np.asarray(ref.final_log_weights),
+                                   rtol=rtol, atol=atol)
+    return ties
 
 
 def port_model(jmodel):

@@ -188,7 +188,8 @@ def test_run_outputs_match_jax_structure(resampler, tmp_path):
 def test_unported_options_raise():
     tm = port_model(jax_model("mvn"))
     ys = torch.zeros(5, 2)
-    for kw, exc in ((dict(engine="pallas"), NotImplementedError),
+    # engine="pallas" is ported; 64 particles are too few for its tile.
+    for kw, exc in ((dict(engine="pallas"), ValueError),
                     (dict(layout="batch"), NotImplementedError),
                     (dict(resampler="residual"), NotImplementedError),
                     (dict(axis_name="particles"), NotImplementedError),

@@ -131,3 +131,31 @@ def test_position_fns_draw_sorted_unit_positions(name):
     assert pos.shape == (2048,) and pos.dtype == torch.float32
     assert bool(torch.all(pos[1:] >= pos[:-1]))
     assert float(pos.min()) >= 0.0 and float(pos.max()) < 1.0
+
+
+def _metropolis_draws(key, n, num_steps):
+    """``resampling/metropolis.metropolis_ancestors``'s per-sweep draws:
+    ``kj, ku = split(fold_in(key, b))``."""
+    js, us = [], []
+    for b in range(num_steps):
+        kj, ku = jax.random.split(jax.random.fold_in(key, b))
+        js.append(jax.random.randint(kj, (n,), 0, n, dtype=jnp.int32))
+        us.append(jax.random.uniform(ku, (n,), dtype=jnp.float32))
+    return to_torch(jnp.stack(js)), to_torch(jnp.stack(us))
+
+
+@pytest.mark.parametrize("kind", ["exp", "uniform"])
+def test_metropolis_ancestors_match_jax_exactly(kind):
+    from cusmc_tpu.resampling.metropolis import metropolis_ancestors as jma
+    from cusmc_tpu_torch.resampling import metropolis
+
+    key = jax.random.key(9)
+    logw = np.log(np.maximum(_weights(kind), 1e-30)).astype(np.float32)
+    ref = jma(key, jnp.asarray(logw), num_steps=B)
+    a = metropolis.metropolis_from_draws(torch.from_numpy(logw),
+                                         *_metropolis_draws(key, N, B))
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ref))
+    gen = torch.Generator().manual_seed(0)
+    drawn = metropolis.metropolis_ancestors(gen, torch.from_numpy(logw), B)
+    assert drawn.dtype == torch.int32 and drawn.shape == (N,)
+    assert int(drawn.min()) >= 0 and int(drawn.max()) < N
