@@ -40,6 +40,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    path (``engine="xla"``) in turns, one warm-up and the best of 3, with
    the device's busy share from torch.profiler. Every fused run launches
    its kernel T-1 times and none of the composed path's kernels.
+4c. The sharded path, with every launch count set to 0 first, on a
+   one-rank NCCL group (``parallel.multihost.initialize_distributed`` with
+   a ``file://`` rendezvous in a temporary directory; one card, so one
+   rank): ``sharded_bootstrap_filter`` on the bundled trace (MVN, N=2^17)
+   for systematic, residual and metropolis, and ``run(resampler=
+   "residual")``, log-evidence against Kalman at 2% of |loglik|; then the
+   headline (MVT df=5, N=2^20, T=200, d=2) for the same four, one warm-up
+   and the best of 3, with the busy share. Launches per run: systematic
+   the local-block search >= T-1; residual the search-only kernel >=
+   2(T-1) and take-columns >= T-1; metropolis the roll kernel >= T-1.
+   The kernel phase (3) holds the search-only, take-columns and
+   local-block kernels to their plain versions at N = 2^20 and d = 2, 32,
+   at the shard shapes of a 4-way split (L = N/4 queries, base p N/4).
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -325,6 +338,126 @@ def check_kernels() -> dict:
                 lambda: roll_metropolis_sweeps_expspace_plain(
                     w_exp, shifts, u, X),
                 None, label + f" B={b}", (8 + 4 * b + 8 * D) * n, b * n))
+    torch.cuda.synchronize()
+    return rec
+
+
+def _ancestors_equal(name, a, a_p, cdf, pos) -> int:
+    """Kernel and plain ancestors equal; a mismatch passes only where it
+    is shown to be a cdf tie. Returns the number of ties."""
+    bad = (a != a_p).nonzero().flatten()
+    assert bad.numel() <= 1000, f"{name}: {bad.numel()} ancestors differ"
+    for g in bad.tolist():
+        lo, hi = sorted((int(a[g]), int(a_p[g])))
+        assert _cdf_tie(cdf, pos[g], lo, hi), f"{name}: slot {g} is no tie"
+    return bad.numel()
+
+
+def check_shard_kernels() -> dict:
+    """Phase 3 for the search-only kernel, take-columns and the local-block
+    search-and-apply at N = 2^20, d = 2 and 32: ancestors equal (ties
+    shown), values exactly equal, at the shapes of a 4-way split (L = N/4
+    queries; blocks at base p N/4). Records at the one-rank sharded path's
+    shapes (N queries, d = 2, base 0); the shard shape's times are printed
+    beside them."""
+    import torch
+
+    from cusmc_tpu_torch.ops.cumsum import blocked_cumsum
+    from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
+        inverse_cdf_apply_plain, inverse_cdf_search, \
+        inverse_cdf_search_plain, take_columns, take_columns_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    n, L = N_BIG, N_BIG // 4
+    ll = -25.0 * torch.randn(n, generator=gen, device=dev) ** 2
+    weights = {"exp": torch.exp(ll - ll.max()),
+               "uniform": torch.rand(n, generator=gen, device=dev),
+               "concentrated": torch.full((n,), 1e-12, device=dev),
+               "zero-runs": torch.floor(n * torch.softmax(
+                   3.0 * torch.randn(n, generator=gen, device=dev), 0))}
+    weights["concentrated"][n // 3] = 1.0
+    u = torch.rand((), generator=gen, device=dev)
+    unit = (torch.arange(n, device=dev, dtype=torch.float32) + u) \
+        / torch.tensor(float(n), device=dev)
+    serr = lerr = terr = 0.0
+    ties = 0
+    for wname, w in weights.items():
+        cdf, _ = blocked_cumsum(w)
+        pos = unit * cdf[-1]
+        for label, q in (("L=N", pos), ("L=N/4 strided", pos[::4]),
+                         ("L=N/4 shard 1", pos[L:2 * L])):
+            q = q.contiguous()
+            a = inverse_cdf_search(cdf, q)
+            a_p = inverse_cdf_search_plain(cdf, q)
+            ties += _ancestors_equal(f"search {wname} {label}", a, a_p, cdf,
+                                     q)
+            serr = max(serr, float((a - a_p).abs().max()))
+        for d in (D, D_WIDE):
+            X = torch.randn((d, n), generator=gen, device=dev)
+            for p in range(4):
+                base = p * L
+                q = pos[base:base + L].contiguous()
+                blk = X[:, base:base + L].contiguous()
+                y, a = inverse_cdf_apply(cdf, q, blk, local_base=base)
+                y_p, a_p = inverse_cdf_apply_plain(cdf, q, blk,
+                                                   local_base=base)
+                tag = f"local {wname} d={d} base={p}N/4"
+                ties += _ancestors_equal(tag, a, a_p, cdf, q)
+                keep = a == a_p
+                assert torch.equal(y[:, keep], y_p[:, keep]), \
+                    f"{tag}: values differ"
+                hit = keep & (a >= base) & (a < base + L)
+                assert torch.equal(y[:, hit], X[:, a[hit].long()]), tag
+                lerr = max(lerr, float((y[:, keep] - y_p[:, keep]).abs()
+                                       .max()))
+    for d in (D, D_WIDE):
+        X = torch.randn((d, n), generator=gen, device=dev)
+        rand = torch.randint(0, n, (n,), generator=gen, device=dev)
+        for kind, a in (("sorted", torch.sort(rand).values),
+                        ("concentrated", torch.sort(rand % 7).values * 4099),
+                        ("shuffled", rand)):
+            a = a.to(torch.int32)
+            out, out_p = take_columns(X, a), take_columns_plain(X, a)
+            assert torch.equal(out, out_p), f"take_columns {kind} d={d}"
+            terr = max(terr, float((out - out_p).abs().max()))
+    print(f"  inverse_cdf_search (L=N, N/4 strided, N/4 of shard 1), "
+          f"inverse_cdf_apply local-block (L=N/4 at base p N/4, p=0..3, "
+          f"d=2 and 32) on 4 weight kinds, take_columns (sorted, "
+          f"concentrated, shuffled; d=2 and 32), N=2^20: ancestors equal "
+          f"({ties} shown cdf ties), values equal")
+
+    rec = {}
+    cdf, _ = blocked_cumsum(weights["exp"])
+    pos = (unit * cdf[-1]).contiguous()
+    X = torch.randn((D, n), generator=gen, device=dev)
+    a = inverse_cdf_search(cdf, pos)
+    label = f"N=2^20 d={D}"
+    rec["inverse_cdf_search"] = dict(max_abs_err=serr, **time_kernel(
+        "inverse_cdf_search", lambda: inverse_cdf_search(cdf, pos),
+        lambda: inverse_cdf_search_plain(cdf, pos),
+        lambda: torch.searchsorted(cdf, pos, right=True),
+        "N=2^20 L=N (library: searchsorted)", 12 * n, 0))
+    rec["take_columns"] = dict(max_abs_err=terr, **time_kernel(
+        "take_columns", lambda: take_columns(X, a),
+        lambda: take_columns_plain(X, a), lambda: X.index_select(1, a),
+        label + " sorted (library: index_select)", (4 + 8 * D) * n, 0))
+    rec["inverse_cdf_apply[local_base]"] = dict(
+        max_abs_err=lerr, **time_kernel(
+            "inverse_cdf_apply[local_base]",
+            lambda: inverse_cdf_apply(cdf, pos, X, local_base=0),
+            lambda: inverse_cdf_apply_plain(cdf, pos, X, local_base=0),
+            lambda: X.index_select(1, torch.searchsorted(cdf, pos,
+                                                         right=True)),
+            label + " base 0 L=N (library: searchsorted + index_select)",
+            (12 + 8 * D) * n, 0))
+    q, blk = pos[L:2 * L].contiguous(), X[:, L:2 * L].contiguous()
+    time_kernel("inverse_cdf_apply[local_base]",
+                lambda: inverse_cdf_apply(cdf, q, blk, local_base=L),
+                lambda: inverse_cdf_apply_plain(cdf, q, blk, local_base=L),
+                None, f"4-way shard shape: base N/4, L=N/4, d={D}",
+                (8 + 8 * D) * L + 4 * n, 0)
     torch.cuda.synchronize()
     return rec
 
@@ -690,10 +823,11 @@ def check_statistics() -> None:
 
 # -- the main paths -------------------------------------------------------
 
+GATHER_CU = "cusmc_tpu_torch/csrc/monotone_gather.cu"
 KERNELS = (
     ("blocked_cumsum", "cusmc_tpu_torch/csrc/cumsum.cu",
      "cusmc_tpu/ops/cumsum.py:45", "main"),
-    ("inverse_cdf_apply", "cusmc_tpu_torch/csrc/monotone_gather.cu",
+    ("inverse_cdf_apply", GATHER_CU,
      "cusmc_tpu/ops/monotone_gather.py:277", "main"),
     ("roll_metropolis_sweeps_expspace", "cusmc_tpu_torch/csrc/rolls.cu",
      "cusmc_tpu/resampling/rolls.py:109", "main"),
@@ -701,32 +835,44 @@ KERNELS = (
      "cusmc_tpu/ops/fused_step.py:127", "pallas"),
     ("fused_cdf_filter_step", "cusmc_tpu_torch/csrc/fused_cdf_step.cu",
      "cusmc_tpu/ops/fused_cdf_step.py:104", "pallas"),
+    ("inverse_cdf_search", GATHER_CU,
+     "cusmc_tpu/ops/monotone_gather.py:422", "sharded"),
+    ("take_columns", GATHER_CU,
+     "cusmc_tpu/ops/monotone_gather.py:204", "sharded"),
+    ("inverse_cdf_apply[local_base]", GATHER_CU,
+     "cusmc_tpu/ops/monotone_gather.py:401", "sharded"),
 )
 
 
 def _wrappers():
+    """name -> (wrapper, the attribute that counts its launches)."""
     from cusmc_tpu_torch.ops.cumsum import blocked_cumsum
     from cusmc_tpu_torch.ops.fused_cdf_step import fused_cdf_filter_step
     from cusmc_tpu_torch.ops.fused_step import fused_filter_step
-    from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply
+    from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
+        inverse_cdf_search, take_columns
     from cusmc_tpu_torch.resampling.rolls import \
         roll_metropolis_sweeps_expspace
 
-    return {"blocked_cumsum": blocked_cumsum,
-            "inverse_cdf_apply": inverse_cdf_apply,
+    return {"blocked_cumsum": (blocked_cumsum, "launches"),
+            "inverse_cdf_apply": (inverse_cdf_apply, "launches"),
             "roll_metropolis_sweeps_expspace":
-                roll_metropolis_sweeps_expspace,
-            "fused_filter_step": fused_filter_step,
-            "fused_cdf_filter_step": fused_cdf_filter_step}
+                (roll_metropolis_sweeps_expspace, "launches"),
+            "fused_filter_step": (fused_filter_step, "launches"),
+            "fused_cdf_filter_step": (fused_cdf_filter_step, "launches"),
+            "inverse_cdf_search": (inverse_cdf_search, "launches"),
+            "take_columns": (take_columns, "launches"),
+            "inverse_cdf_apply[local_base]": (inverse_cdf_apply,
+                                              "local_launches")}
 
 
 def _counts():
-    return {k: f.launches for k, f in _wrappers().items()}
+    return {k: getattr(f, attr) for k, (f, attr) in _wrappers().items()}
 
 
 def _zero_counts():
-    for f in _wrappers().values():
-        f.launches = 0
+    for f, attr in _wrappers().values():
+        setattr(f, attr, 0)
 
 
 def _expect_launches(before, after, used, steps, label, unused=()):
@@ -745,6 +891,8 @@ CDF_KERNELS = ("blocked_cumsum", "inverse_cdf_apply")
 ROLL_KERNELS = ("roll_metropolis_sweeps_expspace",)
 FUSED_KERNELS = ("fused_filter_step", "fused_cdf_filter_step")
 COMPOSED_KERNELS = CDF_KERNELS + ROLL_KERNELS
+SHARD_KERNELS = ("inverse_cdf_search", "take_columns",
+                 "inverse_cdf_apply[local_base]")
 
 
 def main_path(card: str) -> None:
@@ -947,6 +1095,123 @@ def pallas_path(card: str) -> None:
                   f"{best['xla'] / best['pallas']:.3f}")
 
 
+def sharded_path(card: str) -> None:
+    """Phase 4c: the sharded filter on a one-rank NCCL group, beside the
+    single-device residual."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import cusmc_tpu_torch
+    from cusmc_tpu_torch.io.data import demo_model_params, load_y_sim
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.parallel import ParticleAxis, \
+        initialize_distributed, process_info, sharded_bootstrap_filter
+    from cusmc_tpu_torch.smc.kalman import kalman_filter
+    from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+
+    p = demo_model_params()
+    ys = load_y_sim()
+    T = ys.shape[0]
+    _, _, loglik = kalman_filter(ys, **{k: p[k] for k in
+                                        ("F", "G", "V", "W", "m0", "C0")})
+    # label -> ((kernel, launches per step at least), ...), kernels unused
+    expect = {
+        "systematic": ((("inverse_cdf_apply[local_base]", 1),
+                        ("blocked_cumsum", 1)),
+                       ("inverse_cdf_apply", "inverse_cdf_search",
+                        "take_columns")),
+        "residual": ((("inverse_cdf_search", 2), ("take_columns", 1),
+                      ("blocked_cumsum", 2)),
+                     ("inverse_cdf_apply", "inverse_cdf_apply[local_base]")),
+        "metropolis": ((("roll_metropolis_sweeps_expspace", 1),),
+                       CDF_KERNELS + SHARD_KERNELS),
+        "single residual": ((("inverse_cdf_apply", 2),
+                             ("blocked_cumsum", 2)), SHARD_KERNELS)}
+
+    def launched(label, before, steps):
+        after = _counts()
+        used, unused = expect[label]
+        for name, per_step in used:
+            grown = after[name] - before[name]
+            assert grown >= per_step * (steps - 1), \
+                f"sharded {label}: {name} launched {grown} times"
+        for name in unused + FUSED_KERNELS:
+            assert after[name] == before[name], \
+                f"sharded {label}: {name} launched"
+        return ", ".join(f"{k}+{after[k] - before[k]}" for k, _ in used)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/store", 1, 0)
+        try:
+            axis = ParticleAxis()
+            print(f"  process group: {process_info()}, {axis}")
+            mvn = DLM.create(noise="mvn", device="cuda", **p)
+
+            def one(label, seed, model, y, n):
+                if label == "single residual":
+                    return bootstrap_filter(seed, model, y, n,
+                                            resampler="residual",
+                                            return_history=False)
+                return sharded_bootstrap_filter(seed, model, y, n, axis,
+                                                resampler=label)
+
+            for label in expect:
+                before = _counts()
+                if label == "single residual":
+                    out = cusmc_tpu_torch.run(
+                        N=1 << 17, d=2, timeSteps=T, Y=ys, m0=p["m0"],
+                        C0=p["C0"], F=p["F"], G=p["G"], V=p["V"], W=p["W"],
+                        resampler="residual", distribution="mvn", key=1,
+                        device="cuda")
+                    assert tuple(out["posterior_x"].shape) == (T, 1 << 17, 2)
+                    for k, v in out.items():
+                        assert v.is_cuda and bool(torch.isfinite(v).all()), k
+                    lz = float(out["log_evidence"])
+                else:
+                    res = one(label, 1, mvn, ys, 1 << 17)
+                    assert res.final_particles.is_cuda
+                    assert tuple(res.final_particles.shape) == (1 << 17, 2)
+                    assert bool(torch.isfinite(res.final_particles).all())
+                    lz = float(res.log_evidence)
+                gap = abs(lz - loglik)
+                print(f"  kalman MVN {label} N=2^17 T={T}: logZ {lz:.3f} vs "
+                      f"Kalman {loglik:.3f} (|gap| {gap:.3f}, limit "
+                      f"{0.02 * abs(loglik):.3f}); launches "
+                      f"{launched(label, before, T)}")
+                assert gap < 0.02 * abs(loglik), f"sharded {label}: logZ off"
+
+            n, steps = N_BIG, 200
+            mvt = DLM.create(noise="mvt", df=5.0, device="cuda", **p)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            _, ys_h = mvt.simulate(gen, steps)
+            for label in expect:
+                one(label, 0, mvt, ys_h, n)  # warm-up
+                torch.cuda.synchronize()
+                best = math.inf
+                for rep in range(3):
+                    before = _counts()
+                    t0 = time.perf_counter()
+                    res = one(label, rep + 1, mvt, ys_h, n)
+                    torch.cuda.synchronize()
+                    best = min(best, time.perf_counter() - t0)
+                    counts = launched(label, before, steps)
+                assert bool(torch.isfinite(res.final_particles).all())
+                assert math.isfinite(float(res.log_evidence))
+                busy = busy_share(lambda: one(label, 7, mvt, ys_h, n))
+                rate = n * (steps - 1) / best
+                ess_rate = float(res.ess.double().sum()) / best
+                print(f"  headline MVT df=5 {label} N=2^20 T={steps} d=2: "
+                      f"{rate:.6g} particle-steps/s, {ess_rate:.6g} ESS/s, "
+                      f"best {best:.4f} s of 3, logZ "
+                      f"{float(res.log_evidence):.3f}, device busy "
+                      f"{busy:.3f}; launches {counts} [{card}]")
+        finally:
+            dist.destroy_process_group()
+
+
 def main() -> int:
     try:
         import torch
@@ -967,6 +1232,7 @@ def main() -> int:
     build_kernels()
     print("kernels against their plain versions:")
     rec = check_kernels()
+    rec.update(check_shard_kernels())
     rec.update(check_fused_kernels())
     print("statistics of the fused kernels:")
     check_statistics()
@@ -979,6 +1245,10 @@ def main() -> int:
     _zero_counts()
     pallas_path(card)
     launches["pallas"] = _counts()
+    print("sharded path (one-rank NCCL group):")
+    _zero_counts()
+    sharded_path(card)
+    launches["sharded"] = _counts()
 
     records = []
     for name, source, replaces, path in KERNELS:

@@ -41,7 +41,11 @@ _F = ctypes.c_float
 # name -> argtypes; every pointer and the stream are c_void_p.
 SIGNATURES = {
     "cusmc_blocked_cumsum": (_P, _P, _P, _LL, _P),
-    "cusmc_inverse_cdf_apply": (_P, _P, _P, _P, _P, _LL, _LL, _I, _P),
+    # cdf, pos, X, out, anc, n, nq, nloc, base, d, stream
+    "cusmc_inverse_cdf_apply": (_P,) * 5 + (_LL,) * 4 + (_I, _P),
+    "cusmc_inverse_cdf_search": (_P, _P, _P, _LL, _LL, _P),
+    # X, a, out, n, m, d, stream
+    "cusmc_take_columns": (_P, _P, _P, _LL, _LL, _I, _P),
     "cusmc_roll_metropolis": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P),
     "cusmc_cumsum_tile": (),
     # X, logw, y, G, Q, F, Li, s, seed, Xo, ll, anc, n, tile, d, k,

@@ -12,7 +12,9 @@ cumsum, (25 + tiles) * eps * total (each element passes through at most
 16 in-thread, 8 shuffle and one tile-offset additions plus one per earlier
 tile), and monotone; the search and the roll walk exactly, since kernel
 and plain version make the same float32 comparisons on the same numbers.
-The fused steps: ancestors exactly (the same Philox bits, the same float32
+The search-only kernel, the take-columns kernel and the local-block mode
+exactly (the same float32 comparisons, pure gathers). The fused steps:
+ancestors exactly (the same Philox bits, the same float32
 accept tests and positions), states and log-likelihoods at rtol 1e-4,
 atol 1e-4 (the kernel sums its d- and k-term products in FMA chains,
 cuBLAS in its own order; the residual y - F x cancels, and the quadratic
@@ -31,7 +33,8 @@ from cusmc_tpu_torch.ops import fused_step as fs
 from cusmc_tpu_torch.ops.cumsum import FOLD, blocked_cumsum, \
     blocked_cumsum_plain
 from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
-    inverse_cdf_apply_plain
+    inverse_cdf_apply_plain, inverse_cdf_search, inverse_cdf_search_plain, \
+    take_columns, take_columns_plain
 from cusmc_tpu_torch.resampling.rolls import roll_metropolis_draws, \
     roll_metropolis_sweeps_expspace, roll_metropolis_sweeps_expspace_plain
 
@@ -75,6 +78,63 @@ def test_cuda_search_kernel(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "concentrated", "zero-runs"])
+@pytest.mark.parametrize("nq_div", [1, 4])
+def test_cuda_search_only_kernel(cuda, case, nq_div):
+    n = 1 << 16
+    cdf, pos, _ = (torch.from_numpy(a).to(cuda) for a in search_inputs(
+        np.random.default_rng(5), case, n, 1))
+    pos = pos[::nq_div].contiguous()  # L = N / nq_div queries
+    before = inverse_cdf_search.launches
+    a = inverse_cdf_search(cdf, pos)
+    assert inverse_cdf_search.launches == before + 1
+    assert torch.equal(a, inverse_cdf_search_plain(cdf, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sorted", "concentrated", "shuffled",
+                                  "out-of-range"])
+def test_cuda_take_columns_kernel(cuda, kind):
+    n, d = 1 << 16, 3
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    X = torch.randn((d, n), generator=gen, device=cuda)
+    a = torch.randint(0, n, (n,), generator=gen, device=cuda)
+    if kind == "sorted":
+        a = torch.sort(a).values
+    elif kind == "concentrated":
+        a = torch.sort(a % 5).values
+    elif kind == "out-of-range":
+        a = a - n // 2 + (a % 3) * n
+    a = a.to(torch.int32)
+    before = take_columns.launches
+    out = take_columns(X, a)
+    assert take_columns.launches == before + 1
+    assert torch.equal(out, take_columns_plain(X, a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "concentrated"])
+def test_cuda_search_kernel_local_block(cuda, case):
+    n, d = 1 << 16, 2
+    cdf, pos, X = (torch.from_numpy(a).to(cuda) for a in search_inputs(
+        np.random.default_rng(3), case, n, d))
+    L = n // 4
+    for p in range(4):
+        base = p * L
+        q = pos[base:base + L].contiguous()
+        blk = X[:, base:base + L].contiguous()
+        before = (inverse_cdf_apply.launches, inverse_cdf_apply.local_launches)
+        y, a = inverse_cdf_apply(cdf, q, blk, local_base=base)
+        assert (inverse_cdf_apply.launches,
+                inverse_cdf_apply.local_launches) == (before[0],
+                                                      before[1] + 1)
+        y_p, a_p = inverse_cdf_apply_plain(cdf, q, blk, local_base=base)
+        assert torch.equal(a, a_p) and torch.equal(y, y_p)
+        hit = (a >= base) & (a < base + L)
+        assert torch.equal(y[:, hit], X[:, a[hit].long()])
+
+
+@pytest.mark.cuda
 def test_cuda_roll_kernel(cuda):
     n = 1_000_003
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -99,6 +159,74 @@ def test_cuda_wrappers_check_their_arguments(cuda):
         inverse_cdf_apply(cdf, cdf, torch.ones(2, 9, device=cuda))
     with pytest.raises(ValueError):
         inverse_cdf_apply(cdf, cdf.cpu(), torch.ones(2, 8, device=cuda))
+
+
+_ONE_RANK = """
+import sys, tempfile, torch
+from cusmc_tpu_torch.io.data import demo_model_params, load_y_sim
+from cusmc_tpu_torch.models.dlm import DLM
+from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \\
+    inverse_cdf_search, take_columns
+from cusmc_tpu_torch.parallel import ParticleAxis, initialize_distributed, \\
+    sharded_bootstrap_filter
+from cusmc_tpu_torch.resampling.rolls import roll_metropolis_sweeps_expspace
+import torch.distributed as dist
+with tempfile.TemporaryDirectory() as tmp:
+    initialize_distributed(f"file://{tmp}/store", 1, 0)
+    assert dist.get_backend() == "nccl"
+    axis = ParticleAxis()
+    model = DLM.create(noise="mvn", device="cuda", **demo_model_params())
+    ys = load_y_sim()[:50]
+    for r, count in (("systematic", lambda: inverse_cdf_apply.local_launches),
+                     ("residual", lambda: (inverse_cdf_search.launches,
+                                           take_columns.launches)),
+                     ("metropolis",
+                      lambda: roll_metropolis_sweeps_expspace.launches)):
+        before = count()
+        res = sharded_bootstrap_filter(0, model, ys, 1 << 14, axis,
+                                       resampler=r)
+        assert res.final_particles.is_cuda
+        assert bool(torch.isfinite(res.log_evidence))
+        print(r, before, count(), float(res.log_evidence))
+    dist.destroy_process_group()
+print("ok")
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_filter_on_a_one_rank_nccl_group(cuda):
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _ONE_RANK], cwd=root,
+                          capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=root))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines = proc.stdout.split("\n")
+    assert lines[-2] == "ok"
+    sysl, res, met = lines[:3]
+    assert int(sysl.split()[2]) - int(sysl.split()[1]) == 49
+    assert "(0, 0) (98, 49)" in res
+    assert int(met.split()[2]) - int(met.split()[1]) == 49
+
+
+@pytest.mark.cuda
+def test_cuda_residual_run_through_the_kernels(cuda):
+    import cusmc_tpu_torch
+    from cusmc_tpu_torch.io.data import load_y_sim
+
+    p = demo_model_params()
+    ys = load_y_sim()[:50]
+    before = [f.launches for f in (blocked_cumsum, inverse_cdf_apply)]
+    out = cusmc_tpu_torch.run(4096, 2, 50, ys, p["m0"], p["C0"], p["F"],
+                              p["G"], p["V"], p["W"], resampler="residual",
+                              key=0, device=cuda)
+    assert bool(torch.isfinite(out["log_evidence"]))
+    # Two cumsums and two searches a step: the floor grid and remainders.
+    assert [f.launches - b for f, b in zip(
+        (blocked_cumsum, inverse_cdf_apply), before)] == [98, 98]
 
 
 @pytest.mark.cuda

@@ -189,11 +189,14 @@ def test_unported_options_raise():
     tm = port_model(jax_model("mvn"))
     ys = torch.zeros(5, 2)
     # engine="pallas" is ported; 64 particles are too few for its tile.
+    # The residual resampler and injected exp-space ops are ported; a
+    # sharded run without an op, injected log-space ops and debug_checks
+    # are not.
     for kw, exc in ((dict(engine="pallas"), ValueError),
                     (dict(layout="batch"), NotImplementedError),
-                    (dict(resampler="residual"), NotImplementedError),
                     (dict(axis_name="particles"), NotImplementedError),
                     (dict(resample_op=lambda *a: a), NotImplementedError),
+                    (dict(debug_checks=True), NotImplementedError),
                     (dict(resampler="nope"), KeyError),
                     (dict(engine="other"), ValueError)):
         with pytest.raises(exc):

@@ -159,3 +159,40 @@ def test_metropolis_ancestors_match_jax_exactly(kind):
     drawn = metropolis.metropolis_ancestors(gen, torch.from_numpy(logw), B)
     assert drawn.dtype == torch.int32 and drawn.shape == (N,)
     assert int(drawn.min()) >= 0 and int(drawn.max()) < N
+
+
+def _dyadic_logw(rng, n=N):
+    """Log weights whose softmax is exact: {1, 1/2, 1/4, 1/8} summing to
+    n / 2, so every normalised weight and cdf entry is dyadic."""
+    n8, n4 = int(0.3 * n), n // 5
+    n2 = 3 * n - 7 * n8 - 3 * n4
+    w = np.repeat(np.float32([1.0, 0.5, 0.25, 0.125]),
+                  [n8, n4, n2, n - n8 - n4 - n2])
+    return np.log(rng.permutation(w)).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["systematic", "stratified", "multinomial"])
+def test_ancestor_functions_match_jax(monkeypatch, name):
+    # Exact: dyadic weights make both packages' cdfs exact, and JAX's
+    # sorted uniforms are handed the port's (its log and cumsum round in
+    # another order).
+    logw = _dyadic_logw(np.random.default_rng(4))
+    key = jax.random.key(12)
+    if name == "multinomial":
+        u = np.array(jax.random.uniform(key, (N + 1,), jnp.float32,
+                                        minval=TINY))
+        pos = jnp.asarray(classic.sorted_from_uniforms(
+            torch.from_numpy(u)).numpy())
+        monkeypatch.setattr(jclassic, "sorted_uniforms",
+                            lambda k, n, dtype: pos)
+    else:
+        shape = () if name == "systematic" else (N,)
+        u = np.array(jax.random.uniform(key, shape, jnp.float32))
+    ref = getattr(jclassic, f"{name}_ancestors")(key, jnp.asarray(logw))
+    ours = getattr(classic, f"{name}_ancestors")(
+        None, torch.from_numpy(logw), torch.from_numpy(u))
+    assert ours.dtype == torch.int32
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    drawn = getattr(classic, f"{name}_ancestors")(
+        torch.Generator().manual_seed(1), torch.from_numpy(logw))
+    assert int(drawn.min()) >= 0 and int(drawn.max()) < N
