@@ -10,15 +10,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    one process per source, all started together.
 3. Kernels: each kernel against its plain PyTorch version on the same
    tensors, with the tolerance stated beside each check. The prefix sum,
-   the search and the roll walk at N = 2^20 and a ragged N, d = 2; the
-   fused Metropolis step at N = 2^20, d = 2 and 32, MVN and MVT df=5; the
-   fused inverse-CDF step, systematic and stratified, at N = 2^20 and
-   N = 1_000_448, d = 2 and 32. Ancestors must be equal; a mismatch is
-   allowed only at an exact accept or cdf tie, and each one is shown to
-   be one. Then each kernel's and its plain version's time per call (CUDA
-   events, median; launch cost included), device time per call
+   the search and the roll walk at N = 2^20 and a ragged N, d = 2 (the
+   prefix sum also at a few-element N, on weights that stress its tile
+   boundaries, with one kernel a call counted by the profiler and the same
+   result on a second call); the fused Metropolis step at N = 2^20, d = 2,
+   16 and 32, MVN and MVT df=5, with the design each d takes ("thread" or
+   "tile"); the fused inverse-CDF step, systematic and stratified, at
+   N = 2^20 and N = 1_000_448, d = 2 and 32. Ancestors must be equal; a
+   mismatch is allowed only at an exact accept or cdf tie, and each one is
+   shown to be one. Then each kernel's and its plain version's time per
+   call (CUDA events, median; launch cost included), device time per call
    (torch.profiler), one PyTorch library call of the same function where
-   there is one, and the least time the card could take (bound).
+   there is one (event and device time), and the least time the card
+   could take (bound).
 3b. Statistics of the fused kernels (benchmarks/validate_fused_tpu.py
    checks 1-5d with their thresholds): zero-noise consistency, offspring
    against the indexed Metropolis resampler, noise moments, the inverse-CDF
@@ -72,6 +76,7 @@ N_BIG = 1 << 20
 N_RAGGED = 1_000_003
 N_RAGGED_CDF = 1_000_448  # 977 * 1024: the fused CDF step needs N % 1024
 D = 2
+D_MID = 16   # the narrower width of the fused step's "block" design
 D_WIDE = 32
 TIMING_REPS = 20
 PLAIN_FUSED_REPS = 5      # the plain fused steps take tens of ms a call
@@ -108,23 +113,48 @@ def median_ms(fn, reps: int = TIMING_REPS) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, reps: int = TIMING_REPS) -> float:
-    """Device time per call of ``fn``: the kernels' own time summed by
-    torch.profiler over ``reps`` calls, without the host's launch cost
-    that the event timing of a short call also holds."""
+def _profile_kernels(fn, reps: int, attempts: int = 3) -> dict:
+    """kernel name -> (launches, device microseconds) that torch.profiler
+    recorded over ``reps`` calls of ``fn``. torch.profiler has returned
+    no kernel record at all for a whole profiling session, in a process
+    that followed another profiling process: such a session is run
+    again, up to ``attempts`` times (an empty result then fails the
+    caller's check)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {e.key: (e.count, e.self_device_time_total)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA}
+        if kernels:
+            return kernels
+        print("  (torch.profiler recorded no kernel; profiling again)")
+    return {}
+
+
+def device_ms(fn, reps: int = TIMING_REPS) -> float:
+    """Device time per call of ``fn``: each kernel's mean duration over
+    ``reps`` calls (torch.profiler) times its launches a call, summed;
+    without the host's launch cost that the event timing of a short call
+    also holds. The profiler can drop kernel records, so a kernel's
+    launches a call are its recorded launches over ``reps``, rounded, and
+    its mean is taken over the records it kept."""
+    fn()
+    total_us = 0.0
+    for name, (count, us) in _profile_kernels(fn, reps).items():
+        per_call = max(1, round(count / reps))
+        if count != per_call * reps:
+            print(f"  (torch.profiler kept {count} of {per_call * reps} "
+                  f"launches of {name[:60]})")
+        total_us += us / count * per_call
     assert total_us > 0, "the profiler saw no device time"
-    return total_us / reps / 1e3
+    return total_us / 1e3
 
 
 def busy_share(fn) -> float:
@@ -157,7 +187,8 @@ def bound(nbytes: float, flops: float):
 def time_kernel(name, kern, plain, library, label, nbytes, flops,
                 plain_reps=TIMING_REPS) -> dict:
     """Times a kernel, its plain version (alternating plain, kernel,
-    kernel, plain) and the library call; returns the record fields."""
+    kernel, plain) and the library call, each by CUDA events and by device
+    time; returns the record fields."""
     p1 = median_ms(plain, plain_reps)
     k1 = median_ms(kern)
     k2 = median_ms(kern)
@@ -165,16 +196,27 @@ def time_kernel(name, kern, plain, library, label, nbytes, flops,
     lib = None if library is None else median_ms(library)
     dk = device_ms(kern)
     dp = device_ms(plain, plain_reps)
+    dl = None if library is None else device_ms(library)
     bound_ms, bound_by = bound(nbytes, flops)
     print(f"  time {name} {label}: kernel {k1:.4f}/{k2:.4f} ms, plain "
           f"{p1:.4f}/{p2:.4f} ms per call (CUDA events, median); device "
           f"time per call: kernel {dk:.4f} ms, plain {dp:.4f} ms "
           f"(torch.profiler); library "
-          f"{'none' if lib is None else f'{lib:.4f} ms'}; bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+          f"{'none' if lib is None else f'{lib:.4f} ms, device {dl:.4f} ms'}"
+          f"; bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
           f"{flops / 1e9:.2f} GFLOP)")
     return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib}
+            "bound_by": bound_by, "library_ms": lib,
+            "device_ms": dk, "library_device_ms": dl}
+
+
+def kernels_per_call(fn, reps: int = TIMING_REPS) -> int:
+    """The number of device kernels one call of ``fn`` launches: the
+    launches torch.profiler recorded over ``reps`` calls, over ``reps``,
+    rounded."""
+    fn()
+    kernels = _profile_kernels(fn, reps)
+    return round(sum(count for count, _ in kernels.values()) / reps)
 
 
 def build_kernels() -> float:
@@ -196,13 +238,15 @@ def build_kernels() -> float:
 
 
 def _cumsum_case(w, name):
-    """Kernel vs plain (torch.cumsum) vs float64: monotone, and within a
-    worst-case f32 bound. The kernel's rounding steps per element are at
-    most 16 (in-thread) + 8 (shuffle and warp scans) + 1 (tile offset) +
-    one per earlier tile, each an error of at most eps * total."""
+    """Kernel vs plain (torch.cumsum) vs float64: monotone, and within the
+    worst-case f32 bound of csrc/cumsum.cu: at most 26 + tiles roundings
+    per element (15 in-thread, 5 shuffle and 4 warp-offset levels, the two
+    additions applying them, one per earlier tile, the final one), so
+    |cdf - exact| <= gamma(26 + tiles) total, gamma(k) = k u / (1 - k u),
+    u = 2^-24."""
     import torch
 
-    from cusmc_tpu_torch.ops.cumsum import FOLD, blocked_cumsum, \
+    from cusmc_tpu_torch.ops.cumsum import FOLD, TILE, blocked_cumsum, \
         blocked_cumsum_plain
 
     n = w.shape[0]
@@ -210,16 +254,35 @@ def _cumsum_case(w, name):
     plain, _ = blocked_cumsum_plain(w)
     ref = torch.cumsum(w.double(), 0)
     total = float(ref[-1])
-    tiles = -(-n // 4096)
-    bound_ = (25 + tiles) * torch.finfo(torch.float32).eps * total
+    k = 26 + -(-n // TILE)
+    u = 2.0 ** -24
+    bound_ = k * u / (1.0 - k * u) * total
     err64 = float((cdf.double() - ref).abs().max())
     err_plain = float((cdf - plain).abs().max())
     assert bool(torch.all(cdf[1:] >= cdf[:-1])), f"{name}: cdf not monotone"
     assert err64 <= bound_, f"{name}: |cdf - f64| = {err64} > {bound_}"
     assert torch.equal(cdf128, cdf[FOLD - 1::FOLD])
+    again, _ = blocked_cumsum(w)
+    assert torch.equal(again, cdf), f"{name}: a second call differs"
     print(f"  cumsum {name}: N={n} max|kernel-f64|={err64:.3e} "
-          f"max|kernel-plain|={err_plain:.3e} bound={bound_:.3e} monotone")
+          f"max|kernel-plain|={err_plain:.3e} bound={bound_:.3e} monotone, "
+          f"the same on a second call")
     return err_plain
+
+
+def _adversarial_weights(gen, n, dev):
+    """Weights that stress the tile boundaries: magnitudes over 2^40
+    (2^-40 .. 1), zero runs of 9000 elements (longer than a tile) every
+    12288, so that whole tiles and tile edges carry no mass, and a heavy
+    head so the total dwarfs the small tails."""
+    import torch
+
+    e = torch.randint(-40, 1, (n,), generator=gen, device=dev)
+    w = torch.exp2(e.float()) * torch.rand(n, generator=gen, device=dev)
+    i = torch.arange(n, device=dev)
+    w[(i % 12288) >= 3288] = 0.0
+    w[:min(n, 3)] = 1.0
+    return w
 
 
 def _search_case(cdf, X, name):
@@ -301,7 +364,8 @@ def check_kernels() -> dict:
 
         errs = [_cumsum_case(w, f"{tag}/{name}") for name, w in
                 (("uniform", w_unif), ("exp", w_exp),
-                 ("concentrated", w_conc), ("zero-runs", w_zero))]
+                 ("concentrated", w_conc), ("zero-runs", w_zero),
+                 ("adversarial", _adversarial_weights(gen, n, dev)))]
         serrs = []
         for name, w in (("exp", w_exp), ("uniform", w_unif),
                         ("concentrated", w_conc), ("zero-runs", w_zero)):
@@ -315,6 +379,14 @@ def check_kernels() -> dict:
         if n != N_BIG:
             continue
 
+        for m in (1, 2, 5, 8191, 8193, 3 * 8192 + 7):
+            for name, w in (("uniform", w_unif[:m].contiguous()),
+                            ("adversarial", _adversarial_weights(gen, m,
+                                                                 dev))):
+                errs.append(_cumsum_case(w, f"few/{name}"))
+        count = kernels_per_call(lambda: blocked_cumsum(w_exp))
+        assert count == 1, f"blocked_cumsum ran {count} kernels a call"
+        print(f"  cumsum N=2^20: {count} kernel a call (torch.profiler)")
         cdf, _ = blocked_cumsum(w_exp)
         pos = (torch.arange(n, device=dev, dtype=torch.float32) + 0.5) / n \
             * cdf[-1]
@@ -560,7 +632,8 @@ def _fused_step_case(n, d, noise, gen, dev):
     import torch
 
     from cusmc_tpu_torch.ops.fused_step import auto_tile, \
-        fused_filter_step, fused_filter_step_draws, fused_filter_step_plain
+        fused_filter_step, fused_filter_step_draws, fused_filter_step_plain, \
+        step_path
 
     m, (G, Q, F, Li) = _fused_model(d, noise, dev)
     X, logw, y = _state(gen, d, n, dev)
@@ -578,7 +651,8 @@ def _fused_step_case(n, d, noise, gen, dev):
             margin = _metropolis_margin(X, logw, draws, tile, 2, 10, p)
             assert margin <= ACCEPT_TIE, f"slot {p}: margin {margin}"
 
-    label = f"fused_step N={n} d={d} {noise} tile={tile}"
+    label = (f"fused_step N={n} d={d} {noise} tile={tile} "
+             f"path={step_path(d, d)}")
     err, nbad = _compare(label, a, a_p, (x, ll), (x_p, ll_p), ties)
     moved = float((a != torch.arange(n, device=dev)).float().mean())
     print(f"  {label}: ancestors {'equal' if not nbad else 'equal but ties'}"
@@ -635,14 +709,14 @@ def check_fused_kernels() -> dict:
     from cusmc_tpu_torch.ops.fused_cdf_step import fused_cdf_filter_step, \
         fused_cdf_filter_step_plain
     from cusmc_tpu_torch.ops.fused_step import fused_filter_step, \
-        fused_filter_step_plain
+        fused_filter_step_plain, step_path
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(4321)
     rec = {}
     step_errs, step_cases = [], {}
-    for d in (D, D_WIDE):
+    for d in (D, D_MID, D_WIDE):
         for noise in ("mvn", "mvt"):
             err, args, kw = _fused_step_case(N_BIG, d, noise, gen, dev)
             step_errs.append(err)
@@ -656,7 +730,7 @@ def check_fused_kernels() -> dict:
                 cdf_errs.append(err)
                 if n == N_BIG and mode == "systematic":
                     cdf_cases[d] = (args, kw)
-    for d in (D_WIDE, D):  # d = 2 last: its numbers go into the record
+    for d in (D_WIDE, D_MID, D):  # d = 2 last: its numbers are recorded
         flops = 2.0 * 4 * d * d * N_BIG   # G, Q, F, Li at k = d
         nbytes = (8 * d + 12) * N_BIG
         args, kw = step_cases[d]
@@ -664,8 +738,10 @@ def check_fused_kernels() -> dict:
                                         **time_kernel(
             "fused_filter_step", lambda: fused_filter_step(*args, **kw),
             lambda: fused_filter_step_plain(*args, **kw), None,
-            f"N=2^20 d={d} MVT df=5 B=10 tile={kw['tile']}", nbytes, flops,
-            PLAIN_FUSED_REPS))
+            f"N=2^20 d={d} MVT df=5 B=10 tile={kw['tile']} "
+            f"path={step_path(d, d)}", nbytes, flops, PLAIN_FUSED_REPS))
+        if d == D_MID:
+            continue
         cargs, ckw = cdf_cases[d]
         rec["fused_cdf_filter_step"] = dict(max_abs_err=max(cdf_errs),
                                             **time_kernel(

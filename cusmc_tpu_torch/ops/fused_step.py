@@ -29,6 +29,13 @@ first uniforms of the d normals, then their partners), then the
 chi-square rows (``df_int // 2 + 2 (df_int % 2)``, or 3 per
 Marsaglia-Tsang round).
 
+The kernel has two designs of its propagate-and-reweight half, chosen by
+``step_path(d, k)``: "tile" (d = k in {16, 32}: each warp's 32 particles
+through the four matrix products as 3xTF32 tensor-core tiles,
+``csrc/tile_propagate.cuh``) and "thread" (every other shape: one
+particle per thread, ``csrc/propagate.cuh``). Both draw the same bits
+and give the same ancestors; the plain version is the same for both.
+
 The port computes in float32: the TPU kernel's single-pass bf16 matrix
 unit at d > 8 is not emulated, and a bfloat16 state waits for the DLM's
 mixed precision (ROADMAP queue 1, item 3).
@@ -111,6 +118,15 @@ def auto_tile(n: int, dk: int, state_itemsize: int = 4) -> int:
     while t * 2 <= min(cap, 16384, n // 2) and n % (t * 2) == 0:
         t *= 2
     return t
+
+
+TILE_DIMS = (16, 32)  # d = k compiled for the "tile" design
+
+
+def step_path(d: int, k: int) -> str:
+    """The design the kernel runs for state width d and observation width
+    k: "tile" for d = k in ``TILE_DIMS``, else "thread"."""
+    return "tile" if d == k and d in TILE_DIMS else "thread"
 
 
 def fused_filter_step_draws(gen: Optional[torch.Generator], n: int,
@@ -314,7 +330,8 @@ def fused_filter_step(X, logw, y, G, Q, F, Li, df, log_norm, draws, *,
         seed.data_ptr(), x_new.data_ptr(), ll.data_ptr(), a.data_ptr(), n,
         tile, d, k, num_sweeps, num_window_tiles, int(noise == "mvt"),
         0 if df_int is None else df_int, 1.0 if df is None else float(df),
-        float(log_norm), kernels.stream_of(X))
+        float(log_norm), int(step_path(d, k) == "tile"),
+        kernels.stream_of(X))
     kernels.check(rc, "fused_filter_step")
     fused_filter_step.launches += 1
     return x_new, ll, a

@@ -40,17 +40,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argtypes; every pointer and the stream are c_void_p.
 SIGNATURES = {
-    "cusmc_blocked_cumsum": (_P, _P, _P, _LL, _P),
+    # w, cdf, state, state_words, n, ticket_base, epoch, stream
+    "cusmc_blocked_cumsum": (_P, _P, _P, _LL, _LL, _LL, _I, _P),
     # cdf, pos, X, out, anc, n, nq, nloc, base, d, stream
     "cusmc_inverse_cdf_apply": (_P,) * 5 + (_LL,) * 4 + (_I, _P),
     "cusmc_inverse_cdf_search": (_P, _P, _P, _LL, _LL, _P),
     # X, a, out, n, m, d, stream
     "cusmc_take_columns": (_P, _P, _P, _LL, _LL, _I, _P),
     "cusmc_roll_metropolis": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P),
-    "cusmc_cumsum_tile": (),
     # X, logw, y, G, Q, F, Li, s, seed, Xo, ll, anc, n, tile, d, k,
-    # num_sweeps, num_window_tiles, noise, df_int, df, log_norm, stream
-    "cusmc_fused_step": (_P,) * 12 + (_LL, _LL) + (_I,) * 6 + (_F, _F, _P),
+    # num_sweeps, num_window_tiles, noise, df_int, df, log_norm, tiled,
+    # stream
+    "cusmc_fused_step": (_P,) * 12 + (_LL, _LL) + (_I,) * 6
+    + (_F, _F, _I, _P),
     # cdf, X, y, G, Q, F, Li, u, seed, Xo, ll, anc, n, tile, d, k, mode,
     # noise, df_int, df, log_norm, stream
     "cusmc_fused_cdf_step": (_P,) * 12 + (_LL, _LL) + (_I,) * 5

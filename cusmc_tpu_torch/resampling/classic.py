@@ -16,13 +16,19 @@ Each generator is split into its draws and a pure transform
 ancestor function takes ``(gen, log_weights, u=None)``, where ``u`` are the
 uniforms it would draw.
 
-The residual remainder draws are clamped at the value level, one ulp below
-the remainder cdf total (``clamped_residual_values``), in every residual
-of the port. That is the JAX sharded residual's law
-(``cusmc_tpu/parallel/resampling.py:220-227``); the JAX single-device
-residual clamps the unit positions at 1 - 1e-6 instead
-(``cusmc_tpu/smc/particle_filter.py:445-446``), which moves the top order
-statistic off a last bin narrower than 1e-6 of the total.
+Each residual of the port computes its JAX counterpart's law for the top
+remainder draw, so that the parity tests hold exactly:
+
+- ``residual_ancestors`` (``cusmc_tpu/resampling/classic.py:173``) does not
+  clamp: ``v = pos * rcdf[-1]``, the rank clipped to N - 1;
+- the packed single-device residual (``smc/particle_filter.py``,
+  ``cusmc_tpu/smc/particle_filter.py:445-446``) caps the unit positions at
+  1 - 1e-6 (``capped_residual_values``);
+- the sharded residual (``parallel/resampling.py``,
+  ``cusmc_tpu/parallel/resampling.py:220-227``) clamps the values one ulp
+  below the remainder cdf total (``clamped_residual_values``).
+
+The three differ only for a top order statistic above 1 - 1e-6.
 """
 
 from __future__ import annotations
@@ -150,6 +156,15 @@ def clamped_residual_values(u: torch.Tensor, n_det: torch.Tensor,
                          top)
 
 
+def capped_residual_values(u: torch.Tensor, n_det: torch.Tensor,
+                           rtot: torch.Tensor) -> torch.Tensor:
+    """Remainder search values ``min(pos, 1 - 1e-6) * rtot``: the unit
+    positions capped at the fixed quantile 1 - 1e-6 (float32), the law of
+    the JAX single-device packed residual."""
+    return torch.clamp_max(residual_positions_from_uniforms(u, n_det),
+                           1.0 - 1e-6) * rtot
+
+
 def residual_draws(gen: Optional[torch.Generator], n: int,
                    dtype=torch.float32, device=None) -> torch.Tensor:
     """The residual resampler's n+1 uniforms in [tiny, 1)."""
@@ -189,7 +204,7 @@ def residual_ancestors(gen: Optional[torch.Generator],
     det = torch.searchsorted(ccum, slots.to(ccum.dtype), right=True)
     det = det.clamp_(max=n - 1)
     rcdf = torch.cumsum(resid, dim=0)
-    v = clamped_residual_values(u, n_det, rcdf[-1])
+    v = residual_positions_from_uniforms(u, n_det) * rcdf[-1]
     res = torch.searchsorted(rcdf, v, right=True).clamp_(0, n - 1)
     res = res[roll_right(n, n_det)]
     return torch.where(slots < n_det, det, res).to(torch.int32)

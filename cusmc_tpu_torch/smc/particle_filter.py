@@ -88,7 +88,7 @@ from cusmc_tpu_torch.parallel.mesh import (
 )
 from cusmc_tpu_torch.resampling.classic import (
     POSITION_FNS,
-    clamped_residual_values,
+    capped_residual_values,
     residual_draws,
     roll_right,
 )
@@ -175,7 +175,7 @@ def _residual_resample_packed(X: torch.Tensor, nw: torch.Tensor,
     """Residual resampling of packed X [d, n] from pre-scaled weights
     ``nw`` [n] (n w / sum w) and n+1 uniforms ``u``: two inverse-CDF
     kernel passes (the floor-count grid and the remainder order
-    statistics, clamped by ``clamped_residual_values``) and a roll right by
+    statistics, capped by ``capped_residual_values``) and a roll right by
     n_det as a device index map, so n_det is never read back to the host.
     Returns ``(x_anc [d, n], ancestors [n])``."""
     n = nw.shape[0]
@@ -189,7 +189,7 @@ def _residual_resample_packed(X: torch.Tensor, nw: torch.Tensor,
     p_det = torch.minimum(slots + 0.5, n_det.to(nw.dtype) - 0.5)
     x_det, a_det = inverse_cdf_apply(ccum, p_det, X)
     x_res, a_res = inverse_cdf_apply(
-        rcdf, clamped_residual_values(u, n_det, rcdf[-1]), X)
+        rcdf, capped_residual_values(u, n_det, rcdf[-1]), X)
     # Remainder draw k belongs to slot n_det + k: roll right by n_det.
     idx = roll_right(n, n_det)
     mask = slots < n_det

@@ -8,17 +8,19 @@ imports jax):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: the cumsum within a worst-case float32 bound of a float64
-cumsum, (25 + tiles) * eps * total (each element passes through at most
-16 in-thread, 8 shuffle and one tile-offset additions plus one per earlier
-tile), and monotone; the search and the roll walk exactly, since kernel
+cumsum, gamma(26 + tiles) * total with u = 2^-24 (each element passes
+through at most 15 in-thread, 5 shuffle, 4 warp-offset and 2 applying
+additions, one per earlier 8192-element tile and a final one), monotone,
+and the same on every call; the search and the roll walk exactly, since kernel
 and plain version make the same float32 comparisons on the same numbers.
 The search-only kernel, the take-columns kernel and the local-block mode
 exactly (the same float32 comparisons, pure gathers). The fused steps:
 ancestors exactly (the same Philox bits, the same float32
 accept tests and positions), states and log-likelihoods at rtol 1e-4,
-atol 1e-4 (the kernel sums its d- and k-term products in FMA chains,
-cuBLAS in its own order; the residual y - F x cancels, and the quadratic
-form multiplies it by Li).
+atol 1e-4 (the kernel sums its d- and k-term products in FMA chains, or
+at d = k in {16, 32} in 3xTF32 tensor-core tiles, cuBLAS in its own
+order; the residual y - F x cancels, and the quadratic form multiplies it
+by Li).
 """
 
 import numpy as np
@@ -30,7 +32,7 @@ from _torch_inputs import search_inputs
 from cusmc_tpu_torch.io.data import demo_model_params
 from cusmc_tpu_torch.ops import fused_cdf_step as fc
 from cusmc_tpu_torch.ops import fused_step as fs
-from cusmc_tpu_torch.ops.cumsum import FOLD, blocked_cumsum, \
+from cusmc_tpu_torch.ops.cumsum import FOLD, TILE, blocked_cumsum, \
     blocked_cumsum_plain
 from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
     inverse_cdf_apply_plain, inverse_cdf_search, inverse_cdf_search_plain, \
@@ -46,23 +48,51 @@ def cuda():
     return torch.device("cuda")
 
 
+def _cumsum_bound(n, total):
+    """gamma(26 + tiles) * total, u = 2^-24: csrc/cumsum.cu's worst-case
+    rounding depth per element."""
+    k = 26 + -(-n // TILE)
+    u = 2.0 ** -24
+    return k * u / (1.0 - k * u) * total
+
+
+def _check_cumsum(w):
+    before = blocked_cumsum.launches
+    cdf, cdf128 = blocked_cumsum(w)
+    assert blocked_cumsum.launches == before + 1
+    plain, _ = blocked_cumsum_plain(w)
+    ref = torch.cumsum(w.double(), 0)
+    bound = _cumsum_bound(w.shape[0], float(ref[-1]))
+    assert float((cdf.double() - ref).abs().max()) <= bound
+    assert float((cdf - plain).abs().max()) <= 2 * bound
+    assert bool(torch.all(cdf[1:] >= cdf[:-1]))
+    assert torch.equal(cdf128, cdf[FOLD - 1::FOLD])
+    assert torch.equal(blocked_cumsum(w)[0], cdf)  # the same every call
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 4097, 1 << 20, 1_000_003])
 def test_cuda_cumsum_kernel(cuda, n):
     gen = torch.Generator(device=cuda).manual_seed(n)
     w = torch.rand(n, generator=gen, device=cuda)
     w[::7] = 0.0
-    before = blocked_cumsum.launches
-    cdf, cdf128 = blocked_cumsum(w)
-    assert blocked_cumsum.launches == before + 1
-    plain, _ = blocked_cumsum_plain(w)
-    ref = torch.cumsum(w.double(), 0)
-    tiles = -(-n // 4096)
-    bound = (25 + tiles) * torch.finfo(torch.float32).eps * float(ref[-1])
-    assert float((cdf.double() - ref).abs().max()) <= bound
-    assert float((cdf - plain).abs().max()) <= 2 * bound
-    assert bool(torch.all(cdf[1:] >= cdf[:-1]))
-    assert torch.equal(cdf128, cdf[FOLD - 1::FOLD])
+    _check_cumsum(w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 5, TILE - 1, TILE + 1, 3 * TILE + 7,
+                               1_000_003, 1 << 20])
+def test_cuda_cumsum_kernel_adversarial(cuda, n):
+    # Magnitudes over 2^40, zero runs longer than a tile that cross tile
+    # edges, a heavy head; and a view 4 bytes off 16-byte alignment.
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    e = torch.randint(-40, 1, (n + 1,), generator=gen, device=cuda)
+    w = torch.exp2(e.float()) * torch.rand(n + 1, generator=gen, device=cuda)
+    i = torch.arange(n + 1, device=cuda)
+    w[(i % 12288) >= 3288] = 0.0
+    w[:3] = 1.0
+    _check_cumsum(w[:n])
+    _check_cumsum(w[1:])
 
 
 @pytest.mark.cuda
@@ -268,7 +298,9 @@ def _close(ours, plain):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,noise,df,wt", [
     (2, "mvn", None, 2), (2, "mvt", 5.0, 2), (2, "mvt", 5.5, 3),
-    (32, "mvt", 5.0, 2), (5, "mvn", None, 2)])
+    (32, "mvt", 5.0, 2), (5, "mvn", None, 2), (16, "mvn", None, 2),
+    (16, "mvt", 5.0, 3), (16, "mvt", 5.5, 2), (32, "mvn", None, 3),
+    (32, "mvt", 5.5, 3)])
 def test_cuda_fused_step_kernel(cuda, d, noise, df, wt):
     n, tile = 1 << 16, 2048
     gen = torch.Generator(device=cuda).manual_seed(d)
@@ -282,6 +314,7 @@ def test_cuda_fused_step_kernel(cuda, d, noise, df, wt):
     x, ll, a = fs.fused_filter_step(X, logw, y, G, Q, F, Li, df_, log_norm,
                                     draws, **kw)
     assert fs.fused_filter_step.launches == before + 1
+    assert fs.step_path(d, d) == ("tile" if d in (16, 32) else "thread")
     x_p, ll_p, a_p = fs.fused_filter_step_plain(X, logw, y, G, Q, F, Li,
                                                 df_, log_norm, draws, **kw)
     assert torch.equal(a, a_p)

@@ -82,6 +82,42 @@ def test_step_matches_jax_kernel_with_zero_bits(noise, df, df_int, wt):
         a.numpy(), ((i + s0) % (N // TILE)) * TILE + lane)
 
 
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("noise,df,df_int", [("mvn", None, None),
+                                             ("mvt", 5.0, 5)])
+def test_step_matches_jax_kernel_at_tile_widths(d, noise, df, df_int):
+    # The widths whose kernel takes the "tile" design: the plain version
+    # it is held to on the card agrees with the JAX kernel here.
+    X, logw, y, G, Q, F, Li = _inputs(d=d)
+    key = jax.random.key(13)
+    xr, llr, ar = jax_fused_step(
+        key, *map(jnp.asarray, (X, logw, y, G, Q, F, Li)),
+        None if df is None else jnp.float32(df), jnp.float32(-1.25),
+        noise=noise, num_sweeps=10, tile=TILE, interpret=True,
+        df_int=df_int)
+    x, ll, a = fs.fused_filter_step_plain(
+        *map(torch.from_numpy, (X, logw, y, G, Q, F, Li)), df, -1.25,
+        fused_step_draws(key, N, TILE), noise=noise, num_sweeps=10,
+        tile=TILE, df_int=df_int, bits=zero_bits)
+    assert fs.step_path(d, d) == "tile"
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ar))
+    np.testing.assert_allclose(x.numpy(), np.asarray(xr), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(ll.numpy(), np.asarray(llr), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("d,k,path", [
+    (2, 2, "thread"), (4, 4, "thread"), (8, 8, "thread"), (16, 16, "tile"),
+    (32, 32, "tile"), (16, 8, "thread"), (5, 5, "thread"),
+    (64, 64, "thread")])
+def test_step_path_by_shape(d, k, path):
+    # A plain function of (d, k): the tile design exactly where the
+    # kernel compiles it (d = k in TILE_DIMS).
+    assert fs.step_path(d, k) == path
+    assert (path == "tile") == (d == k and d in fs.TILE_DIMS)
+
+
 @pytest.mark.parametrize("noise,df", [("mvn", None), ("mvt", 5.0),
                                       ("mvt", 5.5)])
 def test_model_log_norm_matches_fused_factories(noise, df):

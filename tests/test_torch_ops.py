@@ -24,7 +24,8 @@ from cusmc_tpu.ops.cumsum import blocked_cumsum as jax_blocked_cumsum
 from cusmc_tpu.ops import monotone_gather as jmg
 from cusmc_tpu.ops.monotone_gather import inverse_cdf_apply as jax_icdf
 from cusmc_tpu_torch.device import resolve_device
-from cusmc_tpu_torch.ops.cumsum import FOLD, blocked_cumsum
+from cusmc_tpu_torch.ops.cumsum import EPOCH_LIMIT, FOLD, TILE, ScanState, \
+    blocked_cumsum
 from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
     inverse_cdf_search, take_columns
 
@@ -45,6 +46,32 @@ def test_cumsum_any_length():
     cdf, cdf128 = blocked_cumsum(torch.ones(FOLD * 3 + 5))
     np.testing.assert_allclose(cdf.numpy(), np.arange(1, FOLD * 3 + 6))
     assert cdf128.shape == (3,)
+
+
+@pytest.mark.parametrize("kind", ["reuse", "grow", "wrap"])
+def test_scan_state_epochs_and_tickets(kind):
+    # The CUDA scan's look-back state: each call a new epoch and the
+    # ticket base of the tiles handed out before it, on one buffer zeroed
+    # once; a larger call or the epoch limit starts a fresh buffer.
+    st = ScanState("cpu")
+    buf, epoch, base = st.next_call(3 * TILE)
+    assert (epoch, base) == (1, 0) and buf.numel() >= 4
+    assert buf.dtype == torch.int64 and not bool(buf.any())
+    if kind == "reuse":
+        for i, n in enumerate((3 * TILE, 1, 2 * TILE + 5)):
+            b, e, t = st.next_call(n)
+            assert b.data_ptr() == buf.data_ptr()
+            assert (e, t) == (2 + i, (3, 6, 7)[i])
+    elif kind == "grow":
+        b, e, t = st.next_call(10 * TILE + 1)
+        assert b.numel() >= 12 and (e, t) == (1, 0)
+        assert st.next_call(TILE)[1:] == (2, 11)
+    else:
+        st.epoch = EPOCH_LIMIT - 2
+        assert st.next_call(TILE)[1:] == (EPOCH_LIMIT - 1, 3)
+        b, e, t = st.next_call(TILE)
+        assert (e, t) == (1, 0) and b.data_ptr() != buf.data_ptr()
+        assert not bool(b.any())
 
 
 @pytest.mark.parametrize("case", ["uniform", "concentrated", "zero-runs"])

@@ -1,7 +1,7 @@
 """PyTorch port, residual resampling: the remainder positions, the classic
 ancestors, the packed resample and one filter step against JAX on replayed
 uniforms; the law of the offspring counts; the residual filter against the
-Kalman oracle; and the one clamp both port residuals share.
+Kalman oracle; and the top remainder draw of each port residual.
 
 JAX and torch take the log and the cumsum of the remainder spacings in
 other float32 orders, so the positions agree at rtol 1e-5. The ancestor
@@ -13,11 +13,13 @@ positions they would differ only at cdf ties. States and log-likelihoods
 at rtol 1e-5 (atol 1e-6); the filter's log-evidence within the JAX tests'
 2% band.
 
-The clamp: the JAX single-device residual caps the unit positions at
-1 - 1e-6 (``particle_filter.py:445-446``); the port caps the scaled value
-one ulp below the remainder total, as the JAX sharded residual does
+The top remainder draw: each port residual computes its JAX counterpart's
+law. The classic ``residual_ancestors`` does not clamp
+(``resampling/classic.py:173``), the single-device packed residual caps the
+unit positions at 1 - 1e-6 (``particle_filter.py:445-446``), and the
+sharded residual caps the value one ulp below the remainder total
 (``parallel/resampling.py:224-227``). They differ only for a top order
-statistic above 1 - 1e-6, tested on its own.
+statistic above 1 - 1e-6, tested on its own for each of the three.
 """
 
 import jax
@@ -33,6 +35,7 @@ import cusmc_tpu_torch
 from cusmc_tpu.resampling import classic as jclassic
 from cusmc_tpu.smc import particle_filter as jpf
 from cusmc_tpu_torch.io.data import demo_model_params, load_y_sim
+from cusmc_tpu_torch.parallel import resampling as port_res
 from cusmc_tpu_torch.resampling import classic
 from cusmc_tpu_torch.smc import particle_filter as tpf
 from cusmc_tpu_torch.smc.kalman import kalman_filter
@@ -149,7 +152,7 @@ def test_residual_step_matches_jax(monkeypatch):
 
 def _clamp_case():
     """Remainders of 1/2 on particles 0..1199, 1 - 2^-12 on 1200 and 2^-12
-    on 3995, none after it (total 301; 1e-6 of it is wider than the last
+    on 3995, none after it (total 601; 1e-6 of it is wider than the last
     bin); and uniforms whose top order statistic rounds to 1."""
     nw = np.ones(N, np.float32)
     nw[:1200:2] = 1.5
@@ -157,45 +160,104 @@ def _clamp_case():
     nw[1200] = np.float32(1.0 - 2.0 ** -12)
     nw[3995] = np.float32(1.0 + 2.0 ** -12)
     assert nw.sum(dtype=np.float64) == N
+    return nw, _top_uniforms(N - int(np.floor(nw).sum()))
+
+
+def _top_uniforms(r):
+    """Uniforms whose R-th spacing is ~6e-8, so the top of the R order
+    statistics rounds to 1 in float32."""
     u = np.random.default_rng(0).uniform(0.05, 0.95, N + 1).astype(np.float32)
-    r = N - int(np.floor(nw).sum())
-    u[r] = np.float32(1.0 - 2.0 ** -24)  # e_R ~ 6e-8: top statistic ~ 1
-    return nw, u, r
+    u[r] = np.float32(1.0 - 2.0 ** -24)
+    return u
 
 
-def test_residual_clamp_keeps_the_top_order_statistic(monkeypatch):
-    nw, u, r = _clamp_case()
-    X = np.arange(N, dtype=np.float32)[None]
-    resid = nw - np.floor(nw)
-    last = int(np.nonzero(resid)[0].max())
-    assert last == 3995 and resid[last] < 1e-6 * resid.sum()
+def _classic_clamp_case():
+    """Log-weights whose softmax is exact in both packages: w in {1, 1/2,
+    1/4} summing to N / 2, so n w / sum w is 2w and only the 1200 quarter
+    weights, all below index 3000, keep a remainder (1/2 each). The last
+    bin with remainder mass lies far below N - 1."""
+    rng = np.random.default_rng(4)
+    head = rng.permutation(np.repeat(np.float32([1.0, 0.5, 0.25]),
+                                     [600, 1200, 1200]))
+    w = np.concatenate([head, np.full(N - 3000, 0.5, np.float32)])
+    assert w.sum(dtype=np.float64) == N / 2
+    assert int(np.nonzero(w == 0.25)[0].max()) < 3000
+    return np.log(w).astype(np.float32), _top_uniforms(600)
+
+
+def _jax_sharded_residual(monkeypatch, w, u):
+    """The JAX sharded residual ancestors on a one-device mesh, on the
+    remainder positions of ``u``."""
+    from jax.sharding import PartitionSpec
+
+    from cusmc_tpu.parallel import make_mesh
+    from cusmc_tpu.parallel import resampling as jres
+
+    try:
+        shard_map = jax.shard_map
+    except AttributeError:  # pragma: no cover
+        from jax.experimental.shard_map import shard_map
+
+    _replay_positions(monkeypatch, u)
+    fn = jres.make_sorted_sharded_ancestor_fn("residual", "particles", N, N,
+                                              weights="exp")
+    mesh = make_mesh({"particles": 1}, devices=jax.devices()[:1])
+    spec = PartitionSpec("particles")
+    run = shard_map(fn, mesh=mesh, in_specs=(PartitionSpec(), spec),
+                    out_specs=spec, check_vma=False)
+    return np.asarray(jax.jit(run)(jax.random.key(0), jnp.asarray(w)))
+
+
+@pytest.mark.parametrize("form", ["classic", "packed", "sharded"])
+def test_residual_clamp_keeps_the_top_order_statistic(monkeypatch, form):
+    # Each port residual equals its JAX counterpart on a top order
+    # statistic above 1 - 1e-6, where the three laws part.
+    if form == "classic":
+        logw, u = _classic_clamp_case()
+        _, n_det, resid = classic._residual_parts(torch.from_numpy(logw))
+        r = N - int(n_det)
+        assert r == 600
+        last = int(torch.nonzero(resid).max())
+    else:
+        nw, u = _clamp_case()
+        r = N - int(np.floor(nw).sum())
+        resid = nw - np.floor(nw)
+        last = int(np.nonzero(resid)[0].max())
+        assert last == 3995 and resid[last] < 1e-6 * resid.sum()
     top = classic.residual_positions_from_uniforms(
         torch.from_numpy(u), torch.tensor(N - r))[r - 1]
     assert float(top) > 1.0 - 1e-6
-    # The top statistic fills the last slot, N - 1: the port keeps it in
-    # the last bin with remainder mass.
-    _, a = tpf._residual_resample_packed(torch.from_numpy(X),
-                                         torch.from_numpy(nw),
-                                         torch.from_numpy(u))
-    assert int(a[-1]) == last
-    # The fixed 1 - 1e-6 quantile of the JAX single-device residual moves
-    # it into the bin before; every other slot agrees.
-    _replay_positions(monkeypatch, u)
-    _, a_jax = jpf._residual_resample_packed(jax.random.key(0),
-                                             jnp.asarray(X), jnp.asarray(nw))
-    assert int(a_jax[-1]) == 1200
-    np.testing.assert_array_equal(a.numpy()[:-1], np.asarray(a_jax)[:-1])
-    # The classic port residual shares the clamp: its top draw keeps
-    # remainder mass (softmax rounds these weights, so no exact index).
-    logw = torch.log(torch.from_numpy(nw))
-    _, _, res_c = classic._residual_parts(logw)
-    a_classic = classic.residual_ancestors(None, logw, torch.from_numpy(u))
-    assert float(res_c[int(a_classic[-1])]) > 0.0
-    v = classic.clamped_residual_values(torch.from_numpy(u),
-                                        torch.tensor(N - r),
-                                        torch.tensor(301.0))
-    assert float(v[r - 1]) == float(np.nextafter(np.float32(301.0),
-                                                 np.float32(0.0)))
+    if form == "classic":
+        # No clamp: the top draw ranks past the last bin and is clipped to
+        # N - 1, a particle with no remainder mass.
+        ours = classic.residual_ancestors(None, torch.from_numpy(logw),
+                                          torch.from_numpy(u)).numpy()
+        _replay_positions(monkeypatch, u)
+        ref = np.asarray(jclassic.residual_ancestors(jax.random.key(0),
+                                                     jnp.asarray(logw)))
+        assert int(ours[-1]) == N - 1 and last < N - 1
+    elif form == "packed":
+        # The fixed 1 - 1e-6 quantile moves the top draw into the bin
+        # before the last one with remainder mass.
+        X = np.arange(N, dtype=np.float32)[None]
+        x, a = tpf._residual_resample_packed(torch.from_numpy(X),
+                                             torch.from_numpy(nw),
+                                             torch.from_numpy(u))
+        _replay_positions(monkeypatch, u)
+        x_ref, a_ref = jpf._residual_resample_packed(
+            jax.random.key(0), jnp.asarray(X), jnp.asarray(nw))
+        np.testing.assert_array_equal(x.numpy(), np.asarray(x_ref))
+        ours, ref = a.numpy(), np.asarray(a_ref)
+        assert int(ours[-1]) == 1200
+    else:
+        # One ulp below the total: the top draw stays in the last bin with
+        # remainder mass.
+        fn = port_res.make_sorted_sharded_ancestor_fn("residual", None, N, N,
+                                                      weights="exp")
+        ours = fn(torch.from_numpy(nw), torch.from_numpy(u)).numpy()
+        ref = _jax_sharded_residual(monkeypatch, nw, u)
+        assert int(ours[-1]) == last
+    np.testing.assert_array_equal(ours, ref)
 
 
 def test_residual_offspring_law():
