@@ -16,7 +16,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    result on a second call); the fused Metropolis step at N = 2^20, d = 2,
    16 and 32, MVN and MVT df=5, with the design each d takes ("thread" or
    "tile"); the fused inverse-CDF step, systematic and stratified, at
-   N = 2^20 and N = 1_000_448, d = 2 and 32. Ancestors must be equal; a
+   N = 2^20 and N = 1_000_448, d = 2, 16 and 32, with its design. The
+   search-only kernel and the fused inverse-CDF step search the cdf through
+   a block window; the share of blocks whose stretch fits the window is
+   printed for each weight kind. Ancestors must be equal; a
    mismatch is allowed only at an exact accept or cdf tie, and each one is
    shown to be one. Then each kernel's and its plain version's time per
    call (CUDA events, median; launch cost included), device time per call
@@ -56,7 +59,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    2(T-1) and take-columns >= T-1; metropolis the roll kernel >= T-1.
    The kernel phase (3) holds the search-only, take-columns and
    local-block kernels to their plain versions at N = 2^20 and d = 2, 32,
-   at the shard shapes of a 4-way split (L = N/4 queries, base p N/4).
+   at the shard shapes of a 4-way split (L = N/4 queries, base p N/4), the
+   search-only kernel also on shuffled queries, and times the search-only
+   kernel at L = N, L = N/4 strided, the shard-1 shape and shuffled.
+5. The block-window kernels on the main paths' own inputs, kept at steps
+   0, 99 and 198 of the warm-up runs of phases 4b (the fused CDF step of
+   the systematic pallas runs, d = 2 and 32) and 4c (the search-only
+   kernel's two calls a step of the sharded residual run): the spans of
+   the cdf that their blocks search, the share of blocks that fits the
+   window (and would fit one a quarter, half or twice as large), each
+   kernel against its plain version, and its device time; the same for the
+   search-only kernel's shuffled queries of phase 3.
+   ``--against DIR [DIR ...]`` times the same kernels of other checkouts
+   of the repo (the parent commit unpacked with ``git archive``, say)
+   beside this tree's on those inputs.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -65,6 +81,9 @@ script prints no result and exits with code 2.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
+import itertools
 import json
 import math
 import os
@@ -76,12 +95,13 @@ N_BIG = 1 << 20
 N_RAGGED = 1_000_003
 N_RAGGED_CDF = 1_000_448  # 977 * 1024: the fused CDF step needs N % 1024
 D = 2
-D_MID = 16   # the narrower width of the fused step's "block" design
+D_MID = 16   # the narrower width of the fused steps' "tile" design
 D_WIDE = 32
 TIMING_REPS = 20
 PLAIN_FUSED_REPS = 5      # the plain fused steps take tens of ms a call
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published (700 W part)
 FP32_FLOPS = 67e12         # H100 SXM, float32 outside the tensor cores
+TF32_FLOPS = 495e12        # H100 SXM, TF32 on the tensor cores, dense
 ACCEPT_TIE = 2.0 ** -22    # two float32 ulps, relative
 
 
@@ -175,20 +195,22 @@ def busy_share(fn) -> float:
     return busy_us / 1e6 / wall
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
     """(least time in ms, "bytes" or "operations"): the larger of the
-    bytes over the HBM rate and the float32 operations over the float32
-    rate, both the published H100 SXM peaks."""
+    bytes over the HBM rate and the operations over ``peak``, the rate of
+    their type (float32 outside the tensor cores unless given), both the
+    published H100 SXM peaks."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def time_kernel(name, kern, plain, library, label, nbytes, flops,
-                plain_reps=TIMING_REPS) -> dict:
+                plain_reps=TIMING_REPS, peak=FP32_FLOPS) -> dict:
     """Times a kernel, its plain version (alternating plain, kernel,
     kernel, plain) and the library call, each by CUDA events and by device
-    time; returns the record fields."""
+    time; returns the record fields. ``flops`` are operations at the
+    ``peak`` rate."""
     p1 = median_ms(plain, plain_reps)
     k1 = median_ms(kern)
     k2 = median_ms(kern)
@@ -197,14 +219,14 @@ def time_kernel(name, kern, plain, library, label, nbytes, flops,
     dk = device_ms(kern)
     dp = device_ms(plain, plain_reps)
     dl = None if library is None else device_ms(library)
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = bound(nbytes, flops, peak)
     print(f"  time {name} {label}: kernel {k1:.4f}/{k2:.4f} ms, plain "
           f"{p1:.4f}/{p2:.4f} ms per call (CUDA events, median); device "
           f"time per call: kernel {dk:.4f} ms, plain {dp:.4f} ms "
           f"(torch.profiler); library "
           f"{'none' if lib is None else f'{lib:.4f} ms, device {dl:.4f} ms'}"
           f"; bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP)")
+          f"{flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s)")
     return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib,
             "device_ms": dk, "library_device_ms": dl}
@@ -435,9 +457,11 @@ def check_shard_kernels() -> dict:
     import torch
 
     from cusmc_tpu_torch.ops.cumsum import blocked_cumsum
+    from cusmc_tpu_torch.ops.kernels import CDF_BLOCK, CDF_WINDOW
     from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
         inverse_cdf_apply_plain, inverse_cdf_search, \
-        inverse_cdf_search_plain, take_columns, take_columns_plain
+        inverse_cdf_search_plain, take_columns, take_columns_plain, \
+        window_fit_share
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -455,17 +479,26 @@ def check_shard_kernels() -> dict:
         / torch.tensor(float(n), device=dev)
     serr = lerr = terr = 0.0
     ties = 0
+    shuffle = torch.randperm(n, generator=gen, device=dev)
     for wname, w in weights.items():
         cdf, _ = blocked_cumsum(w)
         pos = unit * cdf[-1]
+        shares = []
         for label, q in (("L=N", pos), ("L=N/4 strided", pos[::4]),
-                         ("L=N/4 shard 1", pos[L:2 * L])):
+                         ("L=N/4 shard 1", pos[L:2 * L]),
+                         ("L=N shuffled", pos[shuffle])):
             q = q.contiguous()
             a = inverse_cdf_search(cdf, q)
             a_p = inverse_cdf_search_plain(cdf, q)
             ties += _ancestors_equal(f"search {wname} {label}", a, a_p, cdf,
                                      q)
             serr = max(serr, float((a - a_p).abs().max()))
+            fit = window_fit_share(cdf, q)
+            shares.append(f"search-only {label} {fit:.3f}")
+        fit = window_fit_share(cdf, pos, CDF_BLOCK, CDF_WINDOW, ends=True)
+        shares.append(f"fused CDF step (systematic positions) {fit:.3f}")
+        print(f"  window-path share of blocks, {wname} weights: "
+              + ", ".join(shares))
         for d in (D, D_WIDE):
             X = torch.randn((d, n), generator=gen, device=dev)
             for p in range(4):
@@ -494,7 +527,8 @@ def check_shard_kernels() -> dict:
             out, out_p = take_columns(X, a), take_columns_plain(X, a)
             assert torch.equal(out, out_p), f"take_columns {kind} d={d}"
             terr = max(terr, float((out - out_p).abs().max()))
-    print(f"  inverse_cdf_search (L=N, N/4 strided, N/4 of shard 1), "
+    print(f"  inverse_cdf_search (L=N, N/4 strided, N/4 of shard 1, L=N "
+          f"shuffled), "
           f"inverse_cdf_apply local-block (L=N/4 at base p N/4, p=0..3, "
           f"d=2 and 32) on 4 weight kinds, take_columns (sorted, "
           f"concentrated, shuffled; d=2 and 32), N=2^20: ancestors equal "
@@ -511,6 +545,24 @@ def check_shard_kernels() -> dict:
         lambda: inverse_cdf_search_plain(cdf, pos),
         lambda: torch.searchsorted(cdf, pos, right=True),
         "N=2^20 L=N (library: searchsorted)", 12 * n, 0))
+    # Shuffled queries: the kernel's contract, on no main path (every block
+    # spans the whole cdf and searches it in place).
+    for shape, q in (("L=N/4 strided", pos[::4]),
+                     ("4-way shard shape: shard 1, L=N/4", pos[L:2 * L]),
+                     ("L=N shuffled", pos[shuffle])):
+        q = q.contiguous()
+        # Bytes: 8 per query and 4 per cdf entry between its extremes.
+        span = torch.searchsorted(cdf, torch.stack([q.min(), q.max()]),
+                                  right=True)
+        nbytes = 8 * q.numel() + 4 * (int(span[1] - span[0]) + 1)
+        time_kernel("inverse_cdf_search",
+                    lambda q=q: inverse_cdf_search(cdf, q),
+                    lambda q=q: inverse_cdf_search_plain(cdf, q),
+                    lambda q=q: torch.searchsorted(cdf, q, right=True),
+                    f"N=2^20 {shape} (library: searchsorted)", nbytes, 0)
+    # Phase 5 times the shuffled queries beside other trees too.
+    TRAFFIC["search-only kernel, L=N shuffled queries (exp weights; on no "
+            "main path)"] = [(None, (cdf, pos[shuffle].contiguous()), {})]
     rec["take_columns"] = dict(max_abs_err=terr, **time_kernel(
         "take_columns", lambda: take_columns(X, a),
         lambda: take_columns_plain(X, a), lambda: X.index_select(1, a),
@@ -668,7 +720,7 @@ def _fused_cdf_case(n, d, mode, gen, dev):
     from cusmc_tpu_torch.ops.fused_cdf_step import cdf_auto_tile, \
         fused_cdf_filter_step, fused_cdf_filter_step_draws, \
         fused_cdf_filter_step_plain
-    from cusmc_tpu_torch.ops.fused_step import to_uniform
+    from cusmc_tpu_torch.ops.fused_step import step_path, to_uniform
     from cusmc_tpu_torch.ops.philox import philox_bits
 
     m, (G, Q, F, Li) = _fused_model(d, "mvt", dev)
@@ -693,7 +745,8 @@ def _fused_cdf_case(n, d, mode, gen, dev):
             lo, hi = sorted((int(a[g]), int(a_p[g])))
             assert _cdf_tie(cdf, p, lo, hi), f"slot {g} is no cdf tie"
 
-    label = f"fused_cdf {mode} N={n} d={d} tile={tile}"
+    label = f"fused_cdf {mode} N={n} d={d} tile={tile} " \
+        f"path={step_path(d, d)}"
     err, nbad = _compare(label, a, a_p, (x, ll), (x_p, ll_p), ties)
     print(f"  {label}: ancestors {'equal' if not nbad else 'equal but ties'}"
           f", max|kernel-plain| {err:.3e} (states, ll), distinct ancestors "
@@ -724,7 +777,7 @@ def check_fused_kernels() -> dict:
                 step_cases[d] = (args, kw)
     cdf_errs, cdf_cases = [], {}
     for n in (N_BIG, N_RAGGED_CDF):
-        for d in (D, D_WIDE):
+        for d in (D, D_MID, D_WIDE):
             for mode in ("systematic", "stratified"):
                 err, args, kw = _fused_cdf_case(n, d, mode, gen, dev)
                 cdf_errs.append(err)
@@ -732,6 +785,10 @@ def check_fused_kernels() -> dict:
                     cdf_cases[d] = (args, kw)
     for d in (D_WIDE, D_MID, D):  # d = 2 last: its numbers are recorded
         flops = 2.0 * 4 * d * d * N_BIG   # G, Q, F, Li at k = d
+        peak = FP32_FLOPS
+        if step_path(d, d) == "tile":
+            # Each product as three TF32 tensor-core products (3xTF32).
+            flops, peak = 3 * flops, TF32_FLOPS
         nbytes = (8 * d + 12) * N_BIG
         args, kw = step_cases[d]
         rec["fused_filter_step"] = dict(max_abs_err=max(step_errs),
@@ -739,17 +796,15 @@ def check_fused_kernels() -> dict:
             "fused_filter_step", lambda: fused_filter_step(*args, **kw),
             lambda: fused_filter_step_plain(*args, **kw), None,
             f"N=2^20 d={d} MVT df=5 B=10 tile={kw['tile']} "
-            f"path={step_path(d, d)}", nbytes, flops, PLAIN_FUSED_REPS))
-        if d == D_MID:
-            continue
+            f"path={step_path(d, d)}", nbytes, flops, PLAIN_FUSED_REPS, peak))
         cargs, ckw = cdf_cases[d]
         rec["fused_cdf_filter_step"] = dict(max_abs_err=max(cdf_errs),
                                             **time_kernel(
             "fused_cdf_filter_step",
             lambda: fused_cdf_filter_step(*cargs, **ckw),
             lambda: fused_cdf_filter_step_plain(*cargs, **ckw), None,
-            f"N=2^20 d={d} MVT df=5 systematic tile={ckw['tile']}", nbytes,
-            flops, PLAIN_FUSED_REPS))
+            f"N=2^20 d={d} MVT df=5 systematic tile={ckw['tile']} "
+            f"path={step_path(d, d)}", nbytes, flops, PLAIN_FUSED_REPS, peak))
     torch.cuda.synchronize()
     return rec
 
@@ -1075,6 +1130,7 @@ def pallas_path(card: str) -> None:
     import cusmc_tpu_torch
     from cusmc_tpu_torch.io.data import demo_model_params, load_y_sim
     from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.smc import particle_filter
     from cusmc_tpu_torch.smc.kalman import kalman_filter
     from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
 
@@ -1145,8 +1201,11 @@ def pallas_path(card: str) -> None:
                 assert math.isfinite(float(res.log_evidence))
                 return secs, res
 
-            for engine in ("pallas", "xla"):
-                one(engine, 0)  # warm-up
+            # Warm-up; the systematic run keeps the fused CDF step's inputs.
+            with capture(particle_filter, "fused_cdf_filter_step",
+                         (f"fused CDF step, d={d} systematic pallas run",)):
+                one("pallas", 0)
+            one("xla", 0)
             best = {"pallas": math.inf, "xla": math.inf}
             last = {}
             for rep, engine in enumerate(("pallas", "xla", "xla", "pallas",
@@ -1184,6 +1243,7 @@ def sharded_path(card: str) -> None:
     from cusmc_tpu_torch.models.dlm import DLM
     from cusmc_tpu_torch.parallel import ParticleAxis, \
         initialize_distributed, process_info, sharded_bootstrap_filter
+    from cusmc_tpu_torch.parallel import resampling as sharded_resampling
     from cusmc_tpu_torch.smc.kalman import kalman_filter
     from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
 
@@ -1264,7 +1324,13 @@ def sharded_path(card: str) -> None:
             gen.manual_seed(0)
             _, ys_h = mvt.simulate(gen, steps)
             for label in expect:
-                one(label, 0, mvt, ys_h, n)  # warm-up
+                # Warm-up; the residual run keeps the search-only kernel's
+                # inputs (two calls a step).
+                with capture(sharded_resampling, "inverse_cdf_search", (
+                        "sharded residual run: floor-count cdf",
+                        "sharded residual run: remainder cdf")) \
+                        if label == "residual" else contextlib.nullcontext():
+                    one(label, 0, mvt, ys_h, n)
                 torch.cuda.synchronize()
                 best = math.inf
                 for rep in range(3):
@@ -1288,7 +1354,194 @@ def sharded_path(card: str) -> None:
             dist.destroy_process_group()
 
 
-def main() -> int:
+# -- the main paths' own traffic ------------------------------------------
+
+# Steps of a T = 200 run whose inputs to the block-window kernels are kept
+# while the main paths run: the first resample, one in the middle, the last.
+TRAFFIC_STEPS = (0, 99, 198)
+# label -> [(step, args, kwargs)], filled by ``capture`` (and, with step
+# None, by phase 3 for the search-only kernel's shuffled queries).
+TRAFFIC: dict = {}
+
+
+def _clone(v):
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, tuple):
+        return tuple(_clone(x) for x in v)
+    return v
+
+
+@contextlib.contextmanager
+def capture(module, name, labels):
+    """While open, the calls that ``module`` makes to its function ``name``
+    run unchanged, and the arguments of the steps in TRAFFIC_STEPS are kept,
+    cloned, in TRAFFIC: each step makes one call for each of ``labels``, in
+    that order."""
+    fn = getattr(module, name)
+    calls = itertools.count()
+
+    def recorder(*args, **kwargs):
+        step, which = divmod(next(calls), len(labels))
+        if step in TRAFFIC_STEPS:
+            TRAFFIC.setdefault(labels[which], []).append(
+                (step, _clone(args), dict(kwargs)))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, recorder)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def other_tree(root):
+    """The block-window kernels of another checkout of the repo at
+    ``root`` (its ``cusmc_tpu_torch/ops/kernels.py``, loaded under another
+    name, builds them from its own sources into its own ``build/``):
+    ``(search(cdf, q), cdf_step(args, kwargs))``, each returning the
+    ancestors, called with the arguments that the wrappers of this tree
+    take."""
+    import importlib.util
+
+    import torch
+
+    from cusmc_tpu_torch.ops.fused_cdf_step import MODES, cdf_auto_tile
+    from cusmc_tpu_torch.ops.fused_step import step_path
+
+    path = os.path.join(root, "cusmc_tpu_torch", "ops", "kernels.py")
+    spec = importlib.util.spec_from_file_location(
+        f"other_kernels_{abs(hash(root))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    lib = mod.library()
+    print(f"  built the kernels of {root} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # Before the "tile" design the fused CDF step took no `tiled` argument.
+    has_tiled = len(mod.SIGNATURES["cusmc_fused_cdf_step"]) == 23
+
+    def search(cdf, q):
+        a = torch.empty(q.numel(), dtype=torch.int32, device=q.device)
+        mod.check(lib.cusmc_inverse_cdf_search(
+            cdf.data_ptr(), q.data_ptr(), a.data_ptr(), cdf.numel(),
+            q.numel(), torch.cuda.current_stream().cuda_stream), root)
+        return a
+
+    def cdf_step(args, kw):
+        cdf, X, y, G, Q, F, Li, df, log_norm, (u, seed) = args
+        (d, n), k = X.shape, F.shape[0]
+        Xo, ll = torch.empty_like(X), torch.empty_like(cdf)
+        a = torch.empty(n, dtype=torch.int32, device=X.device)
+        tiled = (int(step_path(d, k) == "tile"),) if has_tiled else ()
+        mod.check(lib.cusmc_fused_cdf_step(
+            *(t.data_ptr() for t in (cdf, X, y, G, Q, F, Li, u, seed, Xo, ll,
+                                     a)),
+            n, kw.get("tile") or cdf_auto_tile(n, max(d, k)), d, k,
+            MODES.index(kw["mode"]), int(kw["noise"] == "mvt"),
+            kw.get("df_int") or 0, 1.0 if df is None else float(df),
+            float(log_norm), *tiled,
+            torch.cuda.current_stream().cuda_stream), root)
+        return a
+
+    return search, cdf_step
+
+
+def check_traffic(against) -> None:
+    """Phase 5: the two block-window kernels on the inputs that the main
+    paths gave them (TRAFFIC): for each kept step, the spans of the cdf
+    that its blocks search and the share of blocks that fits the window
+    (and would fit a window of another size), the kernel against its plain
+    version (ancestors equal, a mismatch only at a shown cdf tie; states
+    and ll at 1e-4) and its device time; beside it the device time of the
+    same kernel of each tree in ``against``, on the same inputs, in the
+    order other, this, this, other, with its ancestors equal to this
+    tree's."""
+    import torch
+
+    from cusmc_tpu_torch.ops.fused_cdf_step import fused_cdf_filter_step, \
+        fused_cdf_filter_step_plain
+    from cusmc_tpu_torch.ops.kernels import CDF_BLOCK, CDF_WINDOW, \
+        SEARCH_BLOCK, SEARCH_WINDOW
+    from cusmc_tpu_torch.ops.monotone_gather import block_spans, \
+        inverse_cdf_search, inverse_cdf_search_plain, window_fit_share
+
+    others = [(root, *other_tree(root)) for root in against]
+    kept_on_paths = [k for k, v in TRAFFIC.items() if v[0][0] is not None]
+    assert len(kept_on_paths) == 4, f"kept on the main paths: {kept_on_paths}"
+    for label, kept in sorted(TRAFFIC.items()):
+        assert kept[0][0] is None or \
+            [s for s, _, _ in kept] == list(TRAFFIC_STEPS), label
+        for step, args, kw in kept:
+            name = label if step is None else f"{label}, step {step}"
+            if "fused" in label:
+                cdf, X, _, _, _, _, _, _, _, (u, _) = args
+                n = cdf.numel()
+                assert kw["mode"] == "systematic", name
+                pos = (torch.arange(n, dtype=torch.float32, device=cdf.device)
+                       + u) * (cdf[-1] / torch.tensor(float(n),
+                                                      device=cdf.device))
+                block, window, ends = CDF_BLOCK, CDF_WINDOW, True
+                x, ll, a = fused_cdf_filter_step(*args, **kw)
+                x_p, ll_p, a_p = fused_cdf_filter_step_plain(*args, **kw)
+                _compare(name, a, a_p, (x, ll), (x_p, ll_p),
+                         lambda _: _ancestors_equal(name, a, a_p, cdf, pos))
+
+                def ours(args=args, kw=kw):
+                    return fused_cdf_filter_step(*args, **kw)[2]
+
+                def theirs(other, args=args, kw=kw):
+                    return other[2](args, kw)
+            else:
+                cdf, pos = args
+                block, window, ends = SEARCH_BLOCK, SEARCH_WINDOW, False
+                a = inverse_cdf_search(cdf, pos)
+                _ancestors_equal(name, a, inverse_cdf_search_plain(cdf, pos),
+                                 cdf, pos)
+
+                def ours(cdf=cdf, pos=pos):
+                    return inverse_cdf_search(cdf, pos)
+
+                def theirs(other, cdf=cdf, pos=pos):
+                    return other[1](cdf, pos)
+            spans = block_spans(cdf, pos, block, ends).double()
+            shares = ", ".join(
+                f"{w}: {window_fit_share(cdf, pos, block, w, ends):.4f}"
+                for w in (window // 4, window // 2, window, 2 * window))
+            distinct = int(torch.unique(a).numel())
+            print(f"  {name}: N={cdf.numel()}, {pos.numel()} queries, "
+                  f"{distinct} distinct ancestors; span of a {block}-query "
+                  f"block median {float(spans.median()):.0f}, p99 "
+                  f"{float(spans.quantile(0.99)):.0f}, max "
+                  f"{float(spans.max()):.0f} cdf entries; share of blocks "
+                  f"that fit a window of {shares} floats (the kernel's: "
+                  f"{window})")
+            mine = device_ms(ours)
+            line = f"    device time: this tree {mine:.4f} ms"
+            for other in others:
+                _ancestors_equal(f"{name}, {other[0]}", theirs(other), a,
+                                 cdf, pos)
+                t = [device_ms(lambda: theirs(other))]
+                t += [device_ms(ours), device_ms(ours)]
+                t.append(device_ms(lambda: theirs(other)))
+                line += (f"; {other[0]} {t[0]:.4f}/{t[3]:.4f} ms, this tree "
+                         f"{t[1]:.4f}/{t[2]:.4f} ms beside it")
+            print(line)
+    TRAFFIC.clear()
+    torch.cuda.synchronize()
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch port on one CUDA card.")
+    parser.add_argument(
+        "--against", nargs="+", default=[], metavar="DIR",
+        help="other checkouts of the repo (the parent commit unpacked with "
+             "git archive, say): phase 5 times their block-window kernels "
+             "beside this tree's on the main paths' own inputs")
+    args = parser.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -1325,6 +1578,8 @@ def main() -> int:
     _zero_counts()
     sharded_path(card)
     launches["sharded"] = _counts()
+    print("the block-window kernels on the main paths' own inputs:")
+    check_traffic(args.against)
 
     records = []
     for name, source, replaces, path in KERNELS:

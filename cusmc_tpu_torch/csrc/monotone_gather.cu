@@ -21,21 +21,39 @@
 // two-gather lookup because Mosaic's dynamic gather spans one vreg; the
 // coarse window placement (an argsort over the 128-strided cdf), the
 // merge-path window counts and the runtime monotonicity check behind
-// take_columns exist for the same reason. None of that is needed here: one
-// thread per query binary-searches the cdf in global memory, and one thread
-// per output column gathers its d values. The 4 MB cdf at N = 2^20 stays in
-// the 50 MB L2, and sorted queries make neighbouring threads walk the same
-// search path, so the upper levels hit in L1. Unsorted queries and ancestor
-// vectors cost only locality, never correctness.
+// take_columns exist for the same reason. None of that is needed here.
+// inverse_cdf_apply: one thread per query binary-searches the cdf in
+// global memory, then gathers its d values; the 4 MB cdf at N = 2^20 stays
+// in the 50 MB L2, and sorted queries make neighbouring threads walk the
+// same search path, so the upper levels hit in L1. inverse_cdf_search: a
+// block of kThreads threads takes kSearchPerThread queries each, reduces
+// their min and max, and answers them through the block-window search of
+// common.cuh (CdfWindow): two warps find the stretch cdf[lo, hi) the
+// queries can land on in 4 rounds of 32 parallel loads, the block copies
+// it into shared memory when it is at most kSearchWindow floats, and each
+// thread searches its queries together there (upper_bound_k). The min and
+// max make the window exact for queries in any order; unsorted queries
+// cost only locality, never correctness (shuffled queries span the whole
+// cdf and take the in-place search of every block).
 //
-// Bound on the card: latency of the ~log2(N) dependent cdf loads per query
-// (L2 hits), then memory: 4 B of positions, 4 B of ancestors and 8d B of
-// state (read and write) per query, 4 B per cdf element.
+// Bound on the card: memory: 4 B of positions and 4 B of ancestors per
+// query, 4 B per cdf element (inverse_cdf_apply adds 8d B of state read
+// and written per query). inverse_cdf_apply is held back by the latency
+// of its ~log2(N) dependent cdf loads per query (L2 hits).
+#include <math.h>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+// inverse_cdf_search: queries a block, and the capacity of the block's
+// shared window (floats), both -D defines from ops/kernels.py (PERF.md
+// says how they were chosen on the H100).
+constexpr int kSearchBlock = CUSMC_SEARCH_BLOCK;
+constexpr int kSearchWindow = CUSMC_SEARCH_WINDOW;
+static_assert(kSearchBlock % kThreads == 0, "whole queries a thread");
+constexpr int kSearchPerThread = kSearchBlock / kThreads;
 
 __device__ __forceinline__ long long clip_index(long long v, long long hi) {
   return v < 0 ? 0 : (v > hi ? hi : v);
@@ -59,14 +77,61 @@ inverse_cdf_apply_kernel(const float* __restrict__ cdf,
   }
 }
 
+// Query k of a thread is i0 + k kThreads (coalesced loads and stores).
 __global__ void __launch_bounds__(kThreads)
 inverse_cdf_search_kernel(const float* __restrict__ cdf,
                           const float* __restrict__ pos,
                           int* __restrict__ anc, long long n, long long nq) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= nq) return;
-  anc[i] = static_cast<int>(cusmc::upper_bound_clipped(cdf, n, pos[i]));
+  __shared__ float s_win[kSearchWindow];
+  __shared__ float s_min[kThreads / 32];
+  __shared__ float s_max[kThreads / 32];
+  __shared__ long long s_range[2];
+  const long long i0 =
+      static_cast<long long>(blockIdx.x) * kSearchBlock + threadIdx.x;
+  float p[kSearchPerThread];
+  float lo = INFINITY;
+  float hi = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < kSearchPerThread; ++k) {
+    const long long i = i0 + k * kThreads;
+    p[k] = i < nq ? pos[i] : 0.0f;
+    if (i < nq) {
+      lo = fminf(lo, p[k]);
+      hi = fmaxf(hi, p[k]);
+    }
+  }
+  // The block's smallest and largest query (fminf and fmaxf skip a NaN,
+  // which then searches the whole cdf).
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(cusmc::kFullMask, lo, off));
+    hi = fmaxf(hi, __shfl_xor_sync(cusmc::kFullMask, hi, off));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    s_min[threadIdx.x >> 5] = lo;
+    s_max[threadIdx.x >> 5] = hi;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    lo = fminf(lo, s_min[w]);
+    hi = fmaxf(hi, s_max[w]);
+  }
+  const cusmc::CdfWindow win =
+      cusmc::block_cdf_window<kSearchWindow>(cdf, n, lo, hi, s_win, s_range);
+  // A thread's queries are searched together; one past the end takes the
+  // block's smallest, which stays inside the window.
+#pragma unroll
+  for (int k = 0; k < kSearchPerThread; ++k) {
+    if (i0 + k * kThreads >= nq) p[k] = lo;
+  }
+  long long c[kSearchPerThread];
+  win.search(p, c);
+#pragma unroll
+  for (int k = 0; k < kSearchPerThread; ++k) {
+    const long long i = i0 + k * kThreads;
+    if (i < nq) anc[i] = static_cast<int>(c[k]);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -106,8 +171,9 @@ CUSMC_EXPORT int cusmc_inverse_cdf_search(const float* cdf, const float* pos,
                                           int* anc, long long n, long long nq,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  inverse_cdf_search_kernel<<<blocks_for(nq), kThreads, 0, s>>>(cdf, pos, anc,
-                                                                 n, nq);
+  const unsigned blocks =
+      static_cast<unsigned>((nq + kSearchBlock - 1) / kSearchBlock);
+  inverse_cdf_search_kernel<<<blocks, kThreads, 0, s>>>(cdf, pos, anc, n, nq);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,15 @@ Random rows (``ops/philox.py`` layout): block ``slot // tile``, lane
 ``slot % tile``, stream 0: row 0 the stratified uniform (unused by
 systematic), then the ``2d`` Box-Muller rows, then the chi-square rows.
 
+The kernel searches the cdf a block of ``kernels.CDF_BLOCK`` slots at a
+time, through a shared-memory window of at most ``kernels.CDF_WINDOW``
+floats of the stretch between the block's first and last position
+(``csrc/common.cuh``). Its propagate-and-reweight half takes the design
+that ``ops.fused_step.step_path(d, k)`` names, the rule of the
+fused Metropolis step: "tile" (d = k in {16, 32}: 3xTF32 tensor-core
+tiles, ``csrc/tile_propagate.cuh``) or "thread" (``csrc/propagate.cuh``).
+The plain version is the same for both.
+
 The TPU kernel's group-bound tables (``srows``, ``wcnt``, ``woff``,
 ``grows``, ``:383-411``) place Mosaic's DMA windows and are not ported;
 ``cdf128`` is not taken. ``tile`` and ``sr`` keep their JAX meaning in the
@@ -39,6 +48,7 @@ from cusmc_tpu_torch.ops.fused_step import (
     chi2_rows,
     propagate_reweight_plain,
     require_model,
+    step_path,
     to_uniform,
 )
 from cusmc_tpu_torch.ops.philox import philox_bits
@@ -177,7 +187,8 @@ def fused_cdf_filter_step(cdf, X, y, G, Q, F, Li, df, log_norm, draws, *,
         seed.data_ptr(), x_new.data_ptr(), ll.data_ptr(), a.data_ptr(), n,
         tile, d, k, MODES.index(mode), int(noise == "mvt"),
         0 if df_int is None else df_int, 1.0 if df is None else float(df),
-        float(log_norm), kernels.stream_of(X))
+        float(log_norm), int(step_path(d, k) == "tile"),
+        kernels.stream_of(X))
     kernels.check(rc, "fused_cdf_filter_step")
     fused_cdf_filter_step.launches += 1
     return x_new, ll, a

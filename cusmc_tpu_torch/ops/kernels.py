@@ -30,8 +30,21 @@ SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
     "cusmc_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17")
-COMPILE_FLAGS = ARCH_FLAGS + ("-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                              "-c")
+# The block-window searches' sizes (csrc/common.cuh), known only here and
+# compiled into the kernels as -D defines: the search-only kernel's queries
+# a block and its shared cdf window in floats (csrc/monotone_gather.cu), the
+# fused inverse-CDF step's slots a block and its window
+# (csrc/fused_cdf_step.cu). Whatever reports on the window reads them here;
+# PERF.md says how they were chosen on the H100.
+SEARCH_BLOCK = 512
+SEARCH_WINDOW = 4096
+CDF_BLOCK = 128
+CDF_WINDOW = 2048
+DEFINES = tuple(f"-DCUSMC_{name}={value}" for name, value in (
+    ("SEARCH_BLOCK", SEARCH_BLOCK), ("SEARCH_WINDOW", SEARCH_WINDOW),
+    ("CDF_BLOCK", CDF_BLOCK), ("CDF_WINDOW", CDF_WINDOW)))
+COMPILE_FLAGS = ARCH_FLAGS + DEFINES + ("-O3", "-Xcompiler", "-fPIC",
+                                        "-Xptxas", "-v", "-c")
 LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 _P = ctypes.c_void_p
@@ -54,9 +67,9 @@ SIGNATURES = {
     "cusmc_fused_step": (_P,) * 12 + (_LL, _LL) + (_I,) * 6
     + (_F, _F, _I, _P),
     # cdf, X, y, G, Q, F, Li, u, seed, Xo, ll, anc, n, tile, d, k, mode,
-    # noise, df_int, df, log_norm, stream
+    # noise, df_int, df, log_norm, tiled, stream
     "cusmc_fused_cdf_step": (_P,) * 12 + (_LL, _LL) + (_I,) * 5
-    + (_F, _F, _P),
+    + (_F, _F, _I, _P),
 }
 
 # Filled by ``library()``: the build's wall time and nvcc's output (ptxas

@@ -5,9 +5,14 @@ Port of ``cusmc_tpu/ops/monotone_gather.py``: ``inverse_cdf_apply``
 ``local_base`` mode), ``inverse_cdf_search`` (``:497-560``, the
 ``_search_only_kernel`` at ``:422``) and ``take_columns`` (``:575-646``,
 the ``_take_kernel`` at ``:204`` and its ``jnp.take`` fallback). On a CUDA
-tensor each launches its kernel in ``csrc/monotone_gather.cu`` (one thread
-per query or output column: a binary search of the cdf in global memory,
-then the d-row gather); on a CPU tensor it takes its plain version,
+tensor each launches its kernel in ``csrc/monotone_gather.cu``: for
+``inverse_cdf_apply`` one thread per query (a binary search of the cdf in
+global memory, then the d-row gather), for ``take_columns`` one thread per
+output column, for ``inverse_cdf_search`` a block of ``SEARCH_BLOCK``
+queries searched through a shared-memory window of at most
+``SEARCH_WINDOW`` floats of the stretch of the cdf between their smallest
+and largest (``csrc/common.cuh``; ``window_fit_share`` says how many
+blocks' stretches fit). On a CPU tensor each takes its plain version,
 ``torch.searchsorted``, ``index_select`` and a clip.
 
 The JAX wrappers' coarse placement (an argsort over the 128-strided cdf),
@@ -26,6 +31,7 @@ import torch
 
 from cusmc_tpu_torch.device import is_cuda
 from cusmc_tpu_torch.ops import kernels
+from cusmc_tpu_torch.ops.kernels import SEARCH_BLOCK, SEARCH_WINDOW
 
 
 def inverse_cdf_search_plain(cdf: torch.Tensor,
@@ -50,6 +56,38 @@ def inverse_cdf_apply_plain(cdf: torch.Tensor, positions: torch.Tensor,
     if local_base is not None:
         rel = (rel - local_base).clamp_(0, X.shape[1] - 1)
     return X.index_select(1, rel), a
+
+
+def block_spans(cdf: torch.Tensor, positions: torch.Tensor,
+                block: int = SEARCH_BLOCK, ends: bool = False) -> torch.Tensor:
+    """The stretch of the cdf that each block of a block-window search can
+    land on, as a count of entries: blocks of ``block`` consecutive queries,
+    bounded by their min and max (``ends``: by their first and last query,
+    as the fused inverse-CDF step bounds its sorted positions), span
+    ``#{cdf <= max} - #{cdf <= min}``. A ragged last block is padded with
+    its own first query."""
+    nb = -(-positions.numel() // block)
+    pad = positions[(nb - 1) * block].expand(nb * block - positions.numel())
+    q = torch.cat([positions, pad]).reshape(nb, block)
+    if ends:
+        lo_p, hi_p = q[:, 0], q[:, -1]
+    else:
+        lo_p, hi_p = q.min(1).values, q.max(1).values
+    lo = torch.searchsorted(cdf, lo_p.contiguous(), right=True)
+    hi = torch.searchsorted(cdf, hi_p.contiguous(), right=True)
+    return hi - lo
+
+
+def window_fit_share(cdf: torch.Tensor, positions: torch.Tensor,
+                     block: int = SEARCH_BLOCK, window: int = SEARCH_WINDOW,
+                     ends: bool = False) -> float:
+    """The share of a block-window search's blocks whose stretch of the cdf
+    (``block_spans``) fits its shared window of ``window`` floats. The
+    defaults are the search-only kernel's; ``kernels.CDF_BLOCK`` and
+    ``kernels.CDF_WINDOW`` with ``ends=True`` are the fused inverse-CDF
+    step's."""
+    spans = block_spans(cdf, positions, block, ends)
+    return float((spans <= window).float().mean())
 
 
 def _check_cdf(cdf: torch.Tensor, positions: torch.Tensor) -> None:

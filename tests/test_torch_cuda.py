@@ -34,6 +34,7 @@ from cusmc_tpu_torch.ops import fused_cdf_step as fc
 from cusmc_tpu_torch.ops import fused_step as fs
 from cusmc_tpu_torch.ops.cumsum import FOLD, TILE, blocked_cumsum, \
     blocked_cumsum_plain
+from cusmc_tpu_torch.ops.kernels import SEARCH_BLOCK
 from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
     inverse_cdf_apply_plain, inverse_cdf_search, inverse_cdf_search_plain, \
     take_columns, take_columns_plain
@@ -109,12 +110,26 @@ def test_cuda_search_kernel(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["uniform", "concentrated", "zero-runs"])
-@pytest.mark.parametrize("nq_div", [1, 4])
-def test_cuda_search_only_kernel(cuda, case, nq_div):
+@pytest.mark.parametrize("nq_div", [1, 4, 16])
+@pytest.mark.parametrize("queries", ["sorted", "shuffled", "short",
+                                     "ragged"])
+def test_cuda_search_only_kernel(cuda, case, nq_div, queries):
+    # L = N / nq_div sorted queries; shuffled (every block's stretch is the
+    # whole cdf: the wide-block branch); fewer than a block of SEARCH_BLOCK
+    # queries; a ragged last block. At nq_div = 16 (and in some zero-run
+    # blocks at 4) a block spans more than the SEARCH_WINDOW-float window.
     n = 1 << 16
     cdf, pos, _ = (torch.from_numpy(a).to(cuda) for a in search_inputs(
         np.random.default_rng(5), case, n, 1))
-    pos = pos[::nq_div].contiguous()  # L = N / nq_div queries
+    pos = pos[::nq_div]
+    if queries == "shuffled":
+        gen = torch.Generator(device=cuda).manual_seed(nq_div)
+        pos = pos[torch.randperm(pos.shape[0], generator=gen, device=cuda)]
+    elif queries == "short":
+        pos = pos[:SEARCH_BLOCK // 2 + 44]
+    elif queries == "ragged":
+        pos = pos[:3 * SEARCH_BLOCK + 77]
+    pos = pos.contiguous()
     before = inverse_cdf_search.launches
     a = inverse_cdf_search(cdf, pos)
     assert inverse_cdf_search.launches == before + 1
@@ -323,22 +338,32 @@ def test_cuda_fused_step_kernel(cuda, d, noise, df, wt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,mode,noise,n", [
-    (2, "systematic", "mvt", 1 << 16), (2, "stratified", "mvn", 1 << 16),
-    (32, "systematic", "mvt", 63 * 1024), (5, "stratified", "mvt", 1 << 16)])
-def test_cuda_fused_cdf_kernel(cuda, d, mode, noise, n):
+@pytest.mark.parametrize("d,mode,noise,df,n", [
+    (2, "systematic", "mvt", 5.0, 1 << 16),
+    (2, "stratified", "mvn", None, 1 << 16),
+    (32, "systematic", "mvt", 5.0, 63 * 1024),
+    (5, "stratified", "mvt", 5.0, 1 << 16),
+    (16, "systematic", "mvn", None, 1 << 16),
+    (16, "stratified", "mvt", 5.0, 63 * 1024),
+    (16, "systematic", "mvt", 5.5, 63 * 1024),
+    (16, "stratified", "mvt", 5.5, 1 << 16),
+    (32, "systematic", "mvt", 5.5, 1 << 16),
+    (32, "stratified", "mvn", None, 63 * 1024),
+    (32, "stratified", "mvt", 5.0, 1 << 16),
+    (32, "systematic", "mvn", None, 1 << 16)])
+def test_cuda_fused_cdf_kernel(cuda, d, mode, noise, df, n):
     gen = torch.Generator(device=cuda).manual_seed(d)
     X = 0.1 * torch.randn((d, n), generator=gen, device=cuda)
     w = torch.exp(-5.0 * torch.rand(n, generator=gen, device=cuda))
     cdf, _ = blocked_cumsum(w)
-    (G, Q, F, Li), y, df_, log_norm, df_int = _model_args(d, cuda, noise,
-                                                          5.0)
+    (G, Q, F, Li), y, df_, log_norm, df_int = _model_args(d, cuda, noise, df)
     draws = fc.fused_cdf_filter_step_draws(gen, cuda)
     kw = dict(noise=noise, mode=mode, df_int=df_int)
     before = fc.fused_cdf_filter_step.launches
     x, ll, a = fc.fused_cdf_filter_step(cdf, X, y, G, Q, F, Li, df_,
                                         log_norm, draws, **kw)
     assert fc.fused_cdf_filter_step.launches == before + 1
+    assert fs.step_path(d, d) == ("tile" if d in (16, 32) else "thread")
     x_p, ll_p, a_p = fc.fused_cdf_filter_step_plain(
         cdf, X, y, G, Q, F, Li, df_, log_norm, draws, **kw)
     assert torch.equal(a, a_p)
