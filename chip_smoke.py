@@ -11,13 +11,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 3. Kernels: each kernel against its plain PyTorch version on the same
    tensors, with the tolerance stated beside each check. The prefix sum,
    the search and the roll walk at N = 2^20 and a ragged N, d = 2 (the
-   prefix sum also at a few-element N, on weights that stress its tile
-   boundaries, with one kernel a call counted by the profiler and the same
-   result on a second call); the fused Metropolis step at N = 2^20, d = 2,
-   16 and 32, MVN and MVT df=5, with the design each d takes ("thread" or
-   "tile"); the fused inverse-CDF step, systematic and stratified, at
-   N = 2^20 and N = 1_000_448, d = 2, 16 and 32, with its design. The
-   search-only kernel and the fused inverse-CDF step search the cdf through
+   search-and-apply also at d = 32, timed there too, and on shuffled
+   queries; the prefix sum also at a few-element N, on weights that stress
+   its tile boundaries, with one kernel a call counted by the profiler and
+   the same result on a second call); the fused Metropolis step at
+   N = 2^20, d = 2, 16 and 32, MVN and MVT df=5, with the design each d
+   takes ("thread" or "tile"); the fused inverse-CDF step, systematic and
+   stratified, at N = 2^20 and N = 1_000_448, d = 2, 16 and 32, with its
+   design. The search-only kernel, the search-and-apply and the fused
+   inverse-CDF step search the cdf through
    a block window; the share of blocks whose stretch fits the window is
    printed for each weight kind. Ancestors must be equal; a
    mismatch is allowed only at an exact accept or cdf tie, and each one is
@@ -31,6 +33,18 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    against the indexed Metropolis resampler, noise moments, the inverse-CDF
    sandwich with an exact gather, stratified offspring, and log-evidence
    against the Kalman filter and the composed path.
+3c. The "tile" design's oracle, for both fused kernels at d = 16 and 32
+   (systematic for the CDF step), the design printed beside each case:
+   (1) a dense G with Q = 0 gives G x of the kernel's own ancestors within
+   1e-5 of |G| |x| entrywise; (2) X = 0, G = 0 and a dense lower-triangular
+   Q give noise whose mean and second moment stay within 5 standard errors
+   of 0 and c Q Q' (MVN; MVT df=8 on the Metropolis step, df=5 with
+   df_int=5 on the CDF step), m = 2^20; (3) that noise, whitened, is
+   uncorrelated between particles i and i+1, i+32 and i+tile and between
+   two calls (5 standard errors); (4) the log-evidence of a conditioned
+   model (V = 0.1 I, W = C0 = 0.001 I), N = 2^20, T = 101, 4 seeds, both
+   engines and both resamplers, within bands of the Kalman value, and the
+   fused systematic path within its spread of the composed one.
 4. The main path, through the entry points a user calls, with every
    launch count set to 0 first: ``run()`` at the README quick start (MVT
    df=5, metropolis, N=10000, the 1001-step bundled trace); MVN systematic
@@ -63,13 +77,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    search-only kernel also on shuffled queries, and times the search-only
    kernel at L = N, L = N/4 strided, the shard-1 shape and shuffled.
 5. The block-window kernels on the main paths' own inputs, kept at steps
-   0, 99 and 198 of the warm-up runs of phases 4b (the fused CDF step of
-   the systematic pallas runs, d = 2 and 32) and 4c (the search-only
-   kernel's two calls a step of the sharded residual run): the spans of
-   the cdf that their blocks search, the share of blocks that fits the
-   window (and would fit one a quarter, half or twice as large), each
-   kernel against its plain version, and its device time; the same for the
-   search-only kernel's shuffled queries of phase 3.
+   0, 99 and 198 of the warm-up runs of phases 4 (the search-and-apply of
+   the composed systematic headline, d = 2), 4b (the fused CDF step of the
+   systematic pallas runs, d = 2 and 32; the search-and-apply of the
+   composed systematic run at d = 32) and 4c (the search-only kernel's two
+   calls a step of the sharded residual run; the search-and-apply's two
+   calls a step of the single-device residual run and its local-block
+   mode in the sharded systematic run): the spans of the cdf that their
+   blocks search, the share of blocks that fits the window (and would fit
+   one a quarter, half or twice as large), each kernel against its plain
+   version, and its device time; the same for the search-only kernel's
+   shuffled queries of phase 3.
    ``--against DIR [DIR ...]`` times the same kernels of other checkouts
    of the repo (the parent commit unpacked with ``git archive``, say)
    beside this tree's on those inputs.
@@ -307,9 +325,10 @@ def _adversarial_weights(gen, n, dev):
     return w
 
 
-def _search_case(cdf, X, name):
+def _search_case(cdf, X, name, order=None):
     """Kernel vs plain (searchsorted + gather) on the same monotone cdf and
-    systematic positions: ancestors and values exactly equal."""
+    systematic positions (taken in ``order``, a permutation, when given):
+    ancestors and values exactly equal."""
     import torch
 
     from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
@@ -319,14 +338,16 @@ def _search_case(cdf, X, name):
     u = torch.rand((), device=cdf.device)
     pos = (torch.arange(n, device=cdf.device, dtype=torch.float32) + u) / n
     pos = pos * cdf[-1]
+    if order is not None:
+        pos = pos[order]
     y, a = inverse_cdf_apply(cdf, pos, X)
     y_p, a_p = inverse_cdf_apply_plain(cdf, pos, X)
     assert torch.equal(a, a_p), f"{name}: ancestors differ " \
         f"({int((a != a_p).sum())} of {n})"
     assert torch.equal(y, y_p), f"{name}: values differ"
     assert int(a.min()) >= 0 and int(a.max()) <= n - 1
-    print(f"  search {name}: N={n} ancestors and values equal "
-          f"({int(torch.unique(a).numel())} distinct ancestors)")
+    print(f"  search {name}: N={n} d={X.shape[0]} ancestors and values "
+          f"equal ({int(torch.unique(a).numel())} distinct ancestors)")
     return float((y - y_p).abs().max())
 
 
@@ -389,10 +410,15 @@ def check_kernels() -> dict:
                  ("concentrated", w_conc), ("zero-runs", w_zero),
                  ("adversarial", _adversarial_weights(gen, n, dev)))]
         serrs = []
+        X32 = torch.randn((D_WIDE, n), generator=gen, device=dev)
+        shuffle = torch.randperm(n, generator=gen, device=dev)
         for name, w in (("exp", w_exp), ("uniform", w_unif),
                         ("concentrated", w_conc), ("zero-runs", w_zero)):
             cdf, _ = blocked_cumsum(w)
             serrs.append(_search_case(cdf, X, f"{tag}/{name}"))
+            serrs.append(_search_case(cdf, X32, f"{tag}/{name}"))
+            serrs.append(_search_case(cdf, X, f"{tag}/{name} shuffled",
+                                      shuffle))
         rerrs = []
         for name, w in (("exp", w_exp), ("uniform", w_unif),
                         ("concentrated", w_conc)):
@@ -425,6 +451,14 @@ def check_kernels() -> dict:
                                                          right=True)),
             label + " (library: searchsorted + index_select)",
             (12 + 8 * D) * n, 0))
+        # The composed systematic step at full width gathers 32 rows.
+        time_kernel("inverse_cdf_apply", lambda: inverse_cdf_apply(cdf, pos,
+                                                                   X32),
+                    lambda: inverse_cdf_apply_plain(cdf, pos, X32),
+                    lambda: X32.index_select(1, torch.searchsorted(
+                        cdf, pos, right=True)),
+                    f"N=2^20 d={D_WIDE} (library: searchsorted + "
+                    f"index_select)", (12 + 8 * D_WIDE) * n, 0)
         rec["roll_metropolis_sweeps_expspace"] = dict(
             max_abs_err=max(rerrs), **time_kernel(
                 "roll_metropolis_sweeps_expspace",
@@ -561,8 +595,9 @@ def check_shard_kernels() -> dict:
                     lambda q=q: torch.searchsorted(cdf, q, right=True),
                     f"N=2^20 {shape} (library: searchsorted)", nbytes, 0)
     # Phase 5 times the shuffled queries beside other trees too.
-    TRAFFIC["search-only kernel, L=N shuffled queries (exp weights; on no "
-            "main path)"] = [(None, (cdf, pos[shuffle].contiguous()), {})]
+    TRAFFIC["inverse_cdf_search", "search-only kernel, L=N shuffled queries "
+            "(exp weights; on no main path)"] = [
+        (None, (cdf, pos[shuffle].contiguous()), {})]
     rec["take_columns"] = dict(max_abs_err=terr, **time_kernel(
         "take_columns", lambda: take_columns(X, a),
         lambda: take_columns_plain(X, a), lambda: X.index_select(1, a),
@@ -952,6 +987,297 @@ def check_statistics() -> None:
     torch.cuda.synchronize()
 
 
+# -- the "tile" design's statistical oracle -------------------------------
+# Both fused kernels run the "tile" design at d = k in {16, 32}, with its own
+# Philox layout for the draws. Their plain versions draw the same bits, so
+# equality with them cannot catch a layout that correlates draws; these
+# checks hold the draws to their law. tests/test_torch_wide_oracle.py runs
+# them on the plain versions on the CPU, tests/test_torch_cuda.py and phase
+# 3c on the kernels.
+
+ORACLE_SE = 5.0          # standard errors a moment or correlation may stray
+ZERO_NOISE_RTOL = 1e-5   # |x - G x_a| <= this |G| |x_a|, entrywise (3xTF32)
+# The MVT noise each step is checked with, as validate_fused_tpu.py checks
+# 3 and 5b do at d = 2: (df, df_int).
+ORACLE_MVT = {"metropolis": (8.0, None), "cdf": (5.0, 5)}
+ORACLE_T = 101           # steps of the log-evidence runs
+ORACLE_OBS_SEED = 2024   # their observations: DLM.simulate on the CPU
+
+
+def oracle_matrices(d):
+    """The oracle's dense G (spectral radius 0.9) and dense
+    lower-triangular Q with a positive diagonal, float64 numpy, from a
+    seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(1000 + d)
+    G = rng.standard_normal((d, d))
+    G *= 0.9 / np.abs(np.linalg.eigvals(G)).max()
+    Q = np.tril(rng.standard_normal((d, d))) / math.sqrt(d)
+    Q[np.diag_indices(d)] = np.abs(np.diag(Q)) + 0.5
+    return G, Q
+
+
+def oracle_step(kind, X, G, Q, gen, weights=None, noise="mvn"):
+    """One fused step of ``X`` [d, m] under ``G`` and ``Q`` (float32 on
+    X's device) with F = Li = I, y = 0: "metropolis" is
+    ``fused_filter_step`` (B = 10), "cdf" ``fused_cdf_filter_step``
+    (systematic). ``weights`` [m] in exp space (None: flat); MVT noise
+    takes ORACLE_MVT[kind]. Returns ``(X_new, ancestors, tile)``, tile
+    being the kernel's particle tile (its Philox block)."""
+    import torch
+
+    from cusmc_tpu_torch.ops.cumsum import blocked_cumsum
+    from cusmc_tpu_torch.ops.fused_cdf_step import cdf_auto_tile, \
+        fused_cdf_filter_step, fused_cdf_filter_step_draws
+    from cusmc_tpu_torch.ops.fused_step import auto_tile, \
+        fused_filter_step, fused_filter_step_draws
+
+    d, m = X.shape
+    dev = X.device
+    eye = torch.eye(d, device=dev)
+    y = torch.zeros(d, device=dev)
+    w = torch.ones(m, device=dev) if weights is None else weights
+    df, df_int = ORACLE_MVT[kind] if noise == "mvt" else (None, None)
+    if kind == "metropolis":
+        tile = auto_tile(m, d)
+        draws = fused_filter_step_draws(gen, m, tile, dev)
+        x, _, a = fused_filter_step(X, torch.log(w), y, G, Q, eye, eye, df,
+                                    0.0, draws, noise=noise, tile=tile,
+                                    df_int=df_int)
+    else:
+        tile = cdf_auto_tile(m, d)
+        cdf, _ = blocked_cumsum(w)
+        draws = fused_cdf_filter_step_draws(gen, dev)
+        x, _, a = fused_cdf_filter_step(cdf, X, y, G, Q, eye, eye, df, 0.0,
+                                        draws, noise=noise, tile=tile,
+                                        df_int=df_int)
+    return x, a, tile
+
+
+def oracle_zero_noise(kind, d, m, gen, dev) -> float:
+    """Check 1: Q = 0 and the dense G. The new state must be G X[:, a] of
+    the step's own ancestors; returns the largest entrywise
+    |x - G x_a| / (|G| |x_a|), G x_a in float64."""
+    import torch
+
+    G, _ = oracle_matrices(d)
+    G = torch.tensor(G, dtype=torch.float32, device=dev)
+    X = torch.randn((d, m), generator=gen, device=dev)
+    ll = -2.0 * torch.randn(m, generator=gen, device=dev) ** 2
+    x, a, _ = oracle_step(kind, X, G, torch.zeros_like(G), gen,
+                          torch.exp(ll - ll.max()))
+    xa = X[:, a.long()].double()
+    G64 = G.double()
+    err = (x.double() - G64 @ xa).abs() / (G64.abs() @ xa.abs())
+    return float(err.max())
+
+
+def oracle_noise(kind, d, m, gen, dev, noise):
+    """Checks 2 and 3: X = 0, G = 0 and the dense lower-triangular Q, so a
+    step's new state is its noise. Returns ``[(check, standard errors)]``,
+    each to stay below ORACLE_SE:
+
+    - each row's mean, and each entry of the second moment E[x x'] against
+      c Q Q' (c = 1 for MVN, df / (df - 2) for MVT). MVN: the standard
+      error of entry (i, j) is sqrt((S_ii S_jj + S_ij^2) / m); MVT: the
+      sample's own, self-normalised (under t5 the product x_i x_j has no
+      third moment, so one small chi-square draw can carry an entry past
+      5 of the law's analytic standard errors, while it inflates the
+      sample's own with it);
+    - the whitened noise z = Q^-1 x of particle i against particle i + s,
+      s = 1, 32 (a warp's tile) and the kernel's particle tile: the
+      direction z / |z| every row against every row (the normals' words),
+      and log |z|^2 (the chi-square's words, under MVT); and the same
+      against a second call with other seeds. Splitting z so keeps one
+      particle's extreme MVT scale out of the d^2 row pairs. A correlation
+      is in standard errors as |corr| sqrt(pairs)."""
+    import torch
+
+    _, Q = oracle_matrices(d)
+    Q = torch.tensor(Q, dtype=torch.float32, device=dev)
+    X0 = torch.zeros((d, m), device=dev)
+    G0 = torch.zeros((d, d), device=dev)
+    x, _, tile = oracle_step(kind, X0, G0, Q, gen, noise=noise)
+    x2, _, _ = oracle_step(kind, X0, G0, Q, gen, noise=noise)
+    xd = x.double()
+    Q64 = Q.double()
+    df = ORACLE_MVT[kind][0]
+    S = (df / (df - 2.0) if noise == "mvt" else 1.0) * (Q64 @ Q64.T)
+    mean = xd.mean(1)
+    second = xd @ xd.T / m
+    if noise == "mvt":
+        se_mean = xd.std(1) / math.sqrt(m)
+        sq = xd * xd
+        se = torch.sqrt((sq @ sq.T / m - second ** 2).clamp_min(0.0) / m)
+    else:
+        diag = torch.diagonal(S)
+        se_mean = torch.sqrt(diag / m)
+        se = torch.sqrt((torch.outer(diag, diag) + S ** 2) / m)
+    out = [("mean", float((mean.abs() / se_mean).max())),
+           ("second moment vs c QQ'", float(((second - S).abs() / se).max()))]
+
+    Qi = torch.linalg.inv(Q64.cpu()).to(dev)
+
+    def split(v):
+        """(direction [d, m], log squared norm [m]) of v whitened."""
+        z = Qi @ v.double()
+        n2 = (z * z).sum(0)
+        return z / torch.sqrt(n2), torch.log(n2)
+
+    def corr(a, b):
+        """Largest |correlation| of the directions' rows of a with those
+        of b (zero mean) and that of their log squared norms, in standard
+        errors."""
+        (ua, la), (ub, lb) = a, b
+        c = (ua @ ub.T) / torch.sqrt(torch.outer((ua * ua).sum(1),
+                                                 (ub * ub).sum(1)))
+        cl = torch.corrcoef(torch.stack([la, lb]))[0, 1]
+        k = math.sqrt(la.shape[0])
+        return float(c.abs().max()) * k, float(cl.abs()) * k
+
+    u, ln = split(x)
+    for s in (1, 32, tile):
+        rows, scale = corr((u[:, :-s], ln[:-s]), (u[:, s:], ln[s:]))
+        out += [(f"particle i vs i+{s}, rows", rows),
+                (f"particle i vs i+{s}, log|z|^2", scale)]
+    rows, scale = corr((u, ln), split(x2))
+    out += [("second call, rows", rows), ("second call, log|z|^2", scale)]
+    return out
+
+
+def conditioned_model_params(d):
+    """``demo_model_params(d)`` with V = 0.1 I, W = 0.001 I, C0 = 0.001 I:
+    a filter that stays alive at d = 32 (the demo model as it is, with
+    V = W, collapses there)."""
+    import numpy as np
+
+    from cusmc_tpu_torch.io.data import demo_model_params
+
+    p = demo_model_params(d)
+    p.update(V=0.1 * np.eye(d), W=0.001 * np.eye(d), C0=0.001 * np.eye(d))
+    return p
+
+
+def conditioned_observations(d, steps=ORACLE_T):
+    """The log-evidence runs' observations [steps, d] (float32, CPU; from
+    ``DLM.simulate`` on the CPU with seed ORACLE_OBS_SEED, so every device
+    filters the same numbers) and their Kalman log-likelihood."""
+    import torch
+
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.smc.kalman import kalman_filter
+
+    p = conditioned_model_params(d)
+    _, ys = DLM.create(noise="mvn", **p).simulate(
+        torch.Generator().manual_seed(ORACLE_OBS_SEED), steps)
+    _, _, zk = kalman_filter(ys, **{k: p[k] for k in
+                                    ("F", "G", "V", "W", "m0", "C0")})
+    return ys, zk
+
+
+def oracle_logz(d, n, seeds, dev, steps=ORACLE_T):
+    """The log-evidence of the conditioned model, MVN: ``({(resampler,
+    engine): [logZ of each seed]}, Kalman logZ)`` for systematic and
+    metropolis (B = 10) through both engines."""
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+
+    ys, zk = conditioned_observations(d, steps)
+    model = DLM.create(noise="mvn", device=dev, **conditioned_model_params(d))
+    ys = ys.to(dev)
+    out = {}
+    for resampler in ("systematic", "metropolis"):
+        for engine in ("pallas", "xla"):
+            out[resampler, engine] = [
+                float(bootstrap_filter(s, model, ys, n, resampler=resampler,
+                                       engine=engine, return_history=False)
+                      .log_evidence) for s in seeds]
+    return out, zk
+
+
+def logz_checks(z, zk, band):
+    """Check 4 on ``oracle_logz``'s output: ``[(check, detail, ok)]``.
+    ``band = (below, above, floor)`` in nats: each path's mean logZ within
+    [zk - below, zk + above]; the fused systematic path's mean within
+    4 sqrt((sd_p^2 + sd_x^2) / R) + floor of the composed path's (the
+    same law)."""
+    import numpy as np
+
+    below, above, floor = band
+    out = []
+    for key, vals in z.items():
+        mean = float(np.mean(vals))
+        out.append((f"{key[0]} {key[1]} vs Kalman",
+                    f"mean {mean:.3f} sd {np.std(vals, ddof=1):.3f} over "
+                    f"{len(vals)}, Kalman {zk:.3f}, band [{zk - below:.3f}, "
+                    f"{zk + above:.3f}]",
+                    zk - below <= mean <= zk + above))
+    zp, zx = z["systematic", "pallas"], z["systematic", "xla"]
+    gap = abs(float(np.mean(zp)) - float(np.mean(zx)))
+    lim = 4.0 * math.sqrt((np.var(zp, ddof=1) + np.var(zx, ddof=1))
+                          / len(zp)) + floor
+    out.append(("fused vs composed systematic", f"|mean gap| {gap:.3f}, "
+                f"limit {lim:.3f} (floor {floor})", gap <= lim))
+    return out
+
+
+# Check 4 on the card: N = 2^20, R = 4 seeds a path, T = ORACLE_T. Its
+# bands (below, above, floor) in nats were sized from the plain versions'
+# spread on the CPU at N = 2^16 (8 seeds a path, PERF.md section 6), before
+# any card run read them: below = the largest bias + 4 sd of the four
+# paths there (the filter sits below Kalman by a bias that shrinks with
+# N), above = 2 sd (4 sd / sqrt(R)), floor = 1 sd, each sd the largest of
+# the four paths', rounded up to 0.1 nat.
+ORACLE_BANDS = {D_MID: (10.7, 3.7, 1.9), D_WIDE: (46.1, 12.0, 6.0)}
+ORACLE_SEEDS = (0, 1, 2, 3)
+
+
+def check_tile_oracle() -> None:
+    """Phase 3c: checks 1-4 of the "tile" design's oracle on both fused
+    kernels at d = 16 and 32, each line with the seconds it took."""
+    import torch
+
+    from cusmc_tpu_torch.ops.fused_step import step_path
+
+    t0 = time.perf_counter()
+
+    def check(name, ok, detail):
+        nonlocal t0
+        torch.cuda.synchronize()
+        print(f"  {'PASS' if ok else 'FAIL'}: {name} ({detail}; "
+              f"{time.perf_counter() - t0:.2f} s)")
+        assert ok, name
+        t0 = time.perf_counter()
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    for d in (D_MID, D_WIDE):
+        path = step_path(d, d)
+        assert path == "tile", f"d={d} runs the {path} design"
+        for kind, name in (("metropolis", "fused_filter_step"),
+                           ("cdf", "fused_cdf_filter_step")):
+            label = f"{name} d={d} path={path}"
+            err = oracle_zero_noise(kind, d, N_BIG, gen, dev)
+            check(f"{label}: dense G, Q = 0, x = G x_a",
+                  err <= ZERO_NOISE_RTOL,
+                  f"max |x - G x_a| / (|G| |x_a|) {err:.3e}, limit "
+                  f"{ZERO_NOISE_RTOL}")
+            for noise in ("mvn", "mvt"):
+                res = oracle_noise(kind, d, N_BIG, gen, dev, noise)
+                law = noise if noise == "mvn" else \
+                    "mvt df={} df_int={}".format(*ORACLE_MVT[kind])
+                check(f"{label} {law}: noise law and independence, m=2^20",
+                      max(v for _, v in res) < ORACLE_SE,
+                      ", ".join(f"{k} {v:.2f}" for k, v in res)
+                      + f"; standard errors, limit {ORACLE_SE}")
+        z, zk = oracle_logz(d, N_BIG, ORACLE_SEEDS, dev)
+        for name, detail, ok in logz_checks(z, zk, ORACLE_BANDS[d]):
+            check(f"d={d} N=2^20 T={ORACLE_T} MVN log-evidence, {name}", ok,
+                  detail)
+
+
 # -- the main paths -------------------------------------------------------
 
 GATHER_CU = "cusmc_tpu_torch/csrc/monotone_gather.cu"
@@ -1034,6 +1360,7 @@ def main_path(card: str) -> None:
     import cusmc_tpu_torch
     from cusmc_tpu_torch.io.data import demo_model_params, load_y_sim
     from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.smc import particle_filter
     from cusmc_tpu_torch.smc.kalman import kalman_filter
     from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
 
@@ -1097,9 +1424,13 @@ def main_path(card: str) -> None:
             ("metropolis", {"num_steps": 10}, ROLL_KERNELS),
             ("systematic", None, CDF_KERNELS)):
         before = _counts()
-        res = bootstrap_filter(0, model, ys_h, n, resampler=resampler,
-                               resampler_kwargs=kwargs,
-                               return_history=False)
+        # Warm-up; the systematic run keeps the search-and-apply's inputs.
+        with capture(particle_filter, "inverse_cdf_apply", (
+                "composed systematic run, d=2 headline",)) \
+                if resampler == "systematic" else contextlib.nullcontext():
+            res = bootstrap_filter(0, model, ys_h, n, resampler=resampler,
+                                   resampler_kwargs=kwargs,
+                                   return_history=False)
         torch.cuda.synchronize()
         best = math.inf
         for rep in range(3):
@@ -1201,11 +1532,16 @@ def pallas_path(card: str) -> None:
                 assert math.isfinite(float(res.log_evidence))
                 return secs, res
 
-            # Warm-up; the systematic run keeps the fused CDF step's inputs.
+            # Warm-up; the systematic runs keep the fused CDF step's inputs
+            # and, at d = 32, the search-and-apply's (the d = 2 composed run
+            # kept them in phase 4).
             with capture(particle_filter, "fused_cdf_filter_step",
                          (f"fused CDF step, d={d} systematic pallas run",)):
                 one("pallas", 0)
-            one("xla", 0)
+            with capture(particle_filter, "inverse_cdf_apply", (
+                    f"composed systematic run, d={d} (engine xla)",)) \
+                    if d == D_WIDE else contextlib.nullcontext():
+                one("xla", 0)
             best = {"pallas": math.inf, "xla": math.inf}
             last = {}
             for rep, engine in enumerate(("pallas", "xla", "xla", "pallas",
@@ -1244,6 +1580,7 @@ def sharded_path(card: str) -> None:
     from cusmc_tpu_torch.parallel import ParticleAxis, \
         initialize_distributed, process_info, sharded_bootstrap_filter
     from cusmc_tpu_torch.parallel import resampling as sharded_resampling
+    from cusmc_tpu_torch.smc import particle_filter
     from cusmc_tpu_torch.smc.kalman import kalman_filter
     from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
 
@@ -1323,13 +1660,21 @@ def sharded_path(card: str) -> None:
             gen = torch.Generator(device="cuda")
             gen.manual_seed(0)
             _, ys_h = mvt.simulate(gen, steps)
-            for label in expect:
-                # Warm-up; the residual run keeps the search-only kernel's
-                # inputs (two calls a step).
-                with capture(sharded_resampling, "inverse_cdf_search", (
+            # Warm-ups keep the inputs of the search-only kernel (sharded
+            # residual: two calls a step) and of the search-and-apply
+            # (single-device residual: two calls a step; sharded
+            # systematic: the local-block mode).
+            keep = {"residual": (sharded_resampling, "inverse_cdf_search", (
                         "sharded residual run: floor-count cdf",
-                        "sharded residual run: remainder cdf")) \
-                        if label == "residual" else contextlib.nullcontext():
+                        "sharded residual run: remainder cdf")),
+                    "single residual": (particle_filter, "inverse_cdf_apply", (
+                        "single-device residual run: residual floor-count",
+                        "single-device residual run: residual remainder")),
+                    "systematic": (sharded_resampling, "inverse_cdf_apply", (
+                        "sharded systematic run: local-block mode",))}
+            for label in expect:
+                with capture(*keep[label]) if label in keep \
+                        else contextlib.nullcontext():
                     one(label, 0, mvt, ys_h, n)
                 torch.cuda.synchronize()
                 best = math.inf
@@ -1359,8 +1704,9 @@ def sharded_path(card: str) -> None:
 # Steps of a T = 200 run whose inputs to the block-window kernels are kept
 # while the main paths run: the first resample, one in the middle, the last.
 TRAFFIC_STEPS = (0, 99, 198)
-# label -> [(step, args, kwargs)], filled by ``capture`` (and, with step
-# None, by phase 3 for the search-only kernel's shuffled queries).
+# (wrapper name, label) -> [(step, args, kwargs)], filled by ``capture``
+# (and, with step None, by phase 3 for the search-only kernel's shuffled
+# queries).
 TRAFFIC: dict = {}
 
 
@@ -1377,16 +1723,17 @@ def _clone(v):
 @contextlib.contextmanager
 def capture(module, name, labels):
     """While open, the calls that ``module`` makes to its function ``name``
-    run unchanged, and the arguments of the steps in TRAFFIC_STEPS are kept,
-    cloned, in TRAFFIC: each step makes one call for each of ``labels``, in
-    that order."""
+    (a kernel's wrapper, imported there by name) run unchanged, and the
+    arguments of the steps in TRAFFIC_STEPS are kept, cloned, in
+    TRAFFIC[name, label]: each step makes one call for each of ``labels``,
+    in that order."""
     fn = getattr(module, name)
     calls = itertools.count()
 
     def recorder(*args, **kwargs):
         step, which = divmod(next(calls), len(labels))
         if step in TRAFFIC_STEPS:
-            TRAFFIC.setdefault(labels[which], []).append(
+            TRAFFIC.setdefault((name, labels[which]), []).append(
                 (step, _clone(args), dict(kwargs)))
         return fn(*args, **kwargs)
 
@@ -1398,12 +1745,13 @@ def capture(module, name, labels):
 
 
 def other_tree(root):
-    """The block-window kernels of another checkout of the repo at
+    """The kernels that phase 5 times, of another checkout of the repo at
     ``root`` (its ``cusmc_tpu_torch/ops/kernels.py``, loaded under another
     name, builds them from its own sources into its own ``build/``):
-    ``(search(cdf, q), cdf_step(args, kwargs))``, each returning the
-    ancestors, called with the arguments that the wrappers of this tree
-    take."""
+    wrapper name -> ``fn(args, kwargs)`` returning the ancestors, called
+    with the arguments that this tree's wrapper takes. The C entries keep
+    their signatures across trees (but for the fused CDF step's ``tiled``
+    argument, added with the "tile" design)."""
     import importlib.util
 
     import torch
@@ -1423,11 +1771,26 @@ def other_tree(root):
     # Before the "tile" design the fused CDF step took no `tiled` argument.
     has_tiled = len(mod.SIGNATURES["cusmc_fused_cdf_step"]) == 23
 
-    def search(cdf, q):
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def search(args, kw):
+        cdf, q = args
         a = torch.empty(q.numel(), dtype=torch.int32, device=q.device)
         mod.check(lib.cusmc_inverse_cdf_search(
             cdf.data_ptr(), q.data_ptr(), a.data_ptr(), cdf.numel(),
-            q.numel(), torch.cuda.current_stream().cuda_stream), root)
+            q.numel(), stream), root)
+        return a
+
+    def apply(args, kw):
+        cdf, q, X = args
+        base = kw.get("local_base") or 0
+        out = torch.empty((X.shape[0], q.numel()), dtype=X.dtype,
+                          device=X.device)
+        a = torch.empty(q.numel(), dtype=torch.int32, device=q.device)
+        mod.check(lib.cusmc_inverse_cdf_apply(
+            cdf.data_ptr(), q.data_ptr(), X.data_ptr(), out.data_ptr(),
+            a.data_ptr(), cdf.numel(), q.numel(), X.shape[1], base,
+            X.shape[0], stream), root)
         return a
 
     def cdf_step(args, kw):
@@ -1442,23 +1805,23 @@ def other_tree(root):
             n, kw.get("tile") or cdf_auto_tile(n, max(d, k)), d, k,
             MODES.index(kw["mode"]), int(kw["noise"] == "mvt"),
             kw.get("df_int") or 0, 1.0 if df is None else float(df),
-            float(log_norm), *tiled,
-            torch.cuda.current_stream().cuda_stream), root)
+            float(log_norm), *tiled, stream), root)
         return a
 
-    return search, cdf_step
+    return {"inverse_cdf_search": search, "inverse_cdf_apply": apply,
+            "fused_cdf_filter_step": cdf_step}
 
 
 def check_traffic(against) -> None:
-    """Phase 5: the two block-window kernels on the inputs that the main
+    """Phase 5: the three block-window kernels on the inputs that the main
     paths gave them (TRAFFIC): for each kept step, the spans of the cdf
     that its blocks search and the share of blocks that fits the window
     (and would fit a window of another size), the kernel against its plain
-    version (ancestors equal, a mismatch only at a shown cdf tie; states
-    and ll at 1e-4) and its device time; beside it the device time of the
-    same kernel of each tree in ``against``, on the same inputs, in the
-    order other, this, this, other, with its ancestors equal to this
-    tree's."""
+    version (ancestors equal, a mismatch only at a shown cdf tie; gathered
+    values exactly, states and ll at 1e-4) and its device time; beside it
+    the device time of the same kernel of each tree in ``against``, on the
+    same inputs, in the order other, this, this, other, with its ancestors
+    equal to this tree's."""
     import torch
 
     from cusmc_tpu_torch.ops.fused_cdf_step import fused_cdf_filter_step, \
@@ -1466,17 +1829,18 @@ def check_traffic(against) -> None:
     from cusmc_tpu_torch.ops.kernels import CDF_BLOCK, CDF_WINDOW, \
         SEARCH_BLOCK, SEARCH_WINDOW
     from cusmc_tpu_torch.ops.monotone_gather import block_spans, \
-        inverse_cdf_search, inverse_cdf_search_plain, window_fit_share
+        inverse_cdf_apply, inverse_cdf_apply_plain, inverse_cdf_search, \
+        inverse_cdf_search_plain, window_fit_share
 
-    others = [(root, *other_tree(root)) for root in against]
+    others = [(root, other_tree(root)) for root in against]
     kept_on_paths = [k for k, v in TRAFFIC.items() if v[0][0] is not None]
-    assert len(kept_on_paths) == 4, f"kept on the main paths: {kept_on_paths}"
-    for label, kept in sorted(TRAFFIC.items()):
+    assert len(kept_on_paths) == 9, f"kept on the main paths: {kept_on_paths}"
+    for (fn, label), kept in sorted(TRAFFIC.items()):
         assert kept[0][0] is None or \
             [s for s, _, _ in kept] == list(TRAFFIC_STEPS), label
         for step, args, kw in kept:
             name = label if step is None else f"{label}, step {step}"
-            if "fused" in label:
+            if fn == "fused_cdf_filter_step":
                 cdf, X, _, _, _, _, _, _, _, (u, _) = args
                 n = cdf.numel()
                 assert kw["mode"] == "systematic", name
@@ -1491,9 +1855,21 @@ def check_traffic(against) -> None:
 
                 def ours(args=args, kw=kw):
                     return fused_cdf_filter_step(*args, **kw)[2]
+            elif fn == "inverse_cdf_apply":
+                cdf, pos, X = args
+                base = kw.get("local_base")
+                block, window, ends = SEARCH_BLOCK, SEARCH_WINDOW, False
+                y, a = inverse_cdf_apply(*args, **kw)
+                y_p, a_p = inverse_cdf_apply_plain(*args, **kw)
+                _ancestors_equal(name, a, a_p, cdf, pos)
+                keep = a == a_p
+                assert torch.equal(y[:, keep], y_p[:, keep]), \
+                    f"{name}: gathered values differ"
+                name += f" (d={X.shape[0]}" + ("" if base is None else
+                                               f", local_base={base}") + ")"
 
-                def theirs(other, args=args, kw=kw):
-                    return other[2](args, kw)
+                def ours(args=args, kw=kw):
+                    return inverse_cdf_apply(*args, **kw)[1]
             else:
                 cdf, pos = args
                 block, window, ends = SEARCH_BLOCK, SEARCH_WINDOW, False
@@ -1504,8 +1880,8 @@ def check_traffic(against) -> None:
                 def ours(cdf=cdf, pos=pos):
                     return inverse_cdf_search(cdf, pos)
 
-                def theirs(other, cdf=cdf, pos=pos):
-                    return other[1](cdf, pos)
+            def theirs(fns, fn=fn, args=args, kw=kw):
+                return fns[fn](args, kw)
             spans = block_spans(cdf, pos, block, ends).double()
             shares = ", ".join(
                 f"{w}: {window_fit_share(cdf, pos, block, w, ends):.4f}"
@@ -1520,13 +1896,12 @@ def check_traffic(against) -> None:
                   f"{window})")
             mine = device_ms(ours)
             line = f"    device time: this tree {mine:.4f} ms"
-            for other in others:
-                _ancestors_equal(f"{name}, {other[0]}", theirs(other), a,
-                                 cdf, pos)
-                t = [device_ms(lambda: theirs(other))]
+            for root, fns in others:
+                _ancestors_equal(f"{name}, {root}", theirs(fns), a, cdf, pos)
+                t = [device_ms(lambda: theirs(fns))]
                 t += [device_ms(ours), device_ms(ours)]
-                t.append(device_ms(lambda: theirs(other)))
-                line += (f"; {other[0]} {t[0]:.4f}/{t[3]:.4f} ms, this tree "
+                t.append(device_ms(lambda: theirs(fns)))
+                line += (f"; {root} {t[0]:.4f}/{t[3]:.4f} ms, this tree "
                          f"{t[1]:.4f}/{t[2]:.4f} ms beside it")
             print(line)
     TRAFFIC.clear()
@@ -1565,6 +1940,10 @@ def main(argv=None) -> int:
     rec.update(check_fused_kernels())
     print("statistics of the fused kernels:")
     check_statistics()
+    print("the \"tile\" design's oracle (d = 16 and 32):")
+    t0 = time.perf_counter()
+    check_tile_oracle()
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
 
     print("main path:")
     _zero_counts()

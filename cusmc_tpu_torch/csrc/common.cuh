@@ -71,17 +71,6 @@ __device__ __forceinline__ void upper_bound_k(const float* __restrict__ cdf,
   for (int k = 0; k < K; ++k) c[k] += cdf[c[k]] <= p[k] ? 1 : 0;
 }
 
-// Inverse-CDF search: #{j < n : cdf[j] <= p}, clipped to n - 1
-// (searchsorted, side right). `<=` never picks a zero-weight particle
-// (equal consecutive cdf values). One binary search of the cdf in global
-// memory: at N = 2^20 its 4 MB stay in L2, and neighbouring threads with
-// sorted queries walk the same upper levels.
-__device__ __forceinline__ long long upper_bound_clipped(
-    const float* __restrict__ cdf, long long n, float p) {
-  const long long c = upper_bound<long long>(cdf, 0, n, p);
-  return c < n - 1 ? c : n - 1;
-}
-
 // The same count over [lo, hi) by one warp, every lane passing the same p:
 // a 32-ary search. Each round the 32 lanes load 32 evenly spaced pivots at
 // once and a ballot keeps the stretch between the last pivot <= p and the
@@ -118,8 +107,10 @@ __device__ __forceinline__ long long warp_upper_bound(
 // few shared-memory steps in place of ~log2(n) dependent L2 loads. A wider
 // stretch (long zero runs, strided or unsorted queries) is searched by
 // upper_bound_k in global memory within [lo, hi); a query outside
-// [pmin, pmax] (NaN) searches the whole cdf. Every branch gives the same
-// integer as upper_bound_clipped.
+// [pmin, pmax] (NaN) searches the whole cdf. Every branch gives the
+// inverse-CDF ancestor #{j < n : cdf[j] <= p} clipped to n - 1
+// (searchsorted, side right; `<=` never picks a zero-weight particle, whose
+// cdf value equals its predecessor's).
 struct CdfWindow {
   const float* cdf;
   const float* win;  // cdf[lo, hi) in shared memory when `fits`

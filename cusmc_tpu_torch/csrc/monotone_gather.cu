@@ -22,24 +22,23 @@
 // coarse window placement (an argsort over the 128-strided cdf), the
 // merge-path window counts and the runtime monotonicity check behind
 // take_columns exist for the same reason. None of that is needed here.
-// inverse_cdf_apply: one thread per query binary-searches the cdf in
-// global memory, then gathers its d values; the 4 MB cdf at N = 2^20 stays
-// in the 50 MB L2, and sorted queries make neighbouring threads walk the
-// same search path, so the upper levels hit in L1. inverse_cdf_search: a
-// block of kThreads threads takes kSearchPerThread queries each, reduces
-// their min and max, and answers them through the block-window search of
-// common.cuh (CdfWindow): two warps find the stretch cdf[lo, hi) the
-// queries can land on in 4 rounds of 32 parallel loads, the block copies
-// it into shared memory when it is at most kSearchWindow floats, and each
-// thread searches its queries together there (upper_bound_k). The min and
-// max make the window exact for queries in any order; unsorted queries
-// cost only locality, never correctness (shuffled queries span the whole
-// cdf and take the in-place search of every block).
+// inverse_cdf_search and inverse_cdf_apply share their search
+// (block_search): a block of kThreads threads takes kSearchPerThread
+// queries each, reduces their min and max, and answers them through the
+// block-window search of common.cuh (CdfWindow): two warps find the
+// stretch cdf[lo, hi) the queries can land on in 4 rounds of 32 parallel
+// loads, the block copies it into shared memory when it is at most
+// kSearchWindow floats, and each thread searches its queries together
+// there (upper_bound_k). The min and max make the window exact for queries
+// in any order; unsorted queries cost only locality, never correctness
+// (shuffled queries span the whole cdf and take the in-place search of
+// every block). inverse_cdf_apply then gathers each query's d values from
+// X row by row.
 //
 // Bound on the card: memory: 4 B of positions and 4 B of ancestors per
 // query, 4 B per cdf element (inverse_cdf_apply adds 8d B of state read
-// and written per query). inverse_cdf_apply is held back by the latency
-// of its ~log2(N) dependent cdf loads per query (L2 hits).
+// and written per query: at d = 32 the gather is 256 of its ~268 B a
+// query).
 #include <math.h>
 
 #include "common.cuh"
@@ -47,9 +46,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-// inverse_cdf_search: queries a block, and the capacity of the block's
-// shared window (floats), both -D defines from ops/kernels.py (PERF.md
-// says how they were chosen on the H100).
+// inverse_cdf_search and inverse_cdf_apply: queries a block, and the
+// capacity of the block's shared window (floats), both -D defines from
+// ops/kernels.py (PERF.md says how they were chosen on the H100).
 constexpr int kSearchBlock = CUSMC_SEARCH_BLOCK;
 constexpr int kSearchWindow = CUSMC_SEARCH_WINDOW;
 static_assert(kSearchBlock % kThreads == 0, "whole queries a thread");
@@ -59,35 +58,18 @@ __device__ __forceinline__ long long clip_index(long long v, long long hi) {
   return v < 0 ? 0 : (v > hi ? hi : v);
 }
 
-__global__ void __launch_bounds__(kThreads)
-inverse_cdf_apply_kernel(const float* __restrict__ cdf,
-                         const float* __restrict__ pos,
-                         const float* __restrict__ X, float* __restrict__ out,
-                         int* __restrict__ anc, long long n, long long nq,
-                         long long nloc, long long base, int d) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= nq) return;
-  const long long a = cusmc::upper_bound_clipped(cdf, n, pos[i]);
-  anc[i] = static_cast<int>(a);
-  const long long rel = clip_index(a - base, nloc - 1);
-  for (int r = 0; r < d; ++r) {
-    out[static_cast<long long>(r) * nq + i] =
-        X[static_cast<long long>(r) * nloc + rel];
-  }
-}
-
-// Query k of a thread is i0 + k kThreads (coalesced loads and stores).
-__global__ void __launch_bounds__(kThreads)
-inverse_cdf_search_kernel(const float* __restrict__ cdf,
-                          const float* __restrict__ pos,
-                          int* __restrict__ anc, long long n, long long nq) {
+// The ancestors of a block's kSearchBlock queries, c[k] for query
+// i0 + k kThreads of this thread (coalesced loads and stores), through the
+// block window: the block's smallest and largest query bound the stretch of
+// the cdf it can land on. Every thread of the block calls this.
+__device__ __forceinline__ void block_search(
+    const float* __restrict__ cdf, const float* __restrict__ pos,
+    long long n, long long nq, long long i0,
+    long long (&c)[kSearchPerThread]) {
   __shared__ float s_win[kSearchWindow];
   __shared__ float s_min[kThreads / 32];
   __shared__ float s_max[kThreads / 32];
   __shared__ long long s_range[2];
-  const long long i0 =
-      static_cast<long long>(blockIdx.x) * kSearchBlock + threadIdx.x;
   float p[kSearchPerThread];
   float lo = INFINITY;
   float hi = -INFINITY;
@@ -125,12 +107,61 @@ inverse_cdf_search_kernel(const float* __restrict__ cdf,
   for (int k = 0; k < kSearchPerThread; ++k) {
     if (i0 + k * kThreads >= nq) p[k] = lo;
   }
-  long long c[kSearchPerThread];
   win.search(p, c);
+}
+
+__global__ void __launch_bounds__(kThreads)
+inverse_cdf_search_kernel(const float* __restrict__ cdf,
+                          const float* __restrict__ pos,
+                          int* __restrict__ anc, long long n, long long nq) {
+  const long long i0 =
+      static_cast<long long>(blockIdx.x) * kSearchBlock + threadIdx.x;
+  long long c[kSearchPerThread];
+  block_search(cdf, pos, n, nq, i0, c);
 #pragma unroll
   for (int k = 0; k < kSearchPerThread; ++k) {
     const long long i = i0 + k * kThreads;
     if (i < nq) anc[i] = static_cast<int>(c[k]);
+  }
+}
+
+// The search-only kernel's blocks, then each thread gathers the d values of
+// its queries row by row: a row's kSearchPerThread loads are independent,
+// and the stores of a row stay coalesced along i. The row loop is unrolled
+// kUnroll deep: 8 for a wide state (at d = 32 the gather is most of the
+// bytes, and scattered ancestors read a 32-byte sector for each 4-byte
+// value), 4 for a narrow one, whose rows the deeper loop would leave to its
+// remainder (the launch picks by d; both timed on the H100 in PERF.md).
+template <int kUnroll>
+__global__ void __launch_bounds__(kThreads)
+inverse_cdf_apply_kernel(const float* __restrict__ cdf,
+                         const float* __restrict__ pos,
+                         const float* __restrict__ X, float* __restrict__ out,
+                         int* __restrict__ anc, long long n, long long nq,
+                         long long nloc, long long base, int d) {
+  const long long i0 =
+      static_cast<long long>(blockIdx.x) * kSearchBlock + threadIdx.x;
+  long long c[kSearchPerThread];
+  block_search(cdf, pos, n, nq, i0, c);
+  long long rel[kSearchPerThread];
+#pragma unroll
+  for (int k = 0; k < kSearchPerThread; ++k) {
+    const long long i = i0 + k * kThreads;
+    if (i < nq) anc[i] = static_cast<int>(c[k]);
+    rel[k] = clip_index(c[k] - base, nloc - 1);
+  }
+#pragma unroll (kUnroll)
+  for (int r = 0; r < d; ++r) {
+    const float* __restrict__ row = X + static_cast<long long>(r) * nloc;
+    float* __restrict__ orow = out + static_cast<long long>(r) * nq;
+    float v[kSearchPerThread];
+#pragma unroll
+    for (int k = 0; k < kSearchPerThread; ++k) v[k] = row[rel[k]];
+#pragma unroll
+    for (int k = 0; k < kSearchPerThread; ++k) {
+      const long long i = i0 + k * kThreads;
+      if (i < nq) orow[i] = v[k];
+    }
   }
 }
 
@@ -151,6 +182,10 @@ unsigned blocks_for(long long count) {
   return static_cast<unsigned>((count + kThreads - 1) / kThreads);
 }
 
+unsigned search_blocks(long long nq) {
+  return static_cast<unsigned>((nq + kSearchBlock - 1) / kSearchBlock);
+}
+
 }  // namespace
 
 // cdf [n], pos [nq], X [d, nloc] (all f32, contiguous) -> out [d, nq] f32
@@ -161,8 +196,10 @@ CUSMC_EXPORT int cusmc_inverse_cdf_apply(const float* cdf, const float* pos,
                                          long long nloc, long long base, int d,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  inverse_cdf_apply_kernel<<<blocks_for(nq), kThreads, 0, s>>>(
-      cdf, pos, X, out, anc, n, nq, nloc, base, d);
+  auto kernel = d >= 8 ? inverse_cdf_apply_kernel<8>
+                       : inverse_cdf_apply_kernel<4>;
+  kernel<<<search_blocks(nq), kThreads, 0, s>>>(cdf, pos, X, out, anc, n, nq,
+                                                nloc, base, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -171,9 +208,8 @@ CUSMC_EXPORT int cusmc_inverse_cdf_search(const float* cdf, const float* pos,
                                           int* anc, long long n, long long nq,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks =
-      static_cast<unsigned>((nq + kSearchBlock - 1) / kSearchBlock);
-  inverse_cdf_search_kernel<<<blocks, kThreads, 0, s>>>(cdf, pos, anc, n, nq);
+  inverse_cdf_search_kernel<<<search_blocks(nq), kThreads, 0, s>>>(
+      cdf, pos, anc, n, nq);
   return static_cast<int>(cudaGetLastError());
 }
 

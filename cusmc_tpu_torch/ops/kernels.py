@@ -31,8 +31,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
     "cusmc_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17")
 # The block-window searches' sizes (csrc/common.cuh), known only here and
-# compiled into the kernels as -D defines: the search-only kernel's queries
-# a block and its shared cdf window in floats (csrc/monotone_gather.cu), the
+# compiled into the kernels as -D defines: the search-only and the
+# search-and-apply kernels' queries a block and their shared cdf window in
+# floats (csrc/monotone_gather.cu), the
 # fused inverse-CDF step's slots a block and its window
 # (csrc/fused_cdf_step.cu). Whatever reports on the window reads them here;
 # PERF.md says how they were chosen on the H100.

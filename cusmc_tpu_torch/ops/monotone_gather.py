@@ -6,19 +6,19 @@ Port of ``cusmc_tpu/ops/monotone_gather.py``: ``inverse_cdf_apply``
 ``_search_only_kernel`` at ``:422``) and ``take_columns`` (``:575-646``,
 the ``_take_kernel`` at ``:204`` and its ``jnp.take`` fallback). On a CUDA
 tensor each launches its kernel in ``csrc/monotone_gather.cu``: for
-``inverse_cdf_apply`` one thread per query (a binary search of the cdf in
-global memory, then the d-row gather), for ``take_columns`` one thread per
-output column, for ``inverse_cdf_search`` a block of ``SEARCH_BLOCK``
-queries searched through a shared-memory window of at most
-``SEARCH_WINDOW`` floats of the stretch of the cdf between their smallest
-and largest (``csrc/common.cuh``; ``window_fit_share`` says how many
-blocks' stretches fit). On a CPU tensor each takes its plain version,
-``torch.searchsorted``, ``index_select`` and a clip.
+``inverse_cdf_search`` and ``inverse_cdf_apply`` a block of
+``SEARCH_BLOCK`` queries searched through a shared-memory window of at
+most ``SEARCH_WINDOW`` floats of the stretch of the cdf between their
+smallest and largest (``csrc/common.cuh``; ``window_fit_share`` says how
+many blocks' stretches fit), ``inverse_cdf_apply`` then gathering each
+query's d values; for ``take_columns`` one thread per output column. On a
+CPU tensor each takes its plain version, ``torch.searchsorted``,
+``index_select`` and a clip.
 
 The JAX wrappers' coarse placement (an argsort over the 128-strided cdf),
 merge-path windows and ``take_columns``' runtime monotonicity check are TPU
-workarounds and are not ported: the binary search and the gather take any
-query or ancestor order. Each wrapper counts its kernel launches in
+workarounds and are not ported: the window search and the gathers take
+any query or ancestor order (order costs speed only). Each wrapper counts its kernel launches in
 ``.launches``; ``inverse_cdf_apply`` counts local-block launches apart, in
 ``.local_launches``.
 """
@@ -83,7 +83,8 @@ def window_fit_share(cdf: torch.Tensor, positions: torch.Tensor,
                      ends: bool = False) -> float:
     """The share of a block-window search's blocks whose stretch of the cdf
     (``block_spans``) fits its shared window of ``window`` floats. The
-    defaults are the search-only kernel's; ``kernels.CDF_BLOCK`` and
+    defaults are the search-only and search-and-apply kernels';
+    ``kernels.CDF_BLOCK`` and
     ``kernels.CDF_WINDOW`` with ``ends=True`` are the fused inverse-CDF
     step's."""
     spans = block_spans(cdf, positions, block, ends)

@@ -20,7 +20,9 @@ accept tests and positions), states and log-likelihoods at rtol 1e-4,
 atol 1e-4 (the kernel sums its d- and k-term products in FMA chains, or
 at d = k in {16, 32} in 3xTF32 tensor-core tiles, cuBLAS in its own
 order; the residual y - F x cancels, and the quadratic form multiplies it
-by Li).
+by Li). The "tile" design's statistical oracle runs here with
+chip_smoke.py's functions and limits (tests/test_torch_wide_oracle.py
+states them), so chip_smoke.py must sit at the root of the checkout.
 """
 
 import numpy as np
@@ -134,6 +136,38 @@ def test_cuda_search_only_kernel(cuda, case, nq_div, queries):
     a = inverse_cdf_search(cdf, pos)
     assert inverse_cdf_search.launches == before + 1
     assert torch.equal(a, inverse_cdf_search_plain(cdf, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["exp", "concentrated", "zero-runs",
+                                  "shuffled"])
+@pytest.mark.parametrize("mode", ["global", "local"])
+@pytest.mark.parametrize("d", [2, 32])
+def test_cuda_search_and_apply_kernel(cuda, d, mode, case):
+    # The block-window search, then the d-row gather: the global mode on a
+    # ragged count of queries (L = N - 333) and the local-block mode at the
+    # shard shapes of a 4-way split (L = N/4 at base p N/4); exp,
+    # concentrated and zero-run weights on sorted queries, and exp weights
+    # on shuffled ones (every block's stretch is the whole cdf).
+    n = 1 << 16
+    weights = "uniform" if case in ("exp", "shuffled") else case
+    cdf, pos, X = (torch.from_numpy(a).to(cuda) for a in search_inputs(
+        np.random.default_rng(17), weights, n, d))
+    if case == "shuffled":
+        gen = torch.Generator(device=cuda).manual_seed(d)
+        pos = pos[torch.randperm(n, generator=gen, device=cuda)].contiguous()
+    L = n // 4
+    shards = [(None, pos[:n - 333], X)] if mode == "global" else [
+        (p * L, pos[p * L:(p + 1) * L].contiguous(),
+         X[:, p * L:(p + 1) * L].contiguous()) for p in range(4)]
+    for base, q, blk in shards:
+        before = (inverse_cdf_apply.launches, inverse_cdf_apply.local_launches)
+        y, a = inverse_cdf_apply(cdf, q, blk, local_base=base)
+        assert (inverse_cdf_apply.launches - before[0],
+                inverse_cdf_apply.local_launches - before[1]) == \
+            ((1, 0) if base is None else (0, 1))
+        y_p, a_p = inverse_cdf_apply_plain(cdf, q, blk, local_base=base)
+        assert torch.equal(a, a_p) and torch.equal(y, y_p)
 
 
 @pytest.mark.cuda
@@ -369,6 +403,37 @@ def test_cuda_fused_cdf_kernel(cuda, d, mode, noise, df, n):
     assert torch.equal(a, a_p)
     _close(x, x_p)
     _close(ll, ll_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("kind", ["metropolis", "cdf"])
+def test_cuda_tile_oracle_moments(cuda, kind, d):
+    # chip_smoke.py's checks 1-3 of the "tile" design on the kernel, at
+    # m = 2^17: a dense G without noise, then the noise law (MVN and MVT)
+    # and its independence across particles, tiles and calls.
+    import chip_smoke as cs
+
+    assert fs.step_path(d, d) == "tile"
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    m = 1 << 17
+    assert cs.oracle_zero_noise(kind, d, m, gen, cuda) <= cs.ZERO_NOISE_RTOL
+    for noise in ("mvn", "mvt"):
+        res = cs.oracle_noise(kind, d, m, gen, cuda, noise)
+        assert [(k, v) for k, v in res if v >= cs.ORACLE_SE] == [], noise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+def test_cuda_tile_oracle_log_evidence(cuda, d):
+    # chip_smoke.py's check 4: the conditioned model at N = 2^20, T = 101,
+    # 4 seeds a path, both engines and resamplers, in the bands that
+    # chip_smoke.py states.
+    import chip_smoke as cs
+
+    z, zk = cs.oracle_logz(d, 1 << 20, cs.ORACLE_SEEDS, cuda)
+    for name, detail, ok in cs.logz_checks(z, zk, cs.ORACLE_BANDS[d]):
+        assert ok, f"{name}: {detail}"
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """PyTorch port, the block-window inverse-CDF search of ``csrc/common.cuh``
 (``warp_upper_bound``, ``CdfWindow``, ``block_cdf_window``), which the
-search-only kernel and the fused inverse-CDF step run on the card.
+search-only kernel, the search-and-apply kernel and the fused inverse-CDF
+step run on the card.
 
 The kernels cannot run here, so this file emulates their search in torch,
 step for step: a block's queries (128 or 256 of them) give ``pmin`` and
@@ -14,8 +15,12 @@ The emulation is held exactly to ``torch.searchsorted(right=True)`` clipped
 to N-1 and, for sorted queries, to the JAX package's
 ``inverse_cdf_search`` (interpret mode), on uniform, concentrated and
 zero-run cdfs, float32 ties, last positions at or past ``cdf[-1]`` and
-unsorted queries. The card-side tests (tests/test_torch_cuda.py) hold the
-kernels to the plain versions on the same kinds of input.
+unsorted queries. The search-and-apply kernel's blocks (``apply_kernel``:
+the search, padded past a ragged end, then the clipped local gather) are
+held to ``inverse_cdf_apply_plain`` and, on sorted queries, to the JAX
+``inverse_cdf_apply`` in both its modes. The card-side tests
+(tests/test_torch_cuda.py) hold the kernels to the plain versions on the
+same kinds of input.
 """
 
 import jax.numpy as jnp
@@ -30,8 +35,8 @@ from cusmc_tpu_torch.ops import fused_cdf_step as fc
 from cusmc_tpu_torch.ops import fused_step as fs
 from cusmc_tpu_torch.ops.kernels import CDF_BLOCK, CDF_WINDOW, \
     SEARCH_BLOCK, SEARCH_WINDOW
-from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_search, \
-    window_fit_share
+from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply_plain, \
+    inverse_cdf_search, window_fit_share
 from cusmc_tpu_torch.ops.philox import philox_bits
 
 
@@ -81,35 +86,73 @@ def warp_upper_bound(cdf, lo, hi, p):
                                  <= p)).sum())
 
 
+def block_search(cdf, q, window, ends=False, block=None):
+    """One block's window search (``block_cdf_window`` and
+    ``CdfWindow::search``) of its queries ``q``: ``(ancestors int64, whether
+    its stretch fit)``. ``ends``: the block's bounds are its first and last
+    query. ``block``: the kernel's queries a block; a ragged block's
+    missing queries then take its smallest, as a thread past the end does,
+    and are searched too (the ancestors of all ``block`` slots come back)."""
+    n = cdf.numel()
+    if ends:
+        pmin, pmax = float(q[0]), float(q[-1])
+    else:  # fminf / fmaxf: a NaN is skipped
+        ok = ~torch.isnan(q)
+        pmin = float(q[ok].min()) if bool(ok.any()) else np.inf
+        pmax = float(q[ok].max()) if bool(ok.any()) else -np.inf
+    if block is not None:
+        q = torch.cat([q, torch.full((block - q.numel(),), pmin,
+                                     dtype=q.dtype)])
+    lo, hi = (warp_upper_bound(cdf, 0, n, np.float32(v))
+              for v in (pmin, pmax))
+    fit = hi - lo <= window
+    inside = (q >= pmin) & (q <= pmax)
+    zeros = torch.zeros_like(q, dtype=torch.int64)
+    if fit:
+        win = cdf[lo:max(hi, lo)].clone()  # the shared-memory copy
+        c = lo + upper_bound_k(win, 0, hi - lo, q)
+    else:
+        c = upper_bound_k(cdf, lo, hi, q)
+    whole = upper_bound(cdf, zeros, zeros + n, q)
+    return torch.where(inside, c, whole).clamp(max=n - 1), fit
+
+
 def window_search(cdf, pos, block, window, ends=False):
     """The block-window search of a kernel whose blocks take ``block``
     consecutive queries: ``(ancestors int64, blocks whose stretch fit)``.
     ``ends``: the block's bounds are its first and last query."""
-    n = cdf.numel()
     out = torch.empty(pos.numel(), dtype=torch.int64)
     fits = []
     for b0 in range(0, pos.numel(), block):
-        q = pos[b0:b0 + block]
-        if ends:
-            pmin, pmax = float(q[0]), float(q[-1])
-        else:  # fminf / fmaxf: a NaN is skipped
-            ok = ~torch.isnan(q)
-            pmin = float(q[ok].min()) if bool(ok.any()) else np.inf
-            pmax = float(q[ok].max()) if bool(ok.any()) else -np.inf
-        lo, hi = (warp_upper_bound(cdf, 0, n, np.float32(v))
-                  for v in (pmin, pmax))
-        fit = hi - lo <= window
+        out[b0:b0 + block], fit = block_search(cdf, pos[b0:b0 + block],
+                                               window, ends)
         fits.append(fit)
-        inside = (q >= pmin) & (q <= pmax)
-        zeros = torch.zeros_like(q, dtype=torch.int64)
-        if fit:
-            win = cdf[lo:max(hi, lo)].clone()  # the shared-memory copy
-            c = lo + upper_bound_k(win, 0, hi - lo, q)
-        else:
-            c = upper_bound_k(cdf, lo, hi, q)
-        whole = upper_bound(cdf, zeros, zeros + n, q)
-        out[b0:b0 + block] = torch.where(inside, c, whole).clamp(max=n - 1)
     return out, fits
+
+
+def apply_kernel(cdf, pos, X, base=0):
+    """``inverse_cdf_apply_kernel`` (csrc/monotone_gather.cu) block by
+    block: the window search of each block's SEARCH_BLOCK queries, padded
+    past the end with the block's smallest; then every slot's ancestor
+    relative to the local block, clipped to [0, nloc - 1], and the d
+    values it loads (a padded slot's load too, which must stay inside X);
+    the stores of the slots before the end. Returns ``(out [d, nq],
+    ancestors int64 [nq], blocks whose stretch fit)``."""
+    d, nloc = X.shape
+    nq = pos.numel()
+    out = torch.full((d, nq), np.nan, dtype=X.dtype)
+    anc = torch.full((nq,), -1, dtype=torch.int64)
+    fits = []
+    for b0 in range(0, nq, SEARCH_BLOCK):
+        q = pos[b0:b0 + SEARCH_BLOCK]
+        c, fit = block_search(cdf, q, SEARCH_WINDOW, block=SEARCH_BLOCK)
+        fits.append(fit)
+        rel = (c - base).clamp(0, nloc - 1)
+        vals = X[:, rel]
+        m = q.numel()
+        anc[b0:b0 + m] = c[:m]
+        out[:, b0:b0 + m] = vals[:, :m]
+    return out, anc, fits
 
 
 def reference(cdf, pos):
@@ -170,7 +213,7 @@ def test_window_search_any_query_order(block, kind):
     ref = reference(cdf_t, pos_t)
     num = ~torch.isnan(pos_t)
     np.testing.assert_array_equal(a[num].numpy(), ref[num].numpy())
-    # A NaN query gets the binary search's count, 0 (upper_bound_clipped),
+    # A NaN query gets the whole-cdf binary search's count, 0,
     # and leaves the other queries of its block exact.
     assert not bool(a[~num].any())
     if kind in ("shuffled", "strided", "zero-runs"):
@@ -238,6 +281,82 @@ def test_upper_bound_k_is_the_count(seed):
     c = upper_bound_k(cdf, lo, hi, p)
     want = lo + (cdf[lo:hi][None, :] <= p[:, None]).sum(1)
     np.testing.assert_array_equal(c.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("case", ["uniform", "concentrated", "zero-runs"])
+def test_apply_kernel_matches_plain_and_jax(case):
+    # Global mode on sorted systematic queries, and the local-block mode at
+    # the shard shapes of a 4-way split (the global cdf, each shard's
+    # queries, its [d, N/4] block at base p N/4).
+    n = 4096
+    cdf, pos, X = search_inputs(np.random.default_rng(41), case, n, 3)
+    cdf_t, pos_t, X_t = (torch.from_numpy(v) for v in (cdf, pos, X))
+    y_jax, a_jax = jmg.inverse_cdf_apply(jnp.asarray(cdf), jnp.asarray(pos),
+                                         jnp.asarray(X), interpret=True)
+    y, a, fits = apply_kernel(cdf_t, pos_t, X_t)
+    y_p, a_p = inverse_cdf_apply_plain(cdf_t, pos_t, X_t)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(a_jax))
+    np.testing.assert_array_equal(a.numpy(), a_p.numpy())
+    np.testing.assert_array_equal(y.numpy(), np.asarray(y_jax))
+    np.testing.assert_array_equal(y.numpy(), y_p.numpy())
+    assert window_fit_share(cdf_t, pos_t) == pytest.approx(np.mean(fits))
+    L = n // 4
+    for p in range(4):
+        base = p * L
+        q, blk = pos[base:base + L], np.ascontiguousarray(X[:, base:base + L])
+        y_jax, a_jax = jmg.inverse_cdf_apply(
+            jnp.asarray(cdf), jnp.asarray(q), jnp.asarray(blk), tile=512,
+            interpret=True, local_base=base)
+        q_t, blk_t = torch.from_numpy(q), torch.from_numpy(blk)
+        y, a, _ = apply_kernel(cdf_t, q_t, blk_t, base)
+        y_p, a_p = inverse_cdf_apply_plain(cdf_t, q_t, blk_t, base)
+        a_jax = np.asarray(a_jax)
+        np.testing.assert_array_equal(a.numpy(), a_jax)
+        np.testing.assert_array_equal(y.numpy(), y_p.numpy())
+        # The JAX kernel leaves the values of out-of-block ancestors unset.
+        hit = (a_jax >= base) & (a_jax < base + L)
+        np.testing.assert_array_equal(y.numpy()[:, hit],
+                                      np.asarray(y_jax)[:, hit])
+
+
+@pytest.mark.parametrize("kind", ["ragged", "wide", "nan", "shuffled",
+                                  "base-clip"])
+def test_apply_kernel_any_query_order(kind):
+    # A ragged last block; blocks whose stretch exceeds the window (zero
+    # runs longer than it); NaN queries; shuffled queries; a local block
+    # whose queries land below and above it, so that both clips act.
+    rng = np.random.default_rng(len(kind))
+    n, d = 1 << 14, 2
+    cdf, pos, X = search_inputs(rng, "uniform", n, d)
+    base = 0
+    if kind == "ragged":
+        pos = pos[:5 * SEARCH_BLOCK + 77]
+    elif kind == "wide":
+        cdf = _zero_run_cdf(n, rng)
+        pos = np.sort(rng.uniform(0, cdf[-1], n // 4)).astype(np.float32)
+    elif kind == "nan":
+        pos = pos.copy()
+        pos[rng.choice(n, 9, replace=False)] = np.nan
+    elif kind == "shuffled":
+        pos = rng.permutation(pos)
+    else:
+        base = n // 4
+        pos = pos[base - 700:2 * base + 900]
+        X = np.ascontiguousarray(X[:, base:2 * base])
+    cdf_t, pos_t, X_t = (torch.from_numpy(v) for v in (cdf, pos, X))
+    y, a, fits = apply_kernel(cdf_t, pos_t, X_t, base)
+    y_p, a_p = inverse_cdf_apply_plain(cdf_t, pos_t, X_t,
+                                       base if kind == "base-clip" else None)
+    num = ~torch.isnan(pos_t)
+    np.testing.assert_array_equal(a[num].numpy(), a_p[num].numpy())
+    np.testing.assert_array_equal(y[:, num].numpy(), y_p[:, num].numpy())
+    # A NaN query takes the whole-cdf binary search's count, 0.
+    assert not bool(a[~num].any())
+    assert torch.equal(y[:, ~num], X_t[:, :1].expand(d, int((~num).sum())))
+    if kind in ("wide", "shuffled"):
+        assert not all(fits), "the wide-block branch was not taken"
+    if kind == "base-clip":
+        assert bool((a < base).any()) and bool((a >= 2 * base).any())
 
 
 @pytest.mark.parametrize("mode", ["systematic", "stratified"])
