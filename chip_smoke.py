@@ -27,7 +27,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    call (CUDA events, median; launch cost included), device time per call
    (torch.profiler), one PyTorch library call of the same function where
    there is one (event and device time), and the least time the card
-   could take (bound).
+   could take (bound). Then the kernels on a bfloat16 state (mixed
+   precision): the fused Metropolis step at N = 2^20, d = 2, 16 and 32,
+   MVN and MVT df=5, ancestors equal to its plain version's and to the
+   float32 kernel's on the same draws, states bitwise but for a 1-ulp
+   mismatch shown to sit at a rounding boundary (the plain float32 value
+   within BF16_BOUNDARY_RTOL of it), ll at 1e-4 on the particles whose
+   states agree; the roll walk and the search-and-apply (both modes) at
+   d = 2 and 32, ancestors equal to the float32 run's and values exactly
+   the plain version's; each timed beside its bound at 2-byte states.
 3b. Statistics of the fused kernels (benchmarks/validate_fused_tpu.py
    checks 1-5d with their thresholds): zero-noise consistency, offspring
    against the indexed Metropolis resampler, noise moments, the inverse-CDF
@@ -44,7 +52,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    two calls (5 standard errors); (4) the log-evidence of a conditioned
    model (V = 0.1 I, W = C0 = 0.001 I), N = 2^20, T = 101, 4 seeds, both
    engines and both resamplers, within bands of the Kalman value, and the
-   fused systematic path within its spread of the composed one.
+   fused systematic path within its spread of the composed one. Checks
+   1-3 also run on the fused Metropolis kernel's bfloat16 state (check 1
+   within half a bfloat16 ulp more), and check 4 on a bfloat16 state for
+   its three paths (systematic xla, metropolis on both engines) within
+   ORACLE_BANDS_BF16, sized on the CPU before any card run read them.
 4. The main path, through the entry points a user calls, with every
    launch count set to 0 first: ``run()`` at the README quick start (MVT
    df=5, metropolis, N=10000, the 1001-step bundled trace); MVN systematic
@@ -76,6 +88,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    at the shard shapes of a 4-way split (L = N/4 queries, base p N/4), the
    search-only kernel also on shuffled queries, and times the search-only
    kernel at L = N, L = N/4 strided, the shard-1 shape and shuffled.
+4d. Mixed precision, with every launch count set to 0 first: a bfloat16
+   state (``DLM.create(state_dtype=torch.bfloat16)``) through
+   ``bootstrap_filter``, MVT df=5, N=2^20: at d = 2 (T=200) metropolis
+   xla, systematic xla and metropolis pallas; at d = 16 and 32 (T=100)
+   metropolis on both engines and systematic xla; each beside the float32
+   run of the same row in turns, one warm-up and the best of 2,
+   particle-steps/s, ESS/s, and from one profiled run of 50 steps the busy
+   share and the device kernels a step. A bfloat16 run
+   launches its kernels (the fused step's, the roll walk's or the cumsum
+   and the search-and-apply's bfloat16 launches) T-1 times each and no
+   other.
 5. The block-window kernels on the main paths' own inputs, kept at steps
    0, 99 and 198 of the warm-up runs of phases 4 (the search-and-apply of
    the composed systematic headline, d = 2), 4b (the fused CDF step of the
@@ -120,6 +143,7 @@ PLAIN_FUSED_REPS = 5      # the plain fused steps take tens of ms a call
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published (700 W part)
 FP32_FLOPS = 67e12         # H100 SXM, float32 outside the tensor cores
 TF32_FLOPS = 495e12        # H100 SXM, TF32 on the tensor cores, dense
+BF16_FLOPS = 989e12        # H100 SXM, bf16 on the tensor cores, dense
 ACCEPT_TIE = 2.0 ** -22    # two float32 ulps, relative
 
 
@@ -129,6 +153,15 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def phase(title: str):
+    """Print a phase's title before it and its wall time after it."""
+    print(f"{title}:")
+    t0 = time.perf_counter()
+    yield
+    print(f"  (phase: {time.perf_counter() - t0:.1f} s)")
 
 
 def median_ms(fn, reps: int = TIMING_REPS) -> float:
@@ -195,9 +228,10 @@ def device_ms(fn, reps: int = TIMING_REPS) -> float:
     return total_us / 1e3
 
 
-def busy_share(fn) -> float:
-    """Device busy share of one call of ``fn``: kernel time summed by
-    torch.profiler over the call's wall time (host and device traced)."""
+def device_busy(fn) -> tuple:
+    """(busy share, kernel launches) of one call of ``fn``: kernel time
+    summed by torch.profiler over the call's wall time (host and device
+    traced), and the kernel records it kept."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -208,9 +242,10 @@ def busy_share(fn) -> float:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy_us / 1e6 / wall
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    return busy_us / 1e6 / wall, sum(e.count for e in kernels)
 
 
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
@@ -623,13 +658,15 @@ def check_shard_kernels() -> dict:
 
 # -- the fused steps ------------------------------------------------------
 
-def _fused_model(d, noise, dev):
-    """The demo DLM of width d on the card, and its kernel arguments."""
+def _fused_model(d, noise, dev, state_dtype=None):
+    """The demo DLM of width d on the card (``state_dtype``: its state's
+    type, None for float32), and its kernel arguments."""
     from cusmc_tpu_torch.io.data import demo_model_params
     from cusmc_tpu_torch.models.dlm import DLM
 
     m = DLM.create(noise=noise, df=5.0 if noise == "mvt" else None,
-                   device=dev, **demo_model_params(d))
+                   device=dev, state_dtype=state_dtype,
+                   **demo_model_params(d))
     mats = tuple(t.contiguous() for t in (m.G, m.W_sqrt, m.F, m.V_chol_inv))
     return m, mats
 
@@ -844,6 +881,184 @@ def check_fused_kernels() -> dict:
     return rec
 
 
+# -- the bfloat16 (mixed-precision) state ---------------------------------
+
+# A bfloat16 state the fused kernel stores may sit one bfloat16 ulp from
+# its plain version's where the two round a float32 sum that lies on the
+# boundary between two bfloat16 values: the kernel sums its products in
+# FMA chains or, in the "tile" design, on the tensor cores, whose float32
+# accumulation may differ from a sequential sum by a few ulps. Such a
+# mismatch passes when the plain version's float32 value before rounding
+# lies within this relative distance of that boundary.
+BF16_BOUNDARY_RTOL = 1e-5
+
+
+def bf16_state_mismatches(x, x_plain, x_pre, rtol=BF16_BOUNDARY_RTOL):
+    """The mask of bfloat16 states that differ from the plain version's;
+    each must be one ulp off with the plain float32 value before rounding
+    (``x_pre``) within ``rtol`` of the boundary between the two. Returns
+    ``(mask, largest relative distance to the boundary)``."""
+    import torch
+
+    diff = x != x_plain
+    if not bool(diff.any()):
+        return diff, 0.0
+    ulps = (x.view(torch.int16).int() - x_plain.view(torch.int16).int())
+    assert int(ulps.abs()[diff].max()) == 1, "a state is > 1 ulp off"
+    mid = (x.float()[diff] + x_plain.float()[diff]) / 2
+    dist = float(((x_pre[diff] - mid).abs() / mid.abs()).max())
+    assert dist <= rtol, f"a 1-ulp mismatch {dist:.3e} off its boundary"
+    return diff, dist
+
+
+def _fused_step_case_bf16(n, d, noise, gen, dev):
+    """The fused Metropolis step on a bfloat16 state against its plain
+    version: ancestors equal (ties shown) and equal to the float32
+    kernel's on the same draws and weights; states bitwise but for shown
+    boundary mismatches; ll at rtol 1e-4, atol 1e-4 on the particles whose
+    states agree."""
+    import torch
+
+    from cusmc_tpu_torch.ops.fused_step import auto_tile, \
+        fused_filter_step, fused_filter_step_draws, fused_filter_step_plain, \
+        step_path
+
+    m, (G, Q, F, Li) = _fused_model(d, noise, dev, torch.bfloat16)
+    X32, logw, y = _state(gen, d, n, dev)
+    X = X32.to(torch.bfloat16)
+    tile = auto_tile(n, d, 2)
+    draws = fused_filter_step_draws(gen, n, tile, dev)
+    df = m.df_value if noise == "mvt" else None
+    args = (X, logw, y, G, Q, F, Li, df, float(m.log_norm), draws)
+    kw = dict(noise=noise, num_sweeps=10, tile=tile, df_int=m.df_int,
+              num_window_tiles=2)
+    x, ll, a = fused_filter_step(*args, **kw)
+    x_p, ll_p, a_p, x_pre = fused_filter_step_plain(*args, **kw,
+                                                    pre_rounding=True)
+    _, (G32, Q32, F32, Li32) = _fused_model(d, noise, dev)
+    _, _, a32 = fused_filter_step(X32, logw, y, G32, Q32, F32, Li32,
+                                  *args[7:], **kw)
+    assert torch.equal(a, a32), "bf16 and f32 ancestors differ"
+
+    def ties(bad):
+        for p in bad[:1000].tolist():
+            margin = _metropolis_margin(X32, logw, draws, tile, 2, 10, p)
+            assert margin <= ACCEPT_TIE, f"slot {p}: margin {margin}"
+
+    label = (f"fused_step[bf16] N={n} d={d} {noise} tile={tile} "
+             f"path={step_path(d, d)}")
+    bad = (a != a_p).nonzero().flatten()
+    assert bad.numel() <= 1000, f"{label}: {bad.numel()} ancestors differ"
+    ties(bad)
+    keep = a == a_p
+    diff, dist = bf16_state_mismatches(x[:, keep], x_p[:, keep],
+                                       x_pre[:, keep])
+    same = diff.logical_not().all(0)
+    torch.testing.assert_close(ll[keep][same], ll_p[keep][same], rtol=1e-4,
+                               atol=1e-4)
+    err = float((ll[keep][same] - ll_p[keep][same]).abs().max())
+    print(f"  {label}: ancestors equal{' but ties' if bad.numel() else ''}"
+          f" and the float32 kernel's; states bitwise but "
+          f"{int(diff.sum())} of {x[:, keep].numel()} one ulp off at a "
+          f"boundary (largest distance {dist:.2e}, limit "
+          f"{BF16_BOUNDARY_RTOL}); max|ll kernel-plain| {err:.3e}")
+    return err, args, kw
+
+
+def check_bf16_kernels() -> dict:
+    """Phase 3 for the bfloat16 state: the fused Metropolis step at
+    N = 2^20, d = 2, 16 and 32, MVN and MVT df=5 (``_fused_step_case_bf16``);
+    the roll walk and the search-and-apply (both modes) at d = 2 and 32,
+    ancestors equal to the float32 run's and values exactly the plain
+    version's. Records at N = 2^20, d = 2; d = 16 and 32 printed."""
+    import torch
+
+    from cusmc_tpu_torch.ops.cumsum import blocked_cumsum
+    from cusmc_tpu_torch.ops.fused_step import fused_filter_step, \
+        fused_filter_step_plain, step_path
+    from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
+        inverse_cdf_apply_plain
+    from cusmc_tpu_torch.resampling.rolls import roll_metropolis_draws, \
+        roll_metropolis_sweeps_expspace, \
+        roll_metropolis_sweeps_expspace_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(777)
+    n, b = N_BIG, 10
+    rec = {}
+    ll = -0.5 * torch.randn(n, generator=gen, device=dev) ** 2 * 50.0
+    w = torch.exp(ll - ll.max())
+    cdf, _ = blocked_cumsum(w)
+    u0 = torch.rand((), generator=gen, device=dev)
+    pos = (torch.arange(n, device=dev, dtype=torch.float32) + u0) / n \
+        * cdf[-1]
+    shifts, u = roll_metropolis_draws(gen, n, b, dev)
+    cases = {}
+    for d in (D, D_WIDE):
+        X32 = torch.randn((d, n), generator=gen, device=dev)
+        X = X32.to(torch.bfloat16)
+        y, a = roll_metropolis_sweeps_expspace(w, shifts, u, X)
+        y_p, a_p = roll_metropolis_sweeps_expspace_plain(w, shifts, u, X)
+        _, a32 = roll_metropolis_sweeps_expspace(w, shifts, u, X32)
+        assert torch.equal(a, a_p) and torch.equal(a, a32), f"rolls d={d}"
+        assert y.dtype == torch.bfloat16 and torch.equal(y, y_p)
+        y, a = inverse_cdf_apply(cdf, pos, X)
+        y_p, a_p = inverse_cdf_apply_plain(cdf, pos, X)
+        _, a32 = inverse_cdf_apply(cdf, pos, X32)
+        assert torch.equal(a, a_p) and torch.equal(a, a32), f"apply d={d}"
+        assert y.dtype == torch.bfloat16 and torch.equal(y, y_p)
+        q = pos[n // 4:n // 2].contiguous()
+        Xl = X[:, n // 4:n // 2].contiguous()
+        y, a = inverse_cdf_apply(cdf, q, Xl, local_base=n // 4)
+        y_p, a_p = inverse_cdf_apply_plain(cdf, q, Xl, local_base=n // 4)
+        assert torch.equal(a, a_p) and torch.equal(y, y_p), f"local d={d}"
+        print(f"  rolls[bf16] and inverse_cdf_apply[bf16] (global; "
+              f"local_base L=N/4 at N/4) N=2^20 d={d}: ancestors equal to "
+              f"the plain and the float32 runs', values exactly equal")
+        cases[d] = X
+    steps = {}
+    for d in (D, D_MID, D_WIDE):
+        for noise in ("mvn", "mvt"):
+            err, args, kw = _fused_step_case_bf16(n, d, noise, gen, dev)
+            if noise == "mvt":
+                steps[d] = (err, args, kw)
+    for d in (D_WIDE, D):  # d = 2 last: its numbers are recorded
+        X = cases[d]
+        rec["roll_metropolis_sweeps_expspace[bf16]"] = dict(
+            max_abs_err=0.0, **time_kernel(
+                "roll_metropolis_sweeps_expspace[bf16]",
+                lambda: roll_metropolis_sweeps_expspace(w, shifts, u, X),
+                lambda: roll_metropolis_sweeps_expspace_plain(w, shifts, u,
+                                                              X),
+                None, f"N=2^20 d={d} B={b} bf16", (8 + 4 * b + 4 * d) * n,
+                b * n))
+        rec["inverse_cdf_apply[bf16]"] = dict(max_abs_err=0.0, **time_kernel(
+            "inverse_cdf_apply[bf16]", lambda: inverse_cdf_apply(cdf, pos, X),
+            lambda: inverse_cdf_apply_plain(cdf, pos, X),
+            lambda: X.index_select(1, torch.searchsorted(cdf, pos,
+                                                         right=True)),
+            f"N=2^20 d={d} bf16 (library: searchsorted + index_select)",
+            (12 + 4 * d) * n, 0))
+    for d in (D_WIDE, D_MID, D):
+        err, args, kw = steps[d]
+        ops = 2.0 * 4 * d * d * n   # G, Q, F, Li at k = d
+        flops, peak = ops, FP32_FLOPS
+        if step_path(d, d) == "tile":
+            # G, Q and F as one bf16 tensor-core product each, Li as three
+            # TF32 ones: in TF32-rate operations.
+            flops = 0.75 * ops * TF32_FLOPS / BF16_FLOPS + 0.25 * ops * 3
+            peak = TF32_FLOPS
+        rec["fused_filter_step[bf16]"] = dict(max_abs_err=err, **time_kernel(
+            "fused_filter_step[bf16]", lambda: fused_filter_step(*args, **kw),
+            lambda: fused_filter_step_plain(*args, **kw), None,
+            f"N=2^20 d={d} MVT df=5 B=10 bf16 tile={kw['tile']} "
+            f"path={step_path(d, d)}", (4 * d + 12) * n, flops,
+            PLAIN_FUSED_REPS, peak))
+    torch.cuda.synchronize()
+    return rec
+
+
 def check_statistics() -> None:
     """Phase 3b: benchmarks/validate_fused_tpu.py checks 1-5d, on the
     kernels, with their thresholds."""
@@ -997,6 +1212,10 @@ def check_statistics() -> None:
 
 ORACLE_SE = 5.0          # standard errors a moment or correlation may stray
 ZERO_NOISE_RTOL = 1e-5   # |x - G x_a| <= this |G| |x_a|, entrywise (3xTF32)
+# A bfloat16 state: the stored state is G x_a rounded to bfloat16, within
+# half an ulp (at most 2^-8 of it: 8 significant bits) of it, on top of the
+# float32 tolerance.
+ZERO_NOISE_RTOL_BF16 = 2.0 ** -8 + ZERO_NOISE_RTOL
 # The MVT noise each step is checked with, as validate_fused_tpu.py checks
 # 3 and 5b do at d = 2: (df, df_int).
 ORACLE_MVT = {"metropolis": (8.0, None), "cdf": (5.0, 5)}
@@ -1019,8 +1238,9 @@ def oracle_matrices(d):
 
 
 def oracle_step(kind, X, G, Q, gen, weights=None, noise="mvn"):
-    """One fused step of ``X`` [d, m] under ``G`` and ``Q`` (float32 on
-    X's device) with F = Li = I, y = 0: "metropolis" is
+    """One fused step of ``X`` [d, m] under ``G`` and ``Q`` (of X's type,
+    float32 or, for "metropolis", bfloat16, on X's device) with F = Li =
+    I, y = 0: "metropolis" is
     ``fused_filter_step`` (B = 10), "cdf" ``fused_cdf_filter_step``
     (systematic). ``weights`` [m] in exp space (None: flat); MVT noise
     takes ORACLE_MVT[kind]. Returns ``(X_new, ancestors, tile)``, tile
@@ -1040,11 +1260,11 @@ def oracle_step(kind, X, G, Q, gen, weights=None, noise="mvn"):
     w = torch.ones(m, device=dev) if weights is None else weights
     df, df_int = ORACLE_MVT[kind] if noise == "mvt" else (None, None)
     if kind == "metropolis":
-        tile = auto_tile(m, d)
+        tile = auto_tile(m, d, X.element_size())
         draws = fused_filter_step_draws(gen, m, tile, dev)
-        x, _, a = fused_filter_step(X, torch.log(w), y, G, Q, eye, eye, df,
-                                    0.0, draws, noise=noise, tile=tile,
-                                    df_int=df_int)
+        x, _, a = fused_filter_step(X, torch.log(w), y, G, Q,
+                                    eye.to(X.dtype), eye, df, 0.0, draws,
+                                    noise=noise, tile=tile, df_int=df_int)
     else:
         tile = cdf_auto_tile(m, d)
         cdf, _ = blocked_cumsum(w)
@@ -1055,15 +1275,17 @@ def oracle_step(kind, X, G, Q, gen, weights=None, noise="mvn"):
     return x, a, tile
 
 
-def oracle_zero_noise(kind, d, m, gen, dev) -> float:
+def oracle_zero_noise(kind, d, m, gen, dev, dtype=None) -> float:
     """Check 1: Q = 0 and the dense G. The new state must be G X[:, a] of
     the step's own ancestors; returns the largest entrywise
-    |x - G x_a| / (|G| |x_a|), G x_a in float64."""
+    |x - G x_a| / (|G| |x_a|), G x_a in float64. ``dtype``: the state's
+    and G's type (None: float32)."""
     import torch
 
+    dtype = dtype or torch.float32
     G, _ = oracle_matrices(d)
-    G = torch.tensor(G, dtype=torch.float32, device=dev)
-    X = torch.randn((d, m), generator=gen, device=dev)
+    G = torch.tensor(G, dtype=torch.float32, device=dev).to(dtype)
+    X = torch.randn((d, m), generator=gen, device=dev).to(dtype)
     ll = -2.0 * torch.randn(m, generator=gen, device=dev) ** 2
     x, a, _ = oracle_step(kind, X, G, torch.zeros_like(G), gen,
                           torch.exp(ll - ll.max()))
@@ -1073,7 +1295,7 @@ def oracle_zero_noise(kind, d, m, gen, dev) -> float:
     return float(err.max())
 
 
-def oracle_noise(kind, d, m, gen, dev, noise):
+def oracle_noise(kind, d, m, gen, dev, noise, dtype=None):
     """Checks 2 and 3: X = 0, G = 0 and the dense lower-triangular Q, so a
     step's new state is its noise. Returns ``[(check, standard errors)]``,
     each to stay below ORACLE_SE:
@@ -1091,13 +1313,17 @@ def oracle_noise(kind, d, m, gen, dev, noise):
       and log |z|^2 (the chi-square's words, under MVT); and the same
       against a second call with other seeds. Splitting z so keeps one
       particle's extreme MVT scale out of the d^2 row pairs. A correlation
-      is in standard errors as |corr| sqrt(pairs)."""
+      is in standard errors as |corr| sqrt(pairs).
+
+    ``dtype``: the state's and Q's type (None: float32); Q is then the
+    oracle's matrix rounded to it, and the law is held to that Q."""
     import torch
 
+    dtype = dtype or torch.float32
     _, Q = oracle_matrices(d)
-    Q = torch.tensor(Q, dtype=torch.float32, device=dev)
-    X0 = torch.zeros((d, m), device=dev)
-    G0 = torch.zeros((d, d), device=dev)
+    Q = torch.tensor(Q, dtype=torch.float32, device=dev).to(dtype)
+    X0 = torch.zeros((d, m), dtype=dtype, device=dev)
+    G0 = torch.zeros((d, d), dtype=dtype, device=dev)
     x, _, tile = oracle_step(kind, X0, G0, Q, gen, noise=noise)
     x2, _, _ = oracle_step(kind, X0, G0, Q, gen, noise=noise)
     xd = x.double()
@@ -1169,39 +1395,49 @@ def conditioned_observations(d, steps=ORACLE_T):
     from cusmc_tpu_torch.smc.kalman import kalman_filter
 
     p = conditioned_model_params(d)
-    _, ys = DLM.create(noise="mvn", **p).simulate(
+    _, ys = DLM.create(noise="mvn", device="cpu", **p).simulate(
         torch.Generator().manual_seed(ORACLE_OBS_SEED), steps)
     _, _, zk = kalman_filter(ys, **{k: p[k] for k in
                                     ("F", "G", "V", "W", "m0", "C0")})
     return ys, zk
 
 
-def oracle_logz(d, n, seeds, dev, steps=ORACLE_T):
+# The paths of the log-evidence runs: (resampler, engine). A bfloat16 state
+# runs three of them (the fused CDF step is float32 only).
+LOGZ_PATHS = (("systematic", "pallas"), ("systematic", "xla"),
+              ("metropolis", "pallas"), ("metropolis", "xla"))
+LOGZ_PATHS_BF16 = (("systematic", "xla"), ("metropolis", "pallas"),
+                   ("metropolis", "xla"))
+
+
+def oracle_logz(d, n, seeds, dev, steps=ORACLE_T, state_dtype=None):
     """The log-evidence of the conditioned model, MVN: ``({(resampler,
     engine): [logZ of each seed]}, Kalman logZ)`` for systematic and
-    metropolis (B = 10) through both engines."""
+    metropolis (B = 10) through both engines (``state_dtype``
+    torch.bfloat16: the paths of LOGZ_PATHS_BF16)."""
     from cusmc_tpu_torch.models.dlm import DLM
     from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
 
     ys, zk = conditioned_observations(d, steps)
-    model = DLM.create(noise="mvn", device=dev, **conditioned_model_params(d))
+    model = DLM.create(noise="mvn", device=dev, state_dtype=state_dtype,
+                       **conditioned_model_params(d))
     ys = ys.to(dev)
     out = {}
-    for resampler in ("systematic", "metropolis"):
-        for engine in ("pallas", "xla"):
-            out[resampler, engine] = [
-                float(bootstrap_filter(s, model, ys, n, resampler=resampler,
-                                       engine=engine, return_history=False)
-                      .log_evidence) for s in seeds]
+    for resampler, engine in (LOGZ_PATHS if state_dtype is None
+                              else LOGZ_PATHS_BF16):
+        out[resampler, engine] = [
+            float(bootstrap_filter(s, model, ys, n, resampler=resampler,
+                                   engine=engine, return_history=False)
+                  .log_evidence) for s in seeds]
     return out, zk
 
 
 def logz_checks(z, zk, band):
     """Check 4 on ``oracle_logz``'s output: ``[(check, detail, ok)]``.
     ``band = (below, above, floor)`` in nats: each path's mean logZ within
-    [zk - below, zk + above]; the fused systematic path's mean within
-    4 sqrt((sd_p^2 + sd_x^2) / R) + floor of the composed path's (the
-    same law)."""
+    [zk - below, zk + above]; the fused systematic path's mean, where it
+    ran, within 4 sqrt((sd_p^2 + sd_x^2) / R) + floor of the composed
+    path's (the same law)."""
     import numpy as np
 
     below, above, floor = band
@@ -1213,6 +1449,8 @@ def logz_checks(z, zk, band):
                     f"{len(vals)}, Kalman {zk:.3f}, band [{zk - below:.3f}, "
                     f"{zk + above:.3f}]",
                     zk - below <= mean <= zk + above))
+    if ("systematic", "pallas") not in z:
+        return out
     zp, zx = z["systematic", "pallas"], z["systematic", "xla"]
     gap = abs(float(np.mean(zp)) - float(np.mean(zx)))
     lim = 4.0 * math.sqrt((np.var(zp, ddof=1) + np.var(zx, ddof=1))
@@ -1230,12 +1468,19 @@ def logz_checks(z, zk, band):
 # N), above = 2 sd (4 sd / sqrt(R)), floor = 1 sd, each sd the largest of
 # the four paths', rounded up to 0.1 nat.
 ORACLE_BANDS = {D_MID: (10.7, 3.7, 1.9), D_WIDE: (46.1, 12.0, 6.0)}
+# The same check on a bfloat16 state (LOGZ_PATHS_BF16), sized the same way
+# from oracle_logz(d, 2**16, range(8), "cpu", state_dtype=torch.bfloat16)
+# before any card run read them (PERF.md section 6).
+ORACLE_BANDS_BF16 = {D_MID: (15.1, 4.6, 2.3), D_WIDE: (47.2, 12.3, 6.2)}
 ORACLE_SEEDS = (0, 1, 2, 3)
 
 
 def check_tile_oracle() -> None:
     """Phase 3c: checks 1-4 of the "tile" design's oracle on both fused
-    kernels at d = 16 and 32, each line with the seconds it took."""
+    kernels at d = 16 and 32, each line with the seconds it took; checks
+    1-3 also on the fused Metropolis kernel's bfloat16 state, check 1
+    within ZERO_NOISE_RTOL_BF16; check 4 also on a bfloat16 state, for its
+    three paths, within ORACLE_BANDS_BF16."""
     import torch
 
     from cusmc_tpu_torch.ops.fused_step import step_path
@@ -1272,10 +1517,28 @@ def check_tile_oracle() -> None:
                       max(v for _, v in res) < ORACLE_SE,
                       ", ".join(f"{k} {v:.2f}" for k, v in res)
                       + f"; standard errors, limit {ORACLE_SE}")
-        z, zk = oracle_logz(d, N_BIG, ORACLE_SEEDS, dev)
-        for name, detail, ok in logz_checks(z, zk, ORACLE_BANDS[d]):
-            check(f"d={d} N=2^20 T={ORACLE_T} MVN log-evidence, {name}", ok,
-                  detail)
+        bf = torch.bfloat16
+        label = f"fused_filter_step[bf16] d={d} path={path}"
+        err = oracle_zero_noise("metropolis", d, N_BIG, gen, dev, bf)
+        check(f"{label}: dense G, Q = 0, x = G x_a",
+              err <= ZERO_NOISE_RTOL_BF16,
+              f"max |x - G x_a| / (|G| |x_a|) {err:.3e}, limit "
+              f"{ZERO_NOISE_RTOL_BF16:.3e}")
+        for noise in ("mvn", "mvt"):
+            res = oracle_noise("metropolis", d, N_BIG, gen, dev, noise, bf)
+            law = noise if noise == "mvn" else \
+                "mvt df={} df_int={}".format(*ORACLE_MVT["metropolis"])
+            check(f"{label} {law}: noise law and independence, m=2^20",
+                  max(v for _, v in res) < ORACLE_SE,
+                  ", ".join(f"{k} {v:.2f}" for k, v in res)
+                  + f"; standard errors, limit {ORACLE_SE}")
+        for state_dtype, bands, tag in ((None, ORACLE_BANDS, ""),
+                                        (bf, ORACLE_BANDS_BF16, " bf16")):
+            z, zk = oracle_logz(d, N_BIG, ORACLE_SEEDS, dev,
+                                state_dtype=state_dtype)
+            for name, detail, ok in logz_checks(z, zk, bands[d]):
+                check(f"d={d} N=2^20 T={ORACLE_T} MVN{tag} log-evidence, "
+                      f"{name}", ok, detail)
 
 
 # -- the main paths -------------------------------------------------------
@@ -1298,6 +1561,12 @@ KERNELS = (
      "cusmc_tpu/ops/monotone_gather.py:204", "sharded"),
     ("inverse_cdf_apply[local_base]", GATHER_CU,
      "cusmc_tpu/ops/monotone_gather.py:401", "sharded"),
+    ("fused_filter_step[bf16]", "cusmc_tpu_torch/csrc/fused_step.cu",
+     "cusmc_tpu/ops/fused_step.py:127", "bf16"),
+    ("roll_metropolis_sweeps_expspace[bf16]", "cusmc_tpu_torch/csrc/rolls.cu",
+     "cusmc_tpu/resampling/rolls.py:109", "bf16"),
+    ("inverse_cdf_apply[bf16]", GATHER_CU,
+     "cusmc_tpu/ops/monotone_gather.py:277", "bf16"),
 )
 
 
@@ -1320,7 +1589,13 @@ def _wrappers():
             "inverse_cdf_search": (inverse_cdf_search, "launches"),
             "take_columns": (take_columns, "launches"),
             "inverse_cdf_apply[local_base]": (inverse_cdf_apply,
-                                              "local_launches")}
+                                              "local_launches"),
+            "fused_filter_step[bf16]": (fused_filter_step, "bf16_launches"),
+            "roll_metropolis_sweeps_expspace[bf16]":
+                (roll_metropolis_sweeps_expspace, "bf16_launches"),
+            "inverse_cdf_apply[bf16]": (inverse_cdf_apply, "bf16_launches"),
+            "inverse_cdf_apply[bf16 local_base]": (inverse_cdf_apply,
+                                                   "bf16_local_launches")}
 
 
 def _counts():
@@ -1552,7 +1827,7 @@ def pallas_path(card: str) -> None:
                 res = last[engine]
                 rate = n * (steps - 1) / best[engine]
                 ess_rate = float(res.ess.double().sum()) / best[engine]
-                busy = busy_share(lambda: bootstrap_filter(
+                busy, _ = device_busy(lambda: bootstrap_filter(
                     7, model, ys_h, n, resampler=resampler,
                     resampler_kwargs=kwargs, engine=engine,
                     return_history=False))
@@ -1564,6 +1839,107 @@ def pallas_path(card: str) -> None:
                       f"{busy:.3f} [{card}]")
             print(f"  pallas / xla rate, {resampler} d={d}: "
                   f"{best['xla'] / best['pallas']:.3f}")
+
+
+# The rows of phase 4d, by width: (resampler, engine), and their steps (the
+# headline's T = 200 at d = 2; the wider rows are device-bound, and 100
+# steps read their rate as well). Their busy share and kernels a step come
+# from a profiled run of the first BF16_PROFILE_STEPS steps: tracing the
+# host costs seconds a run and grows with its steps.
+BF16_STEPS = {D: 200, D_MID: 100, D_WIDE: 100}
+BF16_PROFILE_STEPS = 50
+BF16_ROWS = {
+    D: (("metropolis", "xla"), ("systematic", "xla"),
+        ("metropolis", "pallas")),
+    D_MID: (("metropolis", "pallas"), ("metropolis", "xla"),
+            ("systematic", "xla")),
+    D_WIDE: (("metropolis", "pallas"), ("metropolis", "xla"),
+             ("systematic", "xla")),
+}
+# The kernels a bfloat16 run launches T-1 times, by (resampler, engine).
+BF16_USED = {
+    ("metropolis", "pallas"): ("fused_filter_step[bf16]",),
+    ("metropolis", "xla"): ("roll_metropolis_sweeps_expspace[bf16]",),
+    ("systematic", "xla"): ("blocked_cumsum", "inverse_cdf_apply[bf16]"),
+}
+
+
+def bf16_path(card: str) -> None:
+    """Phase 4d: mixed precision (a bfloat16 state) through
+    bootstrap_filter, each bfloat16 run beside the float32 run of the same
+    row in turns (bf16, f32, f32, bf16 after one warm-up each): MVT df=5,
+    N=2^20, T of BF16_STEPS, the rows of BF16_ROWS; particle-steps/s and
+    ESS/s of the best of 2, then the busy share and the device kernels a
+    step from one profiled run of BF16_PROFILE_STEPS steps. A bfloat16 run
+    launches the kernels of
+    BF16_USED T-1 times each and no other kernel of the port."""
+    import torch
+
+    from cusmc_tpu_torch.io.data import demo_model_params
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+
+    n = N_BIG
+    for d in (D, D_MID, D_WIDE):
+        steps = BF16_STEPS[d]
+        models = {dt: DLM.create(noise="mvt", df=5.0, device="cuda",
+                                 state_dtype=sdt, **demo_model_params(d))
+                  for dt, sdt in (("f32", None), ("bf16", torch.bfloat16))}
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        _, ys_h = models["f32"].simulate(gen, steps)
+        for resampler, engine in BF16_ROWS[d]:
+            kwargs = {"num_steps": 10} if resampler == "metropolis" else None
+            used = BF16_USED[resampler, engine]
+
+            def run(dt, seed, ys=ys_h):
+                return bootstrap_filter(seed, models[dt], ys, n,
+                                        resampler=resampler,
+                                        resampler_kwargs=kwargs,
+                                        engine=engine, return_history=False)
+
+            def one(dt, seed):
+                before = _counts()
+                t0 = time.perf_counter()
+                res = run(dt, seed)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                after = _counts()
+                if dt == "bf16":
+                    for name in after:
+                        grown = after[name] - before[name]
+                        want = steps - 1 if name in used else 0
+                        assert grown == want, f"bf16 {resampler} {engine} " \
+                            f"d={d}: {name} launched {grown} times"
+                    assert res.final_particles.dtype == torch.bfloat16
+                    assert res.final_log_weights.dtype == torch.float32
+                assert bool(torch.isfinite(res.final_particles).all())
+                assert math.isfinite(float(res.log_evidence))
+                return secs, res
+
+            one("bf16", 0)
+            one("f32", 0)
+            best = {"bf16": math.inf, "f32": math.inf}
+            last = {}
+            for rep, dt in enumerate(("bf16", "f32", "f32", "bf16")):
+                secs, last[dt] = one(dt, rep + 1)
+                best[dt] = min(best[dt], secs)
+            for dt in ("bf16", "f32"):
+                res = last[dt]
+                rate = n * (steps - 1) / best[dt]
+                ess_rate = float(res.ess.double().sum()) / best[dt]
+                busy, kernels = device_busy(
+                    lambda: run(dt, 7, ys_h[:BF16_PROFILE_STEPS]))
+                per_step = kernels / (BF16_PROFILE_STEPS - 1)
+                print(f"  {dt} MVT df=5 {resampler} engine={engine} N=2^20 "
+                      f"T={steps} d={d}: {rate:.6g} particle-steps/s, "
+                      f"{ess_rate:.6g} ESS/s, best {best[dt]:.4f} s of 2, "
+                      f"logZ {float(res.log_evidence):.3f}, device busy "
+                      f"{busy:.3f}, {per_step:.1f} kernels a step "
+                      f"(torch.profiler) [{card}]")
+            print(f"  bf16 / f32 rate, {resampler} {engine} d={d}: "
+                  f"{best['f32'] / best['bf16']:.3f}; launches of a bf16 "
+                  f"run: {', '.join(used)} {steps - 1} each, no other")
 
 
 def sharded_path(card: str) -> None:
@@ -1687,7 +2063,7 @@ def sharded_path(card: str) -> None:
                     counts = launched(label, before, steps)
                 assert bool(torch.isfinite(res.final_particles).all())
                 assert math.isfinite(float(res.log_evidence))
-                busy = busy_share(lambda: one(label, 7, mvt, ys_h, n))
+                busy, _ = device_busy(lambda: one(label, 7, mvt, ys_h, n))
                 rate = n * (steps - 1) / best
                 ess_rate = float(res.ess.double().sum()) / best
                 print(f"  headline MVT df=5 {label} N=2^20 T={steps} d=2: "
@@ -1768,8 +2144,10 @@ def other_tree(root):
     lib = mod.library()
     print(f"  built the kernels of {root} in "
           f"{time.perf_counter() - t0:.1f} s")
-    # Before the "tile" design the fused CDF step took no `tiled` argument.
+    # Before the "tile" design the fused CDF step took no `tiled` argument;
+    # before the bfloat16 state the search-and-apply took no `bf16` one.
     has_tiled = len(mod.SIGNATURES["cusmc_fused_cdf_step"]) == 23
+    has_bf16 = len(mod.SIGNATURES["cusmc_inverse_cdf_apply"]) == 12
 
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -1790,7 +2168,7 @@ def other_tree(root):
         mod.check(lib.cusmc_inverse_cdf_apply(
             cdf.data_ptr(), q.data_ptr(), X.data_ptr(), out.data_ptr(),
             a.data_ptr(), cdf.numel(), q.numel(), X.shape[1], base,
-            X.shape[0], stream), root)
+            X.shape[0], *((0,) if has_bf16 else ()), stream), root)
         return a
 
     def cdf_step(args, kw):
@@ -1934,31 +2312,30 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     build_kernels()
-    print("kernels against their plain versions:")
-    rec = check_kernels()
-    rec.update(check_shard_kernels())
-    rec.update(check_fused_kernels())
-    print("statistics of the fused kernels:")
-    check_statistics()
-    print("the \"tile\" design's oracle (d = 16 and 32):")
-    t0 = time.perf_counter()
-    check_tile_oracle()
-    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    with phase("kernels against their plain versions"):
+        rec = check_kernels()
+        rec.update(check_shard_kernels())
+        rec.update(check_fused_kernels())
+    with phase("the kernels on a bfloat16 state (mixed precision)"):
+        rec.update(check_bf16_kernels())
+    with phase("statistics of the fused kernels"):
+        check_statistics()
+    with phase("the \"tile\" design's oracle (d = 16 and 32)"):
+        check_tile_oracle()
 
-    print("main path:")
-    _zero_counts()
-    main_path(card)
-    launches = {"main": _counts()}
-    print("fused path (engine='pallas'):")
-    _zero_counts()
-    pallas_path(card)
-    launches["pallas"] = _counts()
-    print("sharded path (one-rank NCCL group):")
-    _zero_counts()
-    sharded_path(card)
-    launches["sharded"] = _counts()
-    print("the block-window kernels on the main paths' own inputs:")
-    check_traffic(args.against)
+    launches = {}
+    for path, title, drive in (
+            ("main", "main path", main_path),
+            ("pallas", "fused path (engine='pallas')", pallas_path),
+            ("sharded", "sharded path (one-rank NCCL group)", sharded_path),
+            ("bf16", "mixed precision (a bfloat16 state, beside float32)",
+             bf16_path)):
+        with phase(title):
+            _zero_counts()
+            drive(card)
+            launches[path] = _counts()
+    with phase("the block-window kernels on the main paths' own inputs"):
+        check_traffic(args.against)
 
     records = []
     for name, source, replaces, path in KERNELS:

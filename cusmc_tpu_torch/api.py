@@ -2,8 +2,8 @@
 
 Port of ``cusmc_tpu/api.py:91-147`` with the same positional signature and
 return dict; the values are torch tensors on the run's device. ``device``
-(default: the card when there is one, else the CPU) is the one new
-argument. ``engine`` goes to ``bootstrap_filter`` as in the JAX package:
+(default: the card; it raises where there is none, and CPU users pass
+``"cpu"``) is the one new argument. ``engine`` goes to ``bootstrap_filter`` as in the JAX package:
 "auto" and "xla" run the composed path, "pallas" one fused kernel per step
 (metropolis, systematic or stratified; no ESS threshold). ``MVN``,
 ``MVNPDF``, ``MVT``, ``MVTPDF`` and ``metropolis_hastings`` are not ported

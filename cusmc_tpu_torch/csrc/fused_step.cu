@@ -34,12 +34,17 @@
 //     spent ~4600 issue slots a particle on FFMAs and their broadcast
 //     loads and ran 8.6x its bound at d = 32 (PERF.md).
 // The resample half is the same code in both: ancestors are bitwise the
-// plain version's; states and log-likelihoods agree to rounding.
+// plain version's; states and log-likelihoods agree to rounding. Both
+// designs take a float32 or, under mixed precision, a bfloat16 state (the
+// element type T; propagate.cuh and tile_propagate.cuh give its law, the
+// TPU kernel's); the walk reads float32 weights either way, so the
+// ancestors do not depend on T.
 //
 // Bound on the card: at d = 2, memory: per particle it reads X[:, a] and
-// B + 1 weights (L2), writes d states, ll and a (8d + 12 bytes of device
-// traffic counting each input once). At d = 32, the 2d^2 + 2k^2 FMAs of
-// the four products (4096 at d = k = 32) and the Philox rounds bind.
+// B + 1 weights (L2), writes d states, ll and a (2 s d + 12 bytes of
+// device traffic for s-byte states, counting each input once). At d = 32,
+// the 2d^2 + 2k^2 FMAs of the four products (4096 at d = k = 32) and the
+// Philox rounds bind.
 #include "tile_propagate.cuh"
 
 namespace {
@@ -127,11 +132,11 @@ __device__ __forceinline__ long long window_ancestor(
 }
 
 // The "thread" design: propagate.cuh, one particle per thread.
-template <int D, int K>
+template <int D, int K, typename T>
 __global__ void __launch_bounds__(kThreads)
-fused_step_kernel(const float* __restrict__ X, const float* __restrict__ logw,
+fused_step_kernel(const T* __restrict__ X, const float* __restrict__ logw,
                   const int* __restrict__ s, const int* __restrict__ seed,
-                  cusmc::StepModel m, float* __restrict__ Xo,
+                  cusmc::StepModelT<T> m, T* __restrict__ Xo,
                   float* __restrict__ ll, int* __restrict__ anc, long long n,
                   long long tile, int num_sweeps, int num_window_tiles,
                   int staged) {
@@ -156,13 +161,13 @@ fused_step_kernel(const float* __restrict__ X, const float* __restrict__ logw,
 
 // The "tile" design: tile_propagate.cuh, d = k = D. The tile id, its key
 // and its window are the block's (tile % 128 == 0), formed once.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 3)
-fused_step_tile_kernel(const float* __restrict__ X,
+fused_step_tile_kernel(const T* __restrict__ X,
                        const float* __restrict__ logw,
                        const int* __restrict__ s,
-                       const int* __restrict__ seed, cusmc::StepModel m,
-                       float* __restrict__ Xo, float* __restrict__ ll,
+                       const int* __restrict__ seed, cusmc::StepModelT<T> m,
+                       T* __restrict__ Xo, float* __restrict__ ll,
                        int* __restrict__ anc, long long n, long long tile,
                        int num_sweeps, int num_window_tiles) {
   extern __shared__ float4 smem4[];
@@ -188,77 +193,106 @@ fused_step_tile_kernel(const float* __restrict__ X,
                                     num_sweeps);
 }
 
-template <int D, int K>
-int launch(const float* X, const float* logw, const int* s, const int* seed,
-           const cusmc::StepModel& m, float* Xo, float* ll, int* anc,
+template <int D, int K, typename T>
+int launch(const T* X, const float* logw, const int* s, const int* seed,
+           const cusmc::StepModelT<T>& m, T* Xo, float* ll, int* anc,
            long long n, long long tile, int num_sweeps, int wt,
            cudaStream_t stream) {
-  const size_t bytes = cusmc::model_bytes(m.d, m.k);
+  const size_t bytes = cusmc::model_bytes<T>(m.d, m.k);
   const int staged = bytes <= cusmc::kStageBytes ? 1 : 0;
   const long long blocks = n / kThreads;
-  fused_step_kernel<D, K><<<static_cast<unsigned>(blocks), kThreads,
-                            staged ? bytes : 0, stream>>>(
+  fused_step_kernel<D, K, T><<<static_cast<unsigned>(blocks), kThreads,
+                               staged ? bytes : 0, stream>>>(
       X, logw, s, seed, m, Xo, ll, anc, n, tile, num_sweeps, wt, staged);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_tile(const float* X, const float* logw, const int* s,
-                const int* seed, const cusmc::StepModel& m, float* Xo,
+template <int D, typename T>
+int launch_tile(const T* X, const float* logw, const int* s,
+                const int* seed, const cusmc::StepModelT<T>& m, T* Xo,
                 float* ll, int* anc, long long n, long long tile,
                 int num_sweeps, int wt, cudaStream_t stream) {
-  constexpr size_t bytes = cusmc::TileLayout<D>::bytes(kThreads / 32);
+  constexpr size_t bytes = cusmc::TileLayout<D, T>::bytes(kThreads / 32);
   static_assert(bytes <= cusmc::kStageBytes,
                 "above 48 KB the launch needs cudaFuncSetAttribute");
   const long long blocks = n / kThreads;
-  fused_step_tile_kernel<D><<<static_cast<unsigned>(blocks), kThreads, bytes,
-                              stream>>>(X, logw, s, seed, m, Xo, ll, anc, n,
-                                        tile, num_sweeps, wt);
+  fused_step_tile_kernel<D, T><<<static_cast<unsigned>(blocks), kThreads,
+                                 bytes, stream>>>(X, logw, s, seed, m, Xo, ll,
+                                                  anc, n, tile, num_sweeps,
+                                                  wt);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// X [d, n], logw [n], y [k], G, Q [d, d], F [k, d], Li [k, k] (f32,
-// contiguous), s [2] and seed [2] int32 on the device -> Xo [d, n] f32,
-// ll [n] f32, anc [n] int32. The caller checks n % tile == 0,
-// tile % 128 == 0, n >= num_window_tiles * tile, d, k <= 128 and
-// num_sweeps <= 128. noise: 0 MVN, 1 MVT; df_int 0 selects
-// Marsaglia-Tsang. tiled: 1 takes the "tile" design, which needs
-// d = k in {16, 32} (cudaErrorInvalidValue otherwise), 0 the "thread" one.
-CUSMC_EXPORT int cusmc_fused_step(
-    const float* X, const float* logw, const float* y, const float* G,
-    const float* Q, const float* F, const float* Li, const int* s,
-    const int* seed, float* Xo, float* ll, int* anc, long long n,
-    long long tile, int d, int k, int num_sweeps, int num_window_tiles,
-    int noise, int df_int, float df, float log_norm, int tiled,
-    void* stream) {
-  const cusmc::StepModel m{G, Q, F, Li, y, d, k, noise, df_int, df, log_norm};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// One element type: the design that `tiled` names, at the compiled
+// widths.
+template <typename T>
+int launch_step(const T* X, const float* logw, const int* s, const int* seed,
+                const cusmc::StepModelT<T>& m, T* Xo, float* ll, int* anc,
+                long long n, long long tile, int num_sweeps, int wt,
+                int tiled, cudaStream_t st) {
+  const int d = m.d;
   if (tiled) {
-    switch (d == k ? d : 0) {
+    switch (d == m.k ? d : 0) {
       case 16:
         return launch_tile<16>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
-                               num_sweeps, num_window_tiles, st);
+                               num_sweeps, wt, st);
       case 32:
         return launch_tile<32>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
-                               num_sweeps, num_window_tiles, st);
+                               num_sweeps, wt, st);
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  switch (d == k ? d : 0) {
+  switch (d == m.k ? d : 0) {
     case 2:
       return launch<2, 2>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
-                          num_sweeps, num_window_tiles, st);
+                          num_sweeps, wt, st);
     case 4:
       return launch<4, 4>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
-                          num_sweeps, num_window_tiles, st);
+                          num_sweeps, wt, st);
     case 8:
       return launch<8, 8>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
-                          num_sweeps, num_window_tiles, st);
+                          num_sweeps, wt, st);
     default:
       return launch<0, 0>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
-                          num_sweeps, num_window_tiles, st);
+                          num_sweeps, wt, st);
   }
+}
+
+}  // namespace
+
+// X [d, n], G, Q [d, d] and F [k, d] (f32, or all bf16 when bf16 != 0; the
+// bf16 tile design also needs G, Q and F 4-byte aligned), logw [n], y [k]
+// and Li [k, k] (f32), all contiguous, s [2] and seed [2] int32 on the
+// device -> Xo [d, n] of X's type, ll [n] f32, anc [n] int32. The caller
+// checks n % tile == 0, tile % 128 == 0, n >= num_window_tiles * tile,
+// d, k <= 128, num_sweeps <= 128 and, for bf16, even d. noise: 0 MVN,
+// 1 MVT; df_int 0 selects Marsaglia-Tsang. tiled: 1 takes the "tile"
+// design, which needs d = k in {16, 32} (cudaErrorInvalidValue
+// otherwise), 0 the "thread" one.
+CUSMC_EXPORT int cusmc_fused_step(
+    const void* X, const float* logw, const float* y, const void* G,
+    const void* Q, const void* F, const float* Li, const int* s,
+    const int* seed, void* Xo, float* ll, int* anc, long long n,
+    long long tile, int d, int k, int num_sweeps, int num_window_tiles,
+    int noise, int df_int, float df, float log_norm, int tiled, int bf16,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    using B = __nv_bfloat16;
+    const cusmc::StepModelT<B> m{static_cast<const B*>(G),
+                                 static_cast<const B*>(Q),
+                                 static_cast<const B*>(F),
+                                 Li, y, d, k, noise, df_int, df, log_norm};
+    return launch_step<B>(static_cast<const B*>(X), logw, s, seed, m,
+                          static_cast<B*>(Xo), ll, anc, n, tile, num_sweeps,
+                          num_window_tiles, tiled, st);
+  }
+  const cusmc::StepModel m{static_cast<const float*>(G),
+                           static_cast<const float*>(Q),
+                           static_cast<const float*>(F),
+                           Li, y, d, k, noise, df_int, df, log_norm};
+  return launch_step<float>(static_cast<const float*>(X), logw, s, seed, m,
+                            static_cast<float*>(Xo), ll, anc, n, tile,
+                            num_sweeps, num_window_tiles, tiled, st);
 }

@@ -6,7 +6,10 @@
 //     a[i] = #{j : cdf[j] <= pos[i]}, clipped to n - 1   (searchsorted, right)
 //   and out[r, i] = X[r, clip(a[i] - base, 0, nloc - 1)] for every state
 //   row r of X [d, nloc], which holds the global columns [base, base+nloc).
-//   base = 0, nloc = n is the single-shard mode. `<=` keeps zero-weight
+//   base = 0, nloc = n is the single-shard mode. X is float32 or, under
+//   mixed precision, bfloat16 (the gather's element type; the search is
+//   float32 either way, and the gather copies values exactly; the TPU
+//   package sends a bfloat16 X to XLA's gather instead). `<=` keeps zero-weight
 //   particles (equal consecutive cdf values) from ever being chosen. The cdf
 //   may be unnormalised; positions are scaled by its total by the caller,
 //   and a last position that rounds past cdf[n-1] lands on n - 1 by the clip.
@@ -36,9 +39,10 @@
 // X row by row.
 //
 // Bound on the card: memory: 4 B of positions and 4 B of ancestors per
-// query, 4 B per cdf element (inverse_cdf_apply adds 8d B of state read
-// and written per query: at d = 32 the gather is 256 of its ~268 B a
-// query).
+// query, 4 B per cdf element (inverse_cdf_apply adds 2 s d B of state read
+// and written per query for s-byte values: at d = 32 in float32 the gather
+// is 256 of its ~268 B a query).
+#include <cuda_bf16.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -132,11 +136,11 @@ inverse_cdf_search_kernel(const float* __restrict__ cdf,
 // bytes, and scattered ancestors read a 32-byte sector for each 4-byte
 // value), 4 for a narrow one, whose rows the deeper loop would leave to its
 // remainder (the launch picks by d; both timed on the H100 in PERF.md).
-template <int kUnroll>
+template <int kUnroll, typename T>
 __global__ void __launch_bounds__(kThreads)
 inverse_cdf_apply_kernel(const float* __restrict__ cdf,
                          const float* __restrict__ pos,
-                         const float* __restrict__ X, float* __restrict__ out,
+                         const T* __restrict__ X, T* __restrict__ out,
                          int* __restrict__ anc, long long n, long long nq,
                          long long nloc, long long base, int d) {
   const long long i0 =
@@ -152,9 +156,9 @@ inverse_cdf_apply_kernel(const float* __restrict__ cdf,
   }
 #pragma unroll (kUnroll)
   for (int r = 0; r < d; ++r) {
-    const float* __restrict__ row = X + static_cast<long long>(r) * nloc;
-    float* __restrict__ orow = out + static_cast<long long>(r) * nq;
-    float v[kSearchPerThread];
+    const T* __restrict__ row = X + static_cast<long long>(r) * nloc;
+    T* __restrict__ orow = out + static_cast<long long>(r) * nq;
+    T v[kSearchPerThread];
 #pragma unroll
     for (int k = 0; k < kSearchPerThread; ++k) v[k] = row[rel[k]];
 #pragma unroll
@@ -186,20 +190,34 @@ unsigned search_blocks(long long nq) {
   return static_cast<unsigned>((nq + kSearchBlock - 1) / kSearchBlock);
 }
 
+template <typename T>
+void launch_apply(const float* cdf, const float* pos, const void* X,
+                  void* out, int* anc, long long n, long long nq,
+                  long long nloc, long long base, int d, cudaStream_t s) {
+  auto kernel = d >= 8 ? inverse_cdf_apply_kernel<8, T>
+                       : inverse_cdf_apply_kernel<4, T>;
+  kernel<<<search_blocks(nq), kThreads, 0, s>>>(
+      cdf, pos, static_cast<const T*>(X), static_cast<T*>(out), anc, n, nq,
+      nloc, base, d);
+}
+
 }  // namespace
 
-// cdf [n], pos [nq], X [d, nloc] (all f32, contiguous) -> out [d, nq] f32
-// and anc [nq] int32 (global indices).
+// cdf [n], pos [nq] (f32), X [d, nloc] (f32, or bf16 when bf16 != 0; all
+// contiguous) -> out [d, nq] of X's type and anc [nq] int32 (global
+// indices).
 CUSMC_EXPORT int cusmc_inverse_cdf_apply(const float* cdf, const float* pos,
-                                         const float* X, float* out, int* anc,
+                                         const void* X, void* out, int* anc,
                                          long long n, long long nq,
                                          long long nloc, long long base, int d,
-                                         void* stream) {
+                                         int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = d >= 8 ? inverse_cdf_apply_kernel<8>
-                       : inverse_cdf_apply_kernel<4>;
-  kernel<<<search_blocks(nq), kThreads, 0, s>>>(cdf, pos, X, out, anc, n, nq,
-                                                nloc, base, d);
+  if (bf16) {
+    launch_apply<__nv_bfloat16>(cdf, pos, X, out, anc, n, nq, nloc, base, d,
+                                s);
+  } else {
+    launch_apply<float>(cdf, pos, X, out, anc, n, nq, nloc, base, d, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,11 +18,22 @@
 // exactly; the products sum in their own order and agree to rounding.
 //
 // Matrices are row-major. They are staged in shared memory when all four
-// fit in 48 KB (d = k <= 55), else read through L1 from global memory.
-// D, K > 0 fix the dimensions at compile time (fully unrolled, the vectors
-// in registers); D = K = 0 takes them at run time, up to 128, with the
-// vectors in local memory.
+// fit in 48 KB (d = k <= 55 in float32), else read through L1 from global
+// memory. D, K > 0 fix the dimensions at compile time (fully unrolled, the
+// vectors in registers); D = K = 0 takes them at run time, up to 128, with
+// the vectors in local memory.
+//
+// The state's type T is float or, under mixed precision, __nv_bfloat16,
+// with G, Q and F of the same type (Li, y, the noise's scale and ll stay
+// float32). In bfloat16 the TPU kernel's law holds
+// (cusmc_tpu/ops/fused_step.py:277-336): each loaded value is widened to
+// float32, each normal is rounded to bfloat16 before the Q product, the
+// products of two bfloat16 values are exact in float32 and sum there,
+// G x + Q z s is rounded once to the stored state, and F x_new is taken
+// from that stored value. In float32 the roundings are the identity.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "philox.cuh"
 
@@ -32,10 +43,11 @@ constexpr int kMaxDim = 128;
 constexpr int kMtRounds = 4;
 constexpr size_t kStageBytes = 48 * 1024;
 
-struct StepModel {
-  const float* G;   // [d, d]
-  const float* Q;   // [d, d] transition noise square root
-  const float* F;   // [k, d]
+template <typename T = float>
+struct StepModelT {
+  const T* G;       // [d, d]
+  const T* Q;       // [d, d] transition noise square root
+  const T* F;       // [k, d]
   const float* Li;  // [k, k] inverse Cholesky factor of V
   const float* y;   // [k] observation
   int d;
@@ -45,25 +57,52 @@ struct StepModel {
   float df;
   float log_norm;
 };
+using StepModel = StepModelT<float>;
 
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// x in the state's type (round to nearest even).
+template <typename T>
+__device__ __forceinline__ T narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to the state's type, as a float.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return widen(narrow<T>(x));
+}
+
+// Bytes of the staged matrices: G, Q, F in the state's type, then Li in
+// float32 at a 4-byte boundary.
+template <typename T = float>
 inline size_t model_bytes(int d, int k) {
-  return sizeof(float) * (2 * static_cast<size_t>(d) * d +
-                          static_cast<size_t>(k) * d +
-                          static_cast<size_t>(k) * k);
+  const size_t head = sizeof(T) * (2 * static_cast<size_t>(d) * d +
+                                   static_cast<size_t>(k) * d);
+  return (head + 3) / 4 * 4 + sizeof(float) * static_cast<size_t>(k) * k;
 }
 
 // Copies the matrices into `smem` (the block's dynamic shared memory) when
 // `staged`; the caller synchronises the block before using the result.
-__device__ __forceinline__ StepModel stage_model(StepModel m, float* smem,
-                                                 bool staged) {
+template <typename T>
+__device__ __forceinline__ StepModelT<T> stage_model(StepModelT<T> m,
+                                                     float* smem,
+                                                     bool staged) {
   if (!staged) return m;
   const int dd = m.d * m.d;
   const int kd = m.k * m.d;
   const int kk = m.k * m.k;
-  float* G = smem;
-  float* Q = G + dd;
-  float* F = Q + dd;
-  float* L = F + kd;
+  T* G = reinterpret_cast<T*>(smem);
+  T* Q = G + dd;
+  T* F = Q + dd;
+  float* L = smem + (sizeof(T) * (2 * dd + kd) + 3) / 4;
   for (int i = threadIdx.x; i < dd; i += blockDim.x) {
     G[i] = m.G[i];
     Q[i] = m.Q[i];
@@ -78,8 +117,9 @@ __device__ __forceinline__ StepModel stage_model(StepModel m, float* smem,
 }
 
 // sqrt(df / g), g ~ chi-square(df) from the rows crow, crow + 1, ...
+template <typename T>
 __device__ __forceinline__ float mvt_scale(BitStream& bs, int crow,
-                                           const StepModel& m) {
+                                           const StepModelT<T>& m) {
   float g;
   if (m.df_int > 0) {
     const int half = m.df_int >> 1;
@@ -124,10 +164,10 @@ __device__ __forceinline__ float mvt_scale(BitStream& bs, int crow,
 
 // Propagates particle p from its ancestor a (column a of X [d, n]), writes
 // column p of Xo [d, n] and ll[p]. zrow: the particle's first noise row.
-template <int D, int K>
+template <int D, int K, typename T>
 __device__ __forceinline__ void propagate_reweight(
-    const StepModel& m, const float* __restrict__ X, long long n, long long a,
-    float* __restrict__ Xo, float* __restrict__ ll, long long p,
+    const StepModelT<T>& m, const T* __restrict__ X, long long n, long long a,
+    T* __restrict__ Xo, float* __restrict__ ll, long long p,
     BitStream& bs, int zrow) {
   constexpr int DM = D > 0 ? D : kMaxDim;
   constexpr int KM = K > 0 ? K : kMaxDim;
@@ -140,31 +180,34 @@ __device__ __forceinline__ void propagate_reweight(
   for (int r = 0; r < d; ++r) v[r] = to_uniform(bs.bits(zrow + r));
 #pragma unroll
   for (int r = 0; r < d; ++r) {
-    v[r] = box_muller(v[r], to_uniform(bs.bits(zrow + d + r)));
+    v[r] = round_to<T>(box_muller(v[r], to_uniform(bs.bits(zrow + d + r))));
   }
   const float scale = m.mvt ? mvt_scale(bs, zrow + 2 * d, m) : 1.0f;
 #pragma unroll
   for (int r = 0; r < d; ++r) {
     float acc = 0.0f;
 #pragma unroll
-    for (int c = 0; c < d; ++c) acc = fmaf(m.Q[r * d + c], v[c], acc);
+    for (int c = 0; c < d; ++c) acc = fmaf(widen(m.Q[r * d + c]), v[c], acc);
     xn[r] = m.mvt ? __fmul_rn(acc, scale) : acc;
   }
 #pragma unroll
-  for (int c = 0; c < d; ++c) v[c] = X[static_cast<long long>(c) * n + a];
+  for (int c = 0; c < d; ++c) {
+    v[c] = widen(X[static_cast<long long>(c) * n + a]);
+  }
 #pragma unroll
   for (int r = 0; r < d; ++r) {
     float acc = 0.0f;
 #pragma unroll
-    for (int c = 0; c < d; ++c) acc = fmaf(m.G[r * d + c], v[c], acc);
-    xn[r] = __fadd_rn(acc, xn[r]);
-    Xo[static_cast<long long>(r) * n + p] = xn[r];
+    for (int c = 0; c < d; ++c) acc = fmaf(widen(m.G[r * d + c]), v[c], acc);
+    const T x = narrow<T>(__fadd_rn(acc, xn[r]));
+    xn[r] = widen(x);
+    Xo[static_cast<long long>(r) * n + p] = x;
   }
 #pragma unroll
   for (int j = 0; j < k; ++j) {
     float acc = 0.0f;
 #pragma unroll
-    for (int c = 0; c < d; ++c) acc = fmaf(m.F[j * d + c], xn[c], acc);
+    for (int c = 0; c < d; ++c) acc = fmaf(widen(m.F[j * d + c]), xn[c], acc);
     res[j] = __fsub_rn(m.y[j], acc);
   }
   float quad = 0.0f;

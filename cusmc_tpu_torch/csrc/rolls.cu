@@ -17,21 +17,28 @@
 // are consecutive, so the B weight reads are coalesced and hit L2, and the
 // state is read once at the winner.
 //
+// The state is float32 or, under mixed precision, bfloat16 (the element
+// type T); the walk, the uniforms and the ancestors are float32 and int32
+// either way, and the apply copies the winner's bits, so it is exact.
+//
 // Bound on the card: memory. Per particle it reads B uniforms (4B bytes),
 // B + 1 weights (mostly L2), d state values at the winner, and writes d
-// state values and one ancestor: 4B + 8d + 8 bytes of device traffic, about
-// 60 MB at N = 2^20, B = 10, d = 2.
+// state values and one ancestor: 4B + 2 s d + 8 bytes of device traffic for
+// s-byte state values, about 60 MB at N = 2^20, B = 10, d = 2, float32.
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 roll_metropolis_kernel(const float* __restrict__ w,
                        const int* __restrict__ shifts,
                        const float* __restrict__ u,
-                       const float* __restrict__ X, float* __restrict__ out,
+                       const T* __restrict__ X, T* __restrict__ out,
                        int* __restrict__ anc, long long n, int num_sweeps,
                        int d) {
   // Shifts reduced into [0, n) once per block, so any int32 shift is safe.
@@ -65,16 +72,24 @@ roll_metropolis_kernel(const float* __restrict__ w,
 
 }  // namespace
 
-// w [n] f32, shifts [B] int32, u [B, n] f32, X [d, n] f32 (contiguous) ->
-// out [d, n] f32 and anc [n] int32.
+// w [n] f32, shifts [B] int32, u [B, n] f32, X [d, n] (contiguous; f32, or
+// bf16 when bf16 != 0) -> out [d, n] of X's type and anc [n] int32.
 CUSMC_EXPORT int cusmc_roll_metropolis(const float* w, const int* shifts,
-                                       const float* u, const float* X,
-                                       float* out, int* anc, long long n,
-                                       int num_sweeps, int d, void* stream) {
+                                       const float* u, const void* X,
+                                       void* out, int* anc, long long n,
+                                       int num_sweeps, int d, int bf16,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long blocks = (n + kThreads - 1) / kThreads;
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   const size_t smem = sizeof(long long) * (num_sweeps > 0 ? num_sweeps : 1);
-  roll_metropolis_kernel<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
-      w, shifts, u, X, out, anc, n, num_sweeps, d);
+  if (bf16) {
+    roll_metropolis_kernel<__nv_bfloat16><<<blocks, kThreads, smem, s>>>(
+        w, shifts, u, static_cast<const __nv_bfloat16*>(X),
+        static_cast<__nv_bfloat16*>(out), anc, n, num_sweeps, d);
+  } else {
+    roll_metropolis_kernel<float><<<blocks, kThreads, smem, s>>>(
+        w, shifts, u, static_cast<const float*>(X), static_cast<float*>(out),
+        anc, n, num_sweeps, d);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,9 +2,10 @@
 
 The JAX package picks its platform through ``jax.default_backend()``
 (``cusmc_tpu/ops/cumsum.py:91``, ``ops/monotone_gather.py:103``); the port
-names its device explicitly on every entry point instead. A request for
-``"cuda"`` on a machine without a card raises: the port never moves work
-to the CPU behind the caller's back.
+names its device explicitly on every entry point instead. ``None`` means
+the card, and a request for the card on a machine without one raises: the
+port never moves work to the CPU behind the caller's back. CPU users and
+the tests pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -18,11 +19,9 @@ KeyLike = Union[int, torch.Generator, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> the first CUDA card when one is present, else the CPU.
-    An explicit CUDA device raises when CUDA is absent."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
+    """``None`` -> the current CUDA card; ``"cpu"`` -> the CPU. A CUDA
+    device, named or by default, raises when CUDA is absent."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {str(dev)!r} requested but CUDA is "

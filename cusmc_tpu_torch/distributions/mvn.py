@@ -2,7 +2,10 @@
 
 Port of ``cusmc_tpu/distributions/mvn.py:70-95`` (``mvn_logpdf``,
 ``mvn_sample``): what ``DLM`` and ``DLM.simulate`` need. Log-space
-throughout, like the JAX package.
+throughout, like the JAX package. A sample follows the scale's dtype: in
+bfloat16 its normals take ``jax.random.normal``'s bfloat16 law
+(``ops/random.normal``) and the product is taken in float32 and rounded
+once, as XLA computes it.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from cusmc_tpu_torch.ops.packed import matvec
+from cusmc_tpu_torch.ops.random import normal
 from cusmc_tpu_torch.utils.linalg import log_det_from_chol, tri_solve
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -32,6 +37,5 @@ def mvn_sample(gen: Optional[torch.Generator], mean: torch.Tensor,
     ``z`` replaces the draw when given."""
     d = scale.shape[-1]
     if z is None:
-        z = torch.randn(tuple(shape) + (d,), generator=gen, dtype=scale.dtype,
-                        device=scale.device)
-    return mean + z @ scale.T
+        z = normal(gen, tuple(shape) + (d,), scale.dtype, scale.device)
+    return mean + matvec(z, scale.T)

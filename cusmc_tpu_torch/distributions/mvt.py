@@ -8,9 +8,11 @@ CUDA code's defect of leaving it out is not brought back.
 ``mvt_sample`` draws its chi-square with the port's own samplers
 (``ops/random``: the exact integer-df construction, else the fixed-round
 Marsaglia-Tsang sampler), because no torch gamma sampler takes an explicit
-``torch.Generator``; the JAX function calls ``jax.random.gamma``. The
-reference's per-dimension chi-square (``per_dim_chi=True``) is not ported
-yet.
+``torch.Generator``; the JAX function calls ``jax.random.gamma``. A sample
+follows the scale's dtype (``mvn.py``); the chi-square and its
+``sqrt(df / g)`` stay float32 and are cast once to the scale's dtype
+(``mvt.py:119-131``). ``per_dim_chi=True`` is the reference's product-t:
+one chi-square per component, applied after the linear map.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ from typing import Optional
 
 import torch
 
-from cusmc_tpu_torch.ops.random import chi2_draws, chi2_transform, integer_df
+from cusmc_tpu_torch.ops.packed import matvec
+from cusmc_tpu_torch.ops.random import chi2_draws, chi2_transform, \
+    integer_df, normal
 from cusmc_tpu_torch.utils.linalg import log_det_from_chol, tri_solve
 
 
@@ -48,17 +52,15 @@ def mvt_sample(gen: Optional[torch.Generator], mean: torch.Tensor,
                per_dim_chi: bool = False) -> torch.Tensor:
     """Draw from MVT(mean, Sigma = scale scale^T, df), shape
     ``shape + (d,)``: ``x = mean + (scale @ z) * sqrt(df / g)`` with one
-    ``g ~ chi2(df)`` per sample vector."""
-    if per_dim_chi:
-        raise NotImplementedError(
-            "per_dim_chi=True is not ported yet (ROADMAP queue 1, item 2)")
+    ``g ~ chi2(df)`` per sample vector (``per_dim_chi``: one per
+    component)."""
     d = scale.shape[-1]
     shape = tuple(shape)
-    z = torch.randn(shape + (d,), generator=gen, dtype=scale.dtype,
-                    device=scale.device)
-    lz = z @ scale.T
+    z = normal(gen, shape + (d,), scale.dtype, scale.device)
+    lz = matvec(z, scale.T)
     df, df_int = float(df), integer_df(df)
-    g = chi2_transform(df, df_int, chi2_draws(gen, df, df_int, shape + (1,),
+    gshape = shape + ((d,) if per_dim_chi else (1,))
+    g = chi2_transform(df, df_int, chi2_draws(gen, df, df_int, gshape,
                                               torch.float32, scale.device))
     # torch.div, not ``df / g``: a Python scalar over a tensor is computed
     # as ``g.reciprocal() * df``, which rounds twice.

@@ -19,8 +19,16 @@ methods also take ``noise=``, the draws of ``packed_noise``, so that tests
 can hand them the numbers JAX drew (``_sample_packed`` splits its key as
 ``kz, kg``: z from ``kz``, the chi-square draws from ``kg``).
 
-Not ported yet (ROADMAP queue 1, item 3): ``state_dtype=bfloat16`` mixed
-precision and ``per_dim_chi=True``.
+Mixed precision (``create(state_dtype=torch.bfloat16)``, ``:58-99``): the
+particle state and the transition factors (``F``, ``G``, ``m0``,
+``C0_sqrt``, ``W_sqrt``) are bfloat16, factored in ``dtype`` and cast
+once; the weight side (``V_chol``, ``V_chol_inv``, ``df``, the chi-square
+draws, the log-densities) stays in ``dtype``. The state's normals take
+``jax.random.normal``'s bfloat16 law (``ops/random.normal``), products
+are taken in float32 and rounded once (``ops/packed.matvec``), and each
+elementwise operation rounds to bfloat16, as XLA computes them.
+``per_dim_chi=True`` draws one chi-square per state component
+(``:192``); the fused engines refuse it.
 """
 
 from __future__ import annotations
@@ -32,10 +40,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from cusmc_tpu_torch.device import resolve_device
 from cusmc_tpu_torch.distributions.mvn import mvn_sample
 from cusmc_tpu_torch.distributions.mvt import mvt_sample
 from cusmc_tpu_torch.ops.packed import matvec, quadform
-from cusmc_tpu_torch.ops.random import chi2_draws, chi2_transform, integer_df
+from cusmc_tpu_torch.ops.random import chi2_draws, chi2_transform, \
+    integer_df, normal
 from cusmc_tpu_torch.utils.linalg import chol_sqrt, cov_sqrt
 
 
@@ -45,11 +55,13 @@ class DLM(nn.Module):
     ``noise`` selects the family for the prior, transition and
     observation noise alike; ``df`` is used only for "mvt". ``df_int``
     is the integer df when it is a small integer (the exact one-log
-    chi-square path), else None.
+    chi-square path), else None. The transition factors hold the state
+    dtype, ``V_chol`` and ``V_chol_inv`` the weight dtype.
     """
 
     def __init__(self, F, G, m0, C0_sqrt, W_sqrt, V_chol, V_chol_inv,
-                 df=None, noise: str = "mvn", df_int: Optional[int] = None):
+                 df=None, noise: str = "mvn", df_int: Optional[int] = None,
+                 per_dim_chi: bool = False):
         super().__init__()
         if noise not in ("mvn", "mvt"):
             raise ValueError(f"unknown noise family {noise!r}")
@@ -57,11 +69,18 @@ class DLM(nn.Module):
             raise ValueError("mvt noise requires df")
         self.noise = noise
         self.df_int = df_int
+        self.per_dim_chi = bool(per_dim_chi)
         self.df_value = None if df is None else float(df)
         for name, val in (("F", F), ("G", G), ("m0", m0),
                           ("C0_sqrt", C0_sqrt), ("W_sqrt", W_sqrt),
                           ("V_chol", V_chol), ("V_chol_inv", V_chol_inv)):
             self.register_buffer(name, val)
+        # The factors of the composed step's products, widened to float32
+        # once here rather than on every step (``ops/packed.matvec``
+        # multiplies a bfloat16 operand in float32).
+        for name in ("F", "G", "W_sqrt"):
+            self.register_buffer(name + "_f32", getattr(self, name).float(),
+                                 persistent=False)
         wdtype = V_chol.dtype
         self.register_buffer(
             "df", None if df is None else torch.tensor(float(df), dtype=wdtype,
@@ -85,47 +104,51 @@ class DLM(nn.Module):
                per_dim_chi: bool = False, state_dtype=None,
                device=None) -> "DLM":
         """Factor the covariances (in ``dtype``, on the CPU) and build the
-        model on ``device``."""
-        if state_dtype is not None and state_dtype != dtype:
-            raise NotImplementedError(
-                "state_dtype (mixed precision) is not ported yet "
-                "(ROADMAP queue 1, item 3)")
-        if per_dim_chi:
-            raise NotImplementedError(
-                "per_dim_chi=True is not ported yet (ROADMAP queue 1, item 2)")
+        model on ``device`` (None: the card, raising without one; the CPU
+        only when asked for, ``device="cpu"``). ``state_dtype`` (e.g.
+        ``torch.bfloat16``) is the dtype of the state and the transition
+        factors (None: ``dtype``)."""
         if noise == "mvt" and df is None:
             raise ValueError("mvt noise requires df")
+        sdtype = dtype if state_dtype is None else state_dtype
 
-        def t(a):
-            return torch.as_tensor(np.asarray(a), dtype=dtype)
+        def t(a, to=dtype):
+            return torch.as_tensor(np.asarray(a), dtype=to)
 
         V_chol = chol_sqrt(t(V))
         eye_k = torch.eye(V_chol.shape[-1], dtype=dtype)
         V_chol_inv = torch.linalg.solve_triangular(V_chol, eye_k, upper=False)
-        model = cls(F=t(F), G=t(G), m0=t(m0),
-                    C0_sqrt=cov_sqrt(t(C0), sqrt_method),
-                    W_sqrt=cov_sqrt(t(W), sqrt_method),
+        model = cls(F=t(F, sdtype), G=t(G, sdtype), m0=t(m0, sdtype),
+                    C0_sqrt=cov_sqrt(t(C0), sqrt_method).to(sdtype),
+                    W_sqrt=cov_sqrt(t(W), sqrt_method).to(sdtype),
                     V_chol=V_chol, V_chol_inv=V_chol_inv,
                     df=None if noise != "mvt" else float(df), noise=noise,
-                    df_int=integer_df(df) if noise == "mvt" else None)
-        return model.to(device) if device is not None else model
+                    df_int=integer_df(df) if noise == "mvt" else None,
+                    per_dim_chi=per_dim_chi)
+        return model.to(resolve_device(device))
 
     @classmethod
     def from_jax_arrays(cls, *, F, G, m0, C0_sqrt, W_sqrt, V_chol,
                         V_chol_inv, df=None, noise: str = "mvn",
-                        df_int: Optional[int] = None, device=None) -> "DLM":
+                        df_int: Optional[int] = None,
+                        per_dim_chi: bool = False, device=None) -> "DLM":
         """Carry a JAX ``DLM``'s parameters across WITHOUT re-factorising:
         each field is given as a numpy array (``np.asarray(jax_model.F)``
-        and so on), so both packages compute with the same factors."""
+        and so on), so both packages compute with the same factors. A
+        bfloat16 array (numpy dtype ``bfloat16``, which ``torch.from_numpy``
+        refuses) crosses as its 16-bit words. ``device`` as in ``create``."""
         def t(a):
-            return torch.from_numpy(np.array(a, copy=True))
+            a = np.array(a, copy=True)
+            if a.dtype.name == "bfloat16":
+                return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+            return torch.from_numpy(a)
 
         df_f = None if df is None else float(np.asarray(df))
         model = cls(F=t(F), G=t(G), m0=t(m0), C0_sqrt=t(C0_sqrt),
                     W_sqrt=t(W_sqrt), V_chol=t(V_chol),
                     V_chol_inv=t(V_chol_inv), df=df_f, noise=noise,
-                    df_int=df_int)
-        return model.to(device) if device is not None else model
+                    df_int=df_int, per_dim_chi=per_dim_chi)
+        return model.to(resolve_device(device))
 
     @property
     def state_dim(self) -> int:
@@ -139,6 +162,10 @@ class DLM(nn.Module):
     def device(self) -> torch.device:
         return self.G.device
 
+    @property
+    def state_dtype(self) -> torch.dtype:
+        return self.G.dtype
+
     # -- batch layout (x as [..., d]): what ``simulate`` needs ------------
 
     def sample_initial(self, gen: Optional[torch.Generator],
@@ -149,12 +176,13 @@ class DLM(nn.Module):
     def propagate(self, gen: Optional[torch.Generator],
                   x_prev: torch.Tensor) -> torch.Tensor:
         """x_t | x_{t-1} for a batch [..., d]: G x plus Dist(0, W)."""
-        mean = x_prev @ self.G.T
+        mean = matvec(x_prev, self.G.T)
         return self._sample(gen, mean, self.W_sqrt, x_prev.shape[:-1])
 
     def _sample(self, gen, mean, scale, shape):
         if self.noise == "mvt":
-            return mvt_sample(gen, mean, scale, self.df_value, shape)
+            return mvt_sample(gen, mean, scale, self.df_value, shape,
+                              self.per_dim_chi)
         return mvn_sample(gen, mean, scale, shape)
 
     # -- packed [d, N] layout: the filter's hot path ----------------------
@@ -162,14 +190,16 @@ class DLM(nn.Module):
     def packed_noise(self, gen: Optional[torch.Generator], n: int) -> tuple:
         """The draws of one packed sample of n particles: ``(z,)`` for
         MVN; ``(z, chi2_draws)`` for MVT, with ``chi2_draws`` the draws of
-        ``chi2_integer_df`` (integer df) or ``fast_gamma`` (otherwise)."""
+        ``chi2_integer_df`` (integer df) or ``fast_gamma`` (otherwise), of
+        shape (1, n), or (d, n) with ``per_dim_chi``. z [d, n] is in the
+        state dtype, the chi-square draws in the weight dtype."""
         d = self.state_dim
         dev = self.device
-        z = torch.randn((d, n), generator=gen, dtype=self.W_sqrt.dtype,
-                        device=dev)
+        z = normal(gen, (d, n), self.state_dtype, dev)
         if self.noise != "mvt":
             return (z,)
-        return (z, chi2_draws(gen, self.df_value, self.df_int, (1, n),
+        shape = (d, n) if self.per_dim_chi else (1, n)
+        return (z, chi2_draws(gen, self.df_value, self.df_int, shape,
                               self.V_chol.dtype, dev))
 
     def sample_initial_packed(self, gen: Optional[torch.Generator], n: int,
@@ -182,15 +212,18 @@ class DLM(nn.Module):
                          X_prev: torch.Tensor,
                          noise: Optional[tuple] = None) -> torch.Tensor:
         """X_t | X_{t-1} for packed X [d, n]: G @ X plus Dist(0, W)."""
-        mean = matvec(self.G, X_prev)
-        return self._sample_packed(gen, mean, self.W_sqrt, X_prev.shape[-1],
-                                   noise)
+        mean = matvec(self.G_f32, X_prev, out_dtype=X_prev.dtype)
+        return self._sample_packed(gen, mean, self.W_sqrt_f32,
+                                   X_prev.shape[-1], noise)
 
     def observation_logpdf_packed(self, y: torch.Tensor,
                                   X: torch.Tensor) -> torch.Tensor:
         """log p(y | x) for packed X [d, n] -> [n], through the inverse
-        Cholesky factor of V."""
-        resid = y[:, None] - matvec(self.F, X)
+        Cholesky factor of V, in the weight dtype (``F X`` is taken in it
+        whatever the state dtype)."""
+        wdtype = self.V_chol.dtype
+        resid = y[:, None].to(wdtype) - matvec(self.F_f32, X,
+                                               out_dtype=wdtype)
         quad = quadform(self.V_chol_inv, resid)
         if self.noise == "mvt":
             k = self.obs_dim
@@ -199,16 +232,19 @@ class DLM(nn.Module):
         return self.log_norm - 0.5 * quad
 
     def _sample_packed(self, gen, mean, scale, n, noise):
-        """mean [d, n] (or [d, 1]) + scale @ z; MVT applies the chi-square
-        scale mixture along the particle axis."""
+        """mean [d, n] (or [d, 1]) + scale @ z in the state dtype (``scale``
+        may be a float32 copy); MVT applies the chi-square scale mixture
+        along the particle axis, its factor ``sqrt(df / g)`` computed in
+        the weight dtype and cast once to the state dtype."""
         if noise is None:
             noise = self.packed_noise(gen, n)
         z = noise[0]
+        sdtype = self.state_dtype
         if self.noise != "mvt":
-            return mean + matvec(scale, z)
-        lz = matvec(scale, z)
+            return mean + matvec(scale, z, out_dtype=sdtype)
+        lz = matvec(scale, z, out_dtype=sdtype)
         g = chi2_transform(self.df_value, self.df_int, noise[1])
-        return mean + lz * torch.sqrt(torch.div(self.df, g)).to(scale.dtype)
+        return mean + lz * torch.sqrt(torch.div(self.df, g)).to(sdtype)
 
     # -- data generation --------------------------------------------------
 
@@ -217,11 +253,13 @@ class DLM(nn.Module):
         ys [T, k]); row 0 of ys is zero like the bundled trace."""
         x = self.sample_initial(gen, ())
         xs = [x]
-        ys = [torch.zeros(self.obs_dim, dtype=x.dtype, device=x.device)]
+        ys = [torch.zeros(self.obs_dim, dtype=self.V_chol.dtype,
+                          device=x.device)]
         zero_k = torch.zeros(self.obs_dim, dtype=x.dtype, device=x.device)
         for _ in range(num_steps - 1):
             x = self.propagate(gen, x)
-            y = x @ self.F.T + self._sample(gen, zero_k, self.V_chol, ())
+            y = matvec(x, self.F.T) + self._sample(gen, zero_k,
+                                                   self.V_chol, ())
             xs.append(x)
             ys.append(y)
         return torch.stack(xs), torch.stack(ys)

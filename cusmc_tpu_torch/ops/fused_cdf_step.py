@@ -139,7 +139,7 @@ def fused_cdf_filter_step_plain(cdf, X, y, G, Q, F, Li, df, log_norm,
     pos = (torch.arange(n, dtype=torch.float32, device=dev) + ug) * pscale
     a = torch.searchsorted(cdf, pos, right=True).clamp_(max=n - 1)
     df_t, ln_t = _scalars(df, log_norm, dev)
-    x_new, ll = propagate_reweight_plain(
+    x_new, ll, _ = propagate_reweight_plain(
         X.index_select(1, a), rows[1:1 + 2 * d], rows[1 + 2 * d:], y, G, Q,
         F, Li, df_t, ln_t, noise, df_int)
     return x_new, ll, a.to(torch.int32)

@@ -36,9 +36,16 @@ through the four matrix products as 3xTF32 tensor-core tiles,
 particle per thread, ``csrc/propagate.cuh``). Both draw the same bits
 and give the same ancestors; the plain version is the same for both.
 
-The port computes in float32: the TPU kernel's single-pass bf16 matrix
-unit at d > 8 is not emulated, and a bfloat16 state waits for the DLM's
-mixed precision (ROADMAP queue 1, item 3).
+The state is float32 or, under mixed precision, bfloat16 with ``G``,
+``Q`` and ``F`` in the state's type (``:223-229, 277-289, 329-336``); the
+weights, ``Li``, ``y``, the noise's scale and ``ll`` stay float32. The
+bfloat16 step follows the TPU kernel's law, which is not the composed
+path's: the normals are drawn in float32 and rounded to bfloat16 before
+the ``Q`` product, ``G x + (Q z) s`` is summed in float32 and rounded once
+to the stored state, and ``ll`` is computed from that stored state. The
+ancestors do not depend on the state's type. A bfloat16 state needs even
+d, as in the JAX package (``:375-377``). The port's float32 step does not
+emulate the TPU kernel's single-pass bf16 matrix unit at d > 8.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ import torch
 
 from cusmc_tpu_torch.device import is_cuda
 from cusmc_tpu_torch.ops import kernels
+from cusmc_tpu_torch.ops.packed import matvec
 from cusmc_tpu_torch.ops.philox import philox_bits
 from cusmc_tpu_torch.ops.random import MAX_INTEGER_DF
 
@@ -143,13 +151,17 @@ def fused_filter_step_draws(gen: Optional[torch.Generator], n: int,
 
 def propagate_reweight_plain(x_anc, zbits, cbits, y, G, Q, F, Li, df,
                              log_norm, noise: str, df_int: Optional[int]):
-    """Propagate and reweight packed ``x_anc`` [d, N] with the noise rows
-    ``zbits`` [2d, N] and chi-square rows ``cbits`` [*, N]; ``df`` and
-    ``log_norm`` are 0-dim float32. Returns ``(x_new [d, N], ll [N])``."""
+    """Propagate and reweight packed ``x_anc`` [d, N] (float32 or
+    bfloat16, with G, Q and F of its type) with the noise rows ``zbits``
+    [2d, N] and chi-square rows ``cbits`` [*, N]; ``df`` and ``log_norm``
+    are 0-dim float32. Returns ``(x_new [d, N] of x_anc's type, ll [N],
+    x_pre [d, N])``, ``x_pre`` the float32 state before its rounding to
+    x_anc's type."""
     d = x_anc.shape[0]
     k = F.shape[0]
-    mean = G @ x_anc
-    qz = Q @ to_normals(zbits[:d], zbits[d:])
+    f32 = torch.float32
+    mean = matvec(G, x_anc, f32)
+    qz = matvec(Q, to_normals(zbits[:d], zbits[d:]).to(x_anc.dtype), f32)
     if noise == "mvt":
         if df_int is not None:
             m, odd = divmod(df_int, 2)
@@ -167,12 +179,15 @@ def propagate_reweight_plain(x_anc, zbits, cbits, y, G, Q, F, Li, df,
         else:
             g = 2.0 * mt_gamma(0.5 * df, cbits[:3 * _MT_ROUNDS])
         qz = qz * torch.sqrt(df / g)
-    x_new = mean + qz
-    zz = Li @ (y[:, None] - F @ x_new)
+    x_pre = mean + qz
+    x_new = x_pre.to(x_anc.dtype)
+    zz = Li @ (y[:, None] - matvec(F, x_new, f32))
     quad = torch.sum(zz * zz, dim=0)
     if noise == "mvt":
-        return x_new, log_norm - 0.5 * (df + k) * torch.log1p(quad / df)
-    return x_new, log_norm - 0.5 * quad
+        ll = log_norm - 0.5 * (df + k) * torch.log1p(quad / df)
+    else:
+        ll = log_norm - 0.5 * quad
+    return x_new, ll, x_pre
 
 
 def _scalars(df, log_norm, device):
@@ -185,17 +200,19 @@ def _scalars(df, log_norm, device):
 def check_step_args(d: int, k: int, n: int, *, dtype, noise: str,
                     df, num_sweeps: int, tile: int, df_int,
                     num_window_tiles: int) -> None:
-    """The ValueErrors of ``fused_step.py:365-404`` (and the port's
-    float32-only limit)."""
+    """The ValueErrors of ``fused_step.py:365-404``, with the state's
+    type (float32, or bfloat16 at even d)."""
     if n % tile != 0:
         raise ValueError(f"N={n} not divisible by tile={tile}")
     if tile % 128 != 0:
         raise ValueError(f"tile={tile} must be a multiple of 128")
     if max(d, k) > MAX_MXU_DIM:
         raise ValueError(f"fused step supports d,k <= {MAX_MXU_DIM}")
-    if dtype != torch.float32:
-        raise ValueError("fused step is float32-only in the port (bf16 "
-                         "state waits for the DLM's mixed precision)")
+    if dtype not in kernels.STATE_DTYPES:
+        raise ValueError(f"fused step takes a float32 or bfloat16 state, "
+                         f"not {dtype}")
+    if dtype == torch.bfloat16 and d % 2:
+        raise ValueError("bfloat16 state needs even d")
     if num_sweeps > MAX_SWEEPS:
         raise ValueError(f"num_sweeps={num_sweeps} exceeds the kernel's "
                          f"{MAX_SWEEPS}-sweep proposal-bit budget")
@@ -215,24 +232,29 @@ def check_step_args(d: int, k: int, n: int, *, dtype, noise: str,
                          f"window")
 
 
-def require_model(X, y, G, Q, F, Li, seed) -> None:
+def require_model(X, y, G, Q, F, Li, seed) -> int:
     """Validate the arguments both fused kernels take before their
-    pointers are passed on: float32 contiguous X [d, N], y [k], G, Q
-    [d, d], F [k, d], Li [k, k] and an int32 seed [2], on X's device."""
+    pointers are passed on: contiguous X [d, N], G, Q [d, d] and F [k, d]
+    of the state's type (float32 or bfloat16), float32 y [k] and Li
+    [k, k], and an int32 seed [2], on X's device. Returns the kernels'
+    ``bf16`` flag."""
     d = X.shape[0]
     k = F.shape[0]
     dev = X.device
-    kernels.require(X, "X", torch.float32, 2, dev)
+    bf16 = kernels.require_state(X, "X", dev)
     kernels.require(y, "y", torch.float32, 1, dev)
-    for name, mat, shape in (("G", G, (d, d)), ("Q", Q, (d, d)),
-                             ("F", F, (k, d)), ("Li", Li, (k, k))):
-        kernels.require(mat, name, torch.float32, 2, dev)
+    for name, mat, shape, dtype in (("G", G, (d, d), X.dtype),
+                                    ("Q", Q, (d, d), X.dtype),
+                                    ("F", F, (k, d), X.dtype),
+                                    ("Li", Li, (k, k), torch.float32)):
+        kernels.require(mat, name, dtype, 2, dev)
         if tuple(mat.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(mat.shape)}, "
                              f"expected {shape}")
     kernels.require(seed, "seed", torch.int32, 1, dev)
     if y.shape[0] != k or seed.shape[0] != 2:
         raise ValueError("y [k] and seed [2] expected")
+    return bf16
 
 
 def fused_filter_step_plain(X, logw, y, G, Q, F, Li, df, log_norm, draws, *,
@@ -240,10 +262,13 @@ def fused_filter_step_plain(X, logw, y, G, Q, F, Li, df, log_norm, draws, *,
                             tile: int = DEFAULT_TILE,
                             df_int: Optional[int] = None,
                             num_window_tiles: int = 2,
-                            bits: Optional[BitSource] = None):
+                            bits: Optional[BitSource] = None,
+                            pre_rounding: bool = False):
     """The plain version of the kernel, on any device. ``bits(seed,
     blocks, stream, rows, lanes) -> [rows, nb, L]`` is the bit source
-    (None: Philox, ``ops/philox.philox_bits``)."""
+    (None: Philox, ``ops/philox.philox_bits``). ``pre_rounding`` adds the
+    float32 state before its rounding to X's type as a fourth output, so
+    that a check can show where two roundings of it may differ."""
     bits = philox_bits if bits is None else bits
     d, n = X.shape
     dev = X.device
@@ -286,9 +311,11 @@ def fused_filter_step_plain(X, logw, y, G, Q, F, Li, df, log_norm, draws, *,
     a = global_index(wrap(base + a_off)).reshape(n)
     flat = rows.reshape(rows.shape[0], n)
     df_t, ln_t = _scalars(df, log_norm, dev)
-    x_new, ll = propagate_reweight_plain(
+    x_new, ll, x_pre = propagate_reweight_plain(
         X.index_select(1, a), flat[num_sweeps:num_sweeps + 2 * d],
         flat[num_sweeps + 2 * d:], y, G, Q, F, Li, df_t, ln_t, noise, df_int)
+    if pre_rounding:
+        return x_new, ll, a.to(torch.int32), x_pre
     return x_new, ll, a.to(torch.int32)
 
 
@@ -301,8 +328,9 @@ def fused_filter_step(X, logw, y, G, Q, F, Li, df, log_norm, draws, *,
     ``fused_filter_step_draws``; ``df`` (None for MVN) and ``log_norm``
     floats. Returns ``(X_new [d, N], ll [N], ancestors [N] int32)``.
 
-    CUDA: the kernel (float32, contiguous); CPU: the plain version.
-    ``fused_filter_step.launches`` counts kernel launches."""
+    CUDA: the kernel (contiguous, X, G, Q and F float32 or all bfloat16);
+    CPU: the plain version. ``fused_filter_step.launches`` counts kernel
+    launches on a float32 state, ``.bf16_launches`` on a bfloat16 one."""
     d, n = X.shape
     k = F.shape[0]
     check_step_args(d, k, n, dtype=X.dtype, noise=noise, df=df,
@@ -315,11 +343,15 @@ def fused_filter_step(X, logw, y, G, Q, F, Li, df, log_norm, draws, *,
             num_window_tiles=num_window_tiles)
     dev = X.device
     s, seed = draws
-    require_model(X, y, G, Q, F, Li, seed)
+    bf16 = require_model(X, y, G, Q, F, Li, seed)
     kernels.require(logw, "logw", torch.float32, 1, dev)
     kernels.require(s, "s", torch.int32, 1, dev)
     if logw.shape[0] != n or s.shape[0] != 2:
         raise ValueError("logw [N] and s [2] expected")
+    tiled = step_path(d, k) == "tile"
+    if bf16 and tiled and any(m.data_ptr() % 4 for m in (G, Q, F)):
+        raise ValueError("the bfloat16 tile design reads G, Q and F in "
+                         "4-byte words: they must be 4-byte aligned")
     lib = kernels.library()
     x_new = torch.empty_like(X)
     ll = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -330,11 +362,15 @@ def fused_filter_step(X, logw, y, G, Q, F, Li, df, log_norm, draws, *,
         seed.data_ptr(), x_new.data_ptr(), ll.data_ptr(), a.data_ptr(), n,
         tile, d, k, num_sweeps, num_window_tiles, int(noise == "mvt"),
         0 if df_int is None else df_int, 1.0 if df is None else float(df),
-        float(log_norm), int(step_path(d, k) == "tile"),
+        float(log_norm), int(tiled), bf16,
         kernels.stream_of(X))
     kernels.check(rc, "fused_filter_step")
-    fused_filter_step.launches += 1
+    if bf16:
+        fused_filter_step.bf16_launches += 1
+    else:
+        fused_filter_step.launches += 1
     return x_new, ll, a
 
 
 fused_filter_step.launches = 0
+fused_filter_step.bf16_launches = 0

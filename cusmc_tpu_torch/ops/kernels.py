@@ -56,17 +56,18 @@ _F = ctypes.c_float
 SIGNATURES = {
     # w, cdf, state, state_words, n, ticket_base, epoch, stream
     "cusmc_blocked_cumsum": (_P, _P, _P, _LL, _LL, _LL, _I, _P),
-    # cdf, pos, X, out, anc, n, nq, nloc, base, d, stream
-    "cusmc_inverse_cdf_apply": (_P,) * 5 + (_LL,) * 4 + (_I, _P),
+    # cdf, pos, X, out, anc, n, nq, nloc, base, d, bf16, stream
+    "cusmc_inverse_cdf_apply": (_P,) * 5 + (_LL,) * 4 + (_I, _I, _P),
     "cusmc_inverse_cdf_search": (_P, _P, _P, _LL, _LL, _P),
     # X, a, out, n, m, d, stream
     "cusmc_take_columns": (_P, _P, _P, _LL, _LL, _I, _P),
-    "cusmc_roll_metropolis": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P),
+    # w, shifts, u, X, out, anc, n, num_sweeps, d, bf16, stream
+    "cusmc_roll_metropolis": (_P,) * 6 + (_LL, _I, _I, _I, _P),
     # X, logw, y, G, Q, F, Li, s, seed, Xo, ll, anc, n, tile, d, k,
     # num_sweeps, num_window_tiles, noise, df_int, df, log_norm, tiled,
-    # stream
+    # bf16, stream
     "cusmc_fused_step": (_P,) * 12 + (_LL, _LL) + (_I,) * 6
-    + (_F, _F, _I, _P),
+    + (_F, _F, _I, _I, _P),
     # cdf, X, y, G, Q, F, Li, u, seed, Xo, ll, anc, n, tile, d, k, mode,
     # noise, df_int, df, log_norm, tiled, stream
     "cusmc_fused_cdf_step": (_P,) * 12 + (_LL, _LL) + (_I,) * 5
@@ -179,6 +180,19 @@ def check(rc: int, name: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# The particle state's types: float32, or bfloat16 under mixed precision.
+STATE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def require_state(X: torch.Tensor, name: str, device: torch.device) -> int:
+    """Validate a particle state [d, N] of either state type; returns the
+    kernels' ``bf16`` flag (1 for bfloat16, 0 for float32)."""
+    if X.dtype not in STATE_DTYPES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {X.dtype}")
+    require(X, name, X.dtype, 2, device)
+    return int(X.dtype == torch.bfloat16)
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,

@@ -13,14 +13,19 @@ smallest and largest (``csrc/common.cuh``; ``window_fit_share`` says how
 many blocks' stretches fit), ``inverse_cdf_apply`` then gathering each
 query's d values; for ``take_columns`` one thread per output column. On a
 CPU tensor each takes its plain version, ``torch.searchsorted``,
-``index_select`` and a clip.
+``index_select`` and a clip. ``inverse_cdf_apply`` gathers a float32 or a
+bfloat16 (mixed-precision) state, in both modes, through the same kernel;
+the JAX wrapper sends a bfloat16 state to XLA's gather
+(``cusmc_tpu/ops/monotone_gather.py:96-102``), which the port does not.
 
 The JAX wrappers' coarse placement (an argsort over the 128-strided cdf),
 merge-path windows and ``take_columns``' runtime monotonicity check are TPU
 workarounds and are not ported: the window search and the gathers take
-any query or ancestor order (order costs speed only). Each wrapper counts its kernel launches in
-``.launches``; ``inverse_cdf_apply`` counts local-block launches apart, in
-``.local_launches``.
+any query or ancestor order (order costs speed only). Each wrapper counts
+its kernel launches in ``.launches``; ``inverse_cdf_apply`` counts
+local-block launches apart, in ``.local_launches``, and launches on a
+bfloat16 state apart again, in ``.bf16_launches`` (global mode) and
+``.bf16_local_launches``.
 """
 
 from __future__ import annotations
@@ -163,14 +168,16 @@ def inverse_cdf_apply(cdf: torch.Tensor, positions: torch.Tensor,
     value i is ``X[:, clip(a[i] - local_base, 0, L-1)]``, meaningful where
     the ancestor lies in the block (the caller masks the rest).
 
-    CUDA: the kernel (float32, contiguous); CPU: the plain version.
+    CUDA: the kernel (float32 cdf and positions, a float32 or bfloat16
+    ``X``, contiguous); CPU: the plain version. On a float32 state
     ``inverse_cdf_apply.launches`` counts global-mode launches,
-    ``.local_launches`` local-block ones."""
+    ``.local_launches`` local-block ones; ``.bf16_launches`` and
+    ``.bf16_local_launches`` count them on a bfloat16 state."""
     if not is_cuda(cdf, "inverse_cdf_apply"):
         return inverse_cdf_apply_plain(cdf, positions, X, local_base)
     _check_cdf(cdf, positions)
     dev = cdf.device
-    kernels.require(X, "X", torch.float32, 2, dev)
+    bf16 = kernels.require_state(X, "X", dev)
     n = cdf.shape[0]
     d, nloc = X.shape
     nq = positions.shape[0]
@@ -188,12 +195,12 @@ def inverse_cdf_apply(cdf: torch.Tensor, positions: torch.Tensor,
         return out, a
     rc = kernels.library().cusmc_inverse_cdf_apply(
         cdf.data_ptr(), positions.data_ptr(), X.data_ptr(), out.data_ptr(),
-        a.data_ptr(), n, nq, nloc, base, d, kernels.stream_of(cdf))
+        a.data_ptr(), n, nq, nloc, base, d, bf16, kernels.stream_of(cdf))
     kernels.check(rc, "inverse_cdf_apply")
-    if local_base is None:
-        inverse_cdf_apply.launches += 1
-    else:
-        inverse_cdf_apply.local_launches += 1
+    counter = ("bf16_" if bf16 else "") + (
+        "launches" if local_base is None else "local_launches")
+    setattr(inverse_cdf_apply, counter,
+            getattr(inverse_cdf_apply, counter) + 1)
     return out, a
 
 
@@ -201,3 +208,5 @@ inverse_cdf_search.launches = 0
 take_columns.launches = 0
 inverse_cdf_apply.launches = 0
 inverse_cdf_apply.local_launches = 0
+inverse_cdf_apply.bf16_launches = 0
+inverse_cdf_apply.bf16_local_launches = 0

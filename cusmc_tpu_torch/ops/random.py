@@ -13,10 +13,22 @@ rounding. ``sampler(gen, ...)`` is ``transform(*draws(gen, ...))``.
 
 JAX draws its uniforms with ``minval=finfo.tiny``, i.e. in [tiny, 1); the
 port clamps ``torch.rand``'s [0, 1) to the same range.
+
+``normal`` draws standard normals in float32 with ``torch.randn``, and in
+bfloat16 with ``jax.random.normal``'s own bfloat16 law, which the
+mixed-precision model draws its noise from (``cusmc_tpu/models/dlm.py:189,
+206``): ``jax.random.uniform`` draws 8-bit words for a type with fewer than
+8 mantissa bits, keeps their top 7 bits as the mantissa of a float in
+[1, 2), maps it onto [nextafter(-1, 0), 1), and ``normal`` takes
+``sqrt(2) erfinv(u)``, each step rounded to bfloat16. The law takes only
+128 values, and its tails stop at -2.890625 and 2.515625;
+``torch.randn(dtype=torch.bfloat16)`` rounds a full-tailed normal
+instead, which is another law.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -27,6 +39,44 @@ _DEFAULT_ROUNDS = 4
 # Integer-df chi-square beats Marsaglia-Tsang up to roughly here (the JAX
 # package's own bound, ``cusmc_tpu/ops/random.py:66-70``).
 MAX_INTEGER_DF = 30
+
+
+_BF16_NORMALS: dict = {}
+
+
+def bf16_normal_table(device=None) -> torch.Tensor:
+    """The 128 values of the bfloat16 normal law, indexed by the top 7 bits
+    of an 8-bit word: ``jax.random.uniform``'s bfloat16 construction
+    (``floats = bitcast(bits >> 1 | bits(1.0)) - 1``, then
+    ``max(lo, floats (1 - lo) + lo)`` with ``lo = nextafter(-1, 0)``, each
+    operation rounded to bfloat16) and ``sqrt(2) erfinv(u)``, the inverse
+    error function taken in float64 and rounded once, as XLA rounds its
+    bfloat16 result. Built once a device."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    table = _BF16_NORMALS.get(dev)
+    if table is None:
+        bf = torch.bfloat16
+        one = torch.ones((), dtype=bf)
+        lo = torch.nextafter(-one, torch.zeros_like(one))
+        mant = torch.arange(128, dtype=torch.int32) | 0x3F80
+        floats = mant.to(torch.int16).view(bf) - one
+        u = torch.maximum(lo, floats * (one - lo) + lo)
+        erfinv = torch.erfinv(u.double()).to(bf)
+        table = (torch.tensor(math.sqrt(2.0), dtype=bf) * erfinv).to(dev)
+        _BF16_NORMALS[dev] = table
+    return table
+
+
+def normal(gen: Optional[torch.Generator], shape, dtype=torch.float32,
+           device=None) -> torch.Tensor:
+    """Standard normals of ``shape``: ``torch.randn`` for float32; for
+    bfloat16 the law of ``bf16_normal_table``, a uniform level from
+    ``gen`` (the top 7 bits of JAX's 8-bit word) picking its value."""
+    shape = tuple(shape)
+    if dtype == torch.bfloat16:
+        level = torch.randint(0, 128, shape, generator=gen, device=device)
+        return bf16_normal_table(level.device)[level]
+    return torch.randn(shape, generator=gen, dtype=dtype, device=device)
 
 
 def tiny_uniform(gen: Optional[torch.Generator], shape, dtype=torch.float32,

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from cusmc_tpu_torch.parallel.mesh import axis_size
 from cusmc_tpu_torch.parallel.resampling import (
     ring_cdf_resample_op,
@@ -38,7 +40,15 @@ def sharded_bootstrap_filter(key, model, ys, num_particles: int, axis=None,
     and weights of its block, ancestors in global indices, and the ESS and
     log-evidence, the same on every rank. Default ``return_history=False``:
     at the scales that need sharding the [T, L, d] history dominates
-    device memory."""
+    device memory.
+
+    A mixed-precision model (a bfloat16 state) is refused: the sharded
+    resample ops and the take-columns kernel are float32 only (ROADMAP
+    queue 1, "the sharded filter in bfloat16")."""
+    if getattr(model, "state_dtype", torch.float32) != torch.float32:
+        raise NotImplementedError(
+            "the sharded filter with a bfloat16 state is not ported yet "
+            "(ROADMAP queue 1, the sharded filter in bfloat16)")
     n_shards = axis_size(axis)
     if num_particles % n_shards:
         raise ValueError(f"num_particles={num_particles} is not divisible "

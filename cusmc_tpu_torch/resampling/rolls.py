@@ -10,7 +10,10 @@ a 0/0 pair rejects). ``jnp.roll(w, -s)[i] == w[(i + s) mod N]``.
   the plain version of the kernel.
 - ``roll_metropolis_sweeps_expspace(w, shifts, u, X)`` launches the
   hand-written kernel ``csrc/rolls.cu`` on a CUDA tensor (walk, apply and
-  ancestors in one pass) and takes the plain version on a CPU tensor.
+  ancestors in one pass) and takes the plain version on a CPU tensor. The
+  state ``X`` is float32 or bfloat16 (mixed precision); the weights, the
+  uniforms and the walk are float32 either way, and the apply copies the
+  winners' values exactly.
 - ``roll_metropolis_draws`` makes the draws: ``shifts`` from
   ``torch.randint(0, N, (B,))`` and ``u`` from ``torch.rand((B, N))``,
   both on the run's Generator, mirroring ``rolls.py:66-73``.
@@ -99,15 +102,17 @@ def roll_metropolis_sweeps_expspace(w: torch.Tensor, shifts: torch.Tensor,
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B roll-Metropolis sweeps over exp-space weights ``w`` [N] with
     ``shifts`` [B] and uniforms ``u`` [B, N]; returns ``(X[:, a], a)`` for
-    packed ``X`` [d, N]. CUDA: the kernel; CPU: the plain version.
-    ``roll_metropolis_sweeps_expspace.launches`` counts kernel launches."""
+    packed ``X`` [d, N] (float32 or bfloat16). CUDA: the kernel; CPU: the
+    plain version. ``roll_metropolis_sweeps_expspace.launches`` counts
+    kernel launches on a float32 state, ``.bf16_launches`` on a bfloat16
+    one."""
     if not is_cuda(w, "roll_metropolis_sweeps_expspace"):
         return roll_metropolis_sweeps_expspace_plain(w, shifts, u, X)
     dev = w.device
     kernels.require(w, "w", torch.float32, 1, dev)
     kernels.require(shifts, "shifts", torch.int32, 1, dev)
     kernels.require(u, "u", torch.float32, 2, dev)
-    kernels.require(X, "X", torch.float32, 2, dev)
+    bf16 = kernels.require_state(X, "X", dev)
     n = w.shape[0]
     num_steps = shifts.shape[0]
     d = X.shape[0]
@@ -122,13 +127,18 @@ def roll_metropolis_sweeps_expspace(w: torch.Tensor, shifts: torch.Tensor,
     a = torch.empty((n,), dtype=torch.int32, device=dev)
     rc = lib.cusmc_roll_metropolis(
         w.data_ptr(), shifts.data_ptr(), u.data_ptr(), X.data_ptr(),
-        out.data_ptr(), a.data_ptr(), n, num_steps, d, kernels.stream_of(w))
+        out.data_ptr(), a.data_ptr(), n, num_steps, d, bf16,
+        kernels.stream_of(w))
     kernels.check(rc, "roll_metropolis_sweeps_expspace")
-    roll_metropolis_sweeps_expspace.launches += 1
+    if bf16:
+        roll_metropolis_sweeps_expspace.bf16_launches += 1
+    else:
+        roll_metropolis_sweeps_expspace.launches += 1
     return out, a
 
 
 roll_metropolis_sweeps_expspace.launches = 0
+roll_metropolis_sweeps_expspace.bf16_launches = 0
 
 
 def auto_num_steps(w: torch.Tensor, num_steps: int = 10) -> int:

@@ -45,6 +45,12 @@ B and the fused CDF step was never faster on the TPU (``:680-716``).
 ``pallas_interpret`` is TPU-only and not ported: on a CPU tensor the fused
 ops run their plain versions.
 
+Mixed precision (a DLM with ``state_dtype=torch.bfloat16``): the state,
+its history and the resample's gathers are bfloat16; the weights, ESS,
+evidence and log-likelihoods stay float32 (``:776-777``). Both engines
+take it for metropolis, and ``engine="xla"`` for every resampler; the
+fused CDF step refuses it, as in the JAX package.
+
 Not ported yet (``NotImplementedError``, see ROADMAP queue 1):
 ``layout="batch"``, injected log-space ``resample_op``s (the registry path
 ``packed_resample_op``) and ``debug_checks``.
@@ -321,25 +327,31 @@ def _fused_cdf_step_factory(model: DLM, num_particles: int, pos_mode: str,
     return step
 
 
-def _fused_model_ok(model) -> bool:
-    """A float32 DLM within the kernels' dimension cap; MVT with df >= 2
-    (the in-kernel Marsaglia-Tsang sampler has no alpha < 1 boost)."""
+def _fused_model_ok(model, bf16_ok: bool = False) -> bool:
+    """A DLM within the kernels' dimension cap with one chi-square a
+    particle (no ``per_dim_chi``); MVT with df >= 2 (the in-kernel
+    Marsaglia-Tsang sampler has no alpha < 1 boost); a float32 state, or
+    with ``bf16_ok`` a bfloat16 one at even d."""
     if not (isinstance(model, DLM)
             and max(model.state_dim, model.obs_dim) <= MAX_MXU_DIM
-            and model.G.dtype == torch.float32):
+            and not model.per_dim_chi
+            and (model.state_dtype == torch.float32
+                 or (bf16_ok and model.state_dtype == torch.bfloat16
+                     and model.state_dim % 2 == 0))):
         return False
     return model.noise != "mvt" or model.df_value >= 2.0
 
 
 def _pallas_eligible(model, n: int, tile: int) -> bool:
-    """``particle_filter.py:577-601``, float32 only."""
-    return (_fused_model_ok(model) and n % tile == 0 and n >= 2 * tile
-            and tile % 128 == 0)
+    """``particle_filter.py:577-601``: a float32 or bfloat16 state."""
+    return (_fused_model_ok(model, bf16_ok=True) and n % tile == 0
+            and n >= 2 * tile and tile % 128 == 0)
 
 
 def _fused_cdf_eligible(model, n: int) -> bool:
-    """``particle_filter.py:389-414``: the model check, and N divisible by
-    the auto tile, large enough for the window walk, at most 2^24."""
+    """``particle_filter.py:389-414``: the model check (float32 only), and
+    N divisible by the auto tile, large enough for the window walk, at
+    most 2^24."""
     if not _fused_model_ok(model):
         return False
     tile = cdf_auto_tile(n, max(model.state_dim, model.obs_dim))
@@ -369,15 +381,16 @@ def _engine_step(engine: str, model, n: int, resampler: str,
                          "metropolis/systematic/stratified resampler and no "
                          "ESS threshold")
     if pallas_tile is None:
-        dk = (max(model.state_dim, model.obs_dim)
-              if isinstance(model, DLM) else 1)
-        pallas_tile = auto_tile(n, dk)
+        dk, itemsize = ((max(model.state_dim, model.obs_dim),
+                         model.G.element_size())
+                        if isinstance(model, DLM) else (1, 4))
+        pallas_tile = auto_tile(n, dk, itemsize)
     if not _pallas_eligible(model, n, pallas_tile):
         raise ValueError(
             f"pallas engine needs a DLM with d,k <= {MAX_MXU_DIM}, N a "
             f"multiple of tile={pallas_tile} (and >= 2 tiles), tile a "
-            f"multiple of 128, standard MVT with df >= 2, and a float32 "
-            f"state")
+            f"multiple of 128, standard MVT with concrete df >= 2, and a "
+            f"float32 or bfloat16 state")
     return _pallas_step_factory(
         model, n, pallas_tile, resampler_kwargs.get("num_steps", 10),
         resampler_kwargs.get("num_window_tiles", 2)), True
@@ -413,10 +426,10 @@ def bootstrap_filter(
 
     ``engine``: "auto" or "xla" (the composed path), or "pallas" (one
     fused kernel per step: metropolis, systematic or stratified, no ESS
-    threshold, a float32 DLM with d, k <= 128). ``pallas_tile``: the fused
-    kernels' tile (None: their auto choice). ``resampler_kwargs`` of the
-    fused path: ``num_steps`` and ``num_window_tiles`` (metropolis),
-    ``sr`` (the CDF family).
+    threshold, a DLM with d, k <= 128, float32, or bfloat16 at even d for
+    metropolis). ``pallas_tile``: the fused kernels' tile (None: their
+    auto choice). ``resampler_kwargs`` of the fused path: ``num_steps``
+    and ``num_window_tiles`` (metropolis), ``sr`` (the CDF family).
 
     The sharded filter (what ``parallel.sharded_bootstrap_filter`` calls
     on each rank): ``axis_name`` a ``parallel.mesh.ParticleAxis`` (None:

@@ -18,7 +18,12 @@ TINY = float(jnp.finfo(F32).tiny)
 
 
 def to_torch(a):
-    return torch.from_numpy(np.array(a))
+    """A JAX or numpy array as a torch tensor; bfloat16 crosses as its
+    16-bit words (``torch.from_numpy`` refuses numpy's bfloat16)."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def chi2_integer_draws(key, df, shape):
@@ -45,16 +50,20 @@ def fast_gamma_draws(key, alpha, shape, rounds=4):
 
 def packed_noise(key, jmodel, n):
     """The draws of ``DLM._sample_packed(key, ...)`` in the port's
-    ``packed_noise`` layout: ``kz, kg = split(key)`` for MVT."""
+    ``packed_noise`` layout: ``kz, kg = split(key)`` for MVT; z in the
+    state dtype, the chi-square draws float32, (1, n) or (d, n) with
+    ``per_dim_chi``."""
     d = jmodel.state_dim
+    sdt = jmodel.W_sqrt.dtype
     if jmodel.noise != "mvt":
-        return (to_torch(jax.random.normal(key, (d, n), F32)),)
+        return (to_torch(jax.random.normal(key, (d, n), sdt)),)
     kz, kg = jax.random.split(key)
-    z = to_torch(jax.random.normal(kz, (d, n), F32))
+    z = to_torch(jax.random.normal(kz, (d, n), sdt))
+    shape = (d, n) if jmodel.per_dim_chi else (1, n)
     if jmodel.df_int is not None:
-        return (z, chi2_integer_draws(kg, jmodel.df_int, (1, n)))
+        return (z, chi2_integer_draws(kg, jmodel.df_int, shape))
     alpha = np.float32(0.5) * np.float32(jmodel.df)
-    return (z, fast_gamma_draws(kg, float(alpha), (1, n)))
+    return (z, fast_gamma_draws(kg, float(alpha), shape))
 
 
 def roll_draws(key, n, num_steps):
@@ -199,13 +208,14 @@ def port_model(jmodel):
         W_sqrt=jmodel.W_sqrt, V_chol=jmodel.V_chol,
         V_chol_inv=jmodel.V_chol_inv,
         df=None if jmodel.df is None else np.asarray(jmodel.df),
-        noise=jmodel.noise, df_int=jmodel.df_int)
+        noise=jmodel.noise, df_int=jmodel.df_int,
+        per_dim_chi=jmodel.per_dim_chi, device="cpu")
 
 
-def jax_model(noise, df=None, d=2):
+def jax_model(noise, df=None, d=2, state_dtype=None, per_dim_chi=False):
     from cusmc_tpu.io.data import demo_model_params
     from cusmc_tpu.models.dlm import DLM
 
-    return DLM.create(noise=noise, df=df, dtype=F32,
-                      **demo_model_params(d=d))
+    return DLM.create(noise=noise, df=df, dtype=F32, state_dtype=state_dtype,
+                      per_dim_chi=per_dim_chi, **demo_model_params(d=d))
 

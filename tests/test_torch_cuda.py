@@ -459,3 +459,86 @@ def test_cuda_pallas_engine_runs_through_the_fused_kernels(cuda):
         assert [f.launches for f in (inverse_cdf_apply,
                                      roll_metropolis_sweeps_expspace)] == \
             composed
+
+
+# -- a bfloat16 state (mixed precision) ---------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 32])
+def test_cuda_bf16_roll_and_search_and_apply_kernels(cuda, d):
+    # The bfloat16 gathers: the float32 run's ancestors, values exactly the
+    # plain version's, each launch counted apart from the float32 ones.
+    n = 1_000_003
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    w = torch.exp(-25.0 * torch.randn(n, generator=gen, device=cuda) ** 2)
+    X32 = torch.randn((d, n), generator=gen, device=cuda)
+    X = X32.to(torch.bfloat16)
+    shifts, u = roll_metropolis_draws(gen, n, 10, cuda)
+    before = (roll_metropolis_sweeps_expspace.launches,
+              roll_metropolis_sweeps_expspace.bf16_launches)
+    y, a = roll_metropolis_sweeps_expspace(w, shifts, u, X)
+    assert (roll_metropolis_sweeps_expspace.launches,
+            roll_metropolis_sweeps_expspace.bf16_launches) == \
+        (before[0], before[1] + 1)
+    y_p, a_p = roll_metropolis_sweeps_expspace_plain(w, shifts, u, X)
+    assert torch.equal(a, a_p) and torch.equal(y, y_p)
+    assert torch.equal(a, roll_metropolis_sweeps_expspace(w, shifts, u,
+                                                          X32)[1])
+    cdf, _ = blocked_cumsum(w)
+    pos = (torch.arange(n, device=cuda, dtype=torch.float32) + 0.5) / n \
+        * cdf[-1]
+    before = inverse_cdf_apply.bf16_launches
+    y, a = inverse_cdf_apply(cdf, pos, X)
+    assert inverse_cdf_apply.bf16_launches == before + 1
+    y_p, a_p = inverse_cdf_apply_plain(cdf, pos, X)
+    assert torch.equal(a, a_p) and torch.equal(y, y_p)
+    L = n // 4
+    q, Xl = pos[L:2 * L].contiguous(), X[:, L:2 * L].contiguous()
+    before = inverse_cdf_apply.bf16_local_launches
+    y, a = inverse_cdf_apply(cdf, q, Xl, local_base=L)
+    assert inverse_cdf_apply.bf16_local_launches == before + 1
+    y_p, a_p = inverse_cdf_apply_plain(cdf, q, Xl, local_base=L)
+    assert torch.equal(a, a_p) and torch.equal(y, y_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,noise,df", [
+    (2, "mvn", None), (2, "mvt", 5.0), (4, "mvt", 5.5), (6, "mvn", None),
+    (16, "mvn", None), (16, "mvt", 5.0), (32, "mvt", 5.0),
+    (32, "mvt", 5.5)])
+def test_cuda_bf16_fused_step_kernel(cuda, d, noise, df):
+    # The fused Metropolis step on a bfloat16 state: the float32 kernel's
+    # ancestors, and chip_smoke.py's rule for the states (bitwise but for
+    # a 1-ulp mismatch at a rounding boundary) and ll (1e-4 where the
+    # states agree).
+    import chip_smoke as cs
+    from cusmc_tpu_torch.models.dlm import DLM
+
+    n, tile = 1 << 16, 2048
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    m = DLM.create(noise=noise, df=df, device=cuda,
+                   state_dtype=torch.bfloat16, **demo_model_params(d))
+    G, Q, F, Li = (t.contiguous() for t in (m.G, m.W_sqrt, m.F,
+                                            m.V_chol_inv))
+    X32 = 0.1 * torch.randn((d, n), generator=gen, device=cuda)
+    X = X32.to(torch.bfloat16)
+    logw = -5.0 * torch.rand(n, generator=gen, device=cuda)
+    y = torch.full((d,), 0.05, device=cuda)
+    draws = fs.fused_filter_step_draws(gen, n, tile, cuda)
+    args = (logw, y, G, Q, F, Li, df, float(m.log_norm), draws)
+    kw = dict(noise=noise, num_sweeps=10, tile=tile, df_int=m.df_int)
+    before = (fs.fused_filter_step.launches, fs.fused_filter_step.bf16_launches)
+    x, ll, a = fs.fused_filter_step(X, *args, **kw)
+    assert (fs.fused_filter_step.launches,
+            fs.fused_filter_step.bf16_launches) == (before[0], before[1] + 1)
+    assert x.dtype == torch.bfloat16 and ll.dtype == torch.float32
+    x_p, ll_p, a_p, x_pre = fs.fused_filter_step_plain(X, *args, **kw,
+                                                       pre_rounding=True)
+    assert torch.equal(a, a_p)
+    (G32, Q32, F32, Li32), _, _, _, _ = _model_args(d, cuda, noise, df)
+    _, _, a32 = fs.fused_filter_step(X32, logw, y, G32, Q32, F32, Li32,
+                                     *args[6:], **kw)
+    assert torch.equal(a, a32)
+    diff, _ = cs.bf16_state_mismatches(x, x_p, x_pre)
+    same = diff.logical_not().all(0)
+    _close(ll[same], ll_p[same])

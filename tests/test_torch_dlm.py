@@ -41,7 +41,7 @@ def test_from_jax_arrays_round_trip(noise, df):
 @pytest.mark.parametrize("noise,df", CASES)
 def test_create_matches_jax_factors(noise, df):
     jm = jax_model(noise, df)
-    tm = DLM.create(noise=noise, df=df, **demo_model_params())
+    tm = DLM.create(device="cpu", noise=noise, df=df, **demo_model_params())
     for name in FIELDS:
         np.testing.assert_allclose(getattr(tm, name).numpy(),
                                    np.asarray(getattr(jm, name)),
@@ -51,15 +51,21 @@ def test_create_matches_jax_factors(noise, df):
 
 def test_df_int_dispatch_and_unported_options():
     p = demo_model_params()
-    assert DLM.create(noise="mvt", df=5.0, **p).df_int == 5
-    assert DLM.create(noise="mvt", df=4.5, **p).df_int is None
-    assert DLM.create(noise="mvt", df=64.0, **p).df_int is None
+    assert DLM.create(device="cpu", noise="mvt", df=5.0, **p).df_int == 5
+    assert DLM.create(device="cpu", noise="mvt", df=4.5, **p).df_int is None
+    assert DLM.create(device="cpu", noise="mvt", df=64.0, **p).df_int is None
     with pytest.raises(ValueError):
-        DLM.create(noise="mvt", **p)
-    with pytest.raises(NotImplementedError):
-        DLM.create(state_dtype=torch.bfloat16, **p)
-    with pytest.raises(NotImplementedError):
-        DLM.create(noise="mvt", df=5.0, per_dim_chi=True, **p)
+        DLM.create(device="cpu", noise="mvt", **p)
+    # Mixed precision and the per-dimension chi-square, once refused here,
+    # are ported (tests/test_torch_mixed_precision.py holds them to JAX).
+    mixed = DLM.create(device="cpu", state_dtype=torch.bfloat16, **p)
+    assert mixed.state_dtype == mixed.W_sqrt.dtype == torch.bfloat16
+    assert mixed.V_chol.dtype == mixed.log_norm.dtype == torch.float32
+    chi = DLM.create(device="cpu", noise="mvt", df=5.0, per_dim_chi=True, **p)
+    assert chi.per_dim_chi and chi.df_int == 5
+    noise = chi.packed_noise(torch.Generator().manual_seed(0), 16)
+    assert tuple(noise[1][0].shape) == (2, 2, 16)   # (df // 2, d, n)
+    assert tuple(noise[1][1].shape) == (2, 16)
 
 
 @pytest.mark.parametrize("noise,df", CASES)
@@ -99,7 +105,7 @@ def test_propagate_and_initial_given_jax_draws(noise, df):
 @pytest.mark.parametrize("noise,df", CASES)
 def test_packed_draws_have_the_transition_variance(noise, df):
     # x = L z sqrt(df / chi2): marginal variance df/(df-2) * W for MVT.
-    tm = DLM.create(noise=noise, df=df, **demo_model_params())
+    tm = DLM.create(device="cpu", noise=noise, df=df, **demo_model_params())
     gen = torch.Generator().manual_seed(0)
     out = tm.propagate_packed(gen, torch.zeros(2, 200_000)).double()
     W = demo_model_params()["W"]
@@ -109,7 +115,7 @@ def test_packed_draws_have_the_transition_variance(noise, df):
 
 
 def test_simulate_shapes_and_first_row():
-    tm = DLM.create(noise="mvt", df=5.0, **demo_model_params())
+    tm = DLM.create(device="cpu", noise="mvt", df=5.0, **demo_model_params())
     xs, ys = tm.simulate(torch.Generator().manual_seed(0), 30)
     assert xs.shape == (30, 2) and ys.shape == (30, 2)
     assert torch.equal(ys[0], torch.zeros(2))

@@ -163,7 +163,7 @@ def test_filter_log_evidence_near_kalman():
     ys = load_y_sim()[:101]
     _, _, zk = kalman_filter(ys, **{k: p[k] for k in
                                     ("F", "G", "V", "W", "m0", "C0")})
-    model = DLM.create(noise="mvn", **p)
+    model = DLM.create(device="cpu", noise="mvn", **p)
     zc = float(tpf.bootstrap_filter(0, model, ys, 8192,
                                     resampler="systematic", engine="pallas",
                                     return_history=False).log_evidence)

@@ -124,7 +124,8 @@ def test_model_log_norm_matches_fused_factories(noise, df):
     jm = jax_model(noise, df)
     np.testing.assert_allclose(float(port_model(jm).log_norm),
                                fused_log_norm(jm), rtol=1e-6)
-    created = DLM.create(noise=noise, df=df, **demo_model_params())
+    created = DLM.create(device="cpu", noise=noise, df=df,
+                         **demo_model_params())
     np.testing.assert_allclose(float(created.log_norm), fused_log_norm(jm),
                                rtol=1e-6)
 
@@ -209,7 +210,7 @@ def trace101():
     ys = load_y_sim()[:101]
     _, _, loglik = kalman_filter(ys, **{k: p[k] for k in
                                         ("F", "G", "V", "W", "m0", "C0")})
-    return DLM.create(noise="mvn", **p), ys, loglik
+    return DLM.create(device="cpu", noise="mvn", **p), ys, loglik
 
 
 def test_filter_log_evidence_near_kalman(trace101):

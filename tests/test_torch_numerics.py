@@ -155,9 +155,33 @@ def test_mvt_sample_marginal_ks(df):
     x = mvt.mvt_sample(gen, torch.zeros(2), torch.eye(2), df, (50_000,))
     stat, p = stats.kstest(x[:, 0].double().numpy(), "t", args=(df,))
     assert p > 1e-3, f"KS failed: stat={stat}, p={p}"
-    with pytest.raises(NotImplementedError):
-        mvt.mvt_sample(gen, torch.zeros(2), torch.eye(2), df, (4,),
-                       per_dim_chi=True)
+    # The per-dimension chi-square (once refused here): with an identity
+    # scale each coordinate is Student-t(df) on its own chi-square.
+    xp = mvt.mvt_sample(gen, torch.zeros(2), torch.eye(2), df, (50_000,),
+                        per_dim_chi=True)
+    stat, p = stats.kstest(xp[:, 1].double().numpy(), "t", args=(df,))
+    assert p > 1e-3, f"KS failed: stat={stat}, p={p}"
+
+
+def test_per_dim_chi_variant_differs():
+    # tests/test_distributions.py::test_per_dim_chi_variant_differs: the
+    # reference's product-t keeps the marginal scale df / (df - 2).
+    d, df = 2, 5.0
+    gen = torch.Generator().manual_seed(14)
+    xs = mvt.mvt_sample(gen, torch.zeros(d), torch.eye(d), df, (400_000,),
+                        per_dim_chi=True)
+    np.testing.assert_allclose(xs.double().var(0).numpy(),
+                               df / (df - 2.0) * np.ones(d), rtol=0.05)
+    # ... and its coordinates are uncorrelated but not independent: their
+    # squares are, where the standard MVT's share one chi-square.
+    sq = xs.double() ** 2
+    shared = mvt.mvt_sample(gen, torch.zeros(d), torch.eye(d), df,
+                            (400_000,)).double() ** 2
+    lo = torch.log1p(sq)
+    lo_shared = torch.log1p(shared)
+    corr = float(torch.corrcoef(lo.T)[0, 1])
+    corr_shared = float(torch.corrcoef(lo_shared.T)[0, 1])
+    assert abs(corr) < 0.01 and corr_shared > 0.1, (corr, corr_shared)
 
 
 def test_mvn_sample_given_draws_matches_jax():

@@ -20,10 +20,12 @@ import torch
 
 from _torch_inputs import search_inputs
 
+import cusmc_tpu_torch
 from cusmc_tpu.ops.cumsum import blocked_cumsum as jax_blocked_cumsum
 from cusmc_tpu.ops import monotone_gather as jmg
 from cusmc_tpu.ops.monotone_gather import inverse_cdf_apply as jax_icdf
 from cusmc_tpu_torch.device import resolve_device
+from cusmc_tpu_torch.io.data import demo_model_params
 from cusmc_tpu_torch.ops.cumsum import EPOCH_LIMIT, FOLD, TILE, ScanState, \
     blocked_cumsum
 from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
@@ -93,6 +95,47 @@ def test_inverse_cdf_apply_clips_past_the_end():
     # <= keeps the zero-weight particles 0 and 2 from ever being chosen.
     assert a.tolist() == [1, 1, 3, 3, 3]
     assert y[0].tolist() == [1.0, 1.0, 3.0, 3.0, 3.0]
+
+
+def test_default_device_is_the_card_or_an_error():
+    # ``None`` never falls back to the CPU: it is the card, and without one
+    # it raises, as run(device=None) then does.
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    p = demo_model_params()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cusmc_tpu_torch.run(256, 2, 3, np.zeros((3, 2)), p["m0"], p["C0"],
+                            p["F"], p["G"], p["V"], p["W"])
+
+
+@pytest.mark.parametrize("state_dtype", [None, torch.bfloat16])
+def test_model_default_device_is_the_card_or_an_error(state_dtype):
+    # A model built with device=None lives on the card, and without one its
+    # construction raises; the filter then runs where the model lives.
+    from cusmc_tpu_torch.models.dlm import DLM
+
+    p = demo_model_params()
+    if torch.cuda.is_available():
+        model = DLM.create(state_dtype=state_dtype, **p)
+        assert model.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DLM.create(state_dtype=state_dtype, **p)
+    cpu = DLM.create(state_dtype=state_dtype, device="cpu", **p)
+    assert cpu.device.type == "cpu"
+    arrays = {name: getattr(cpu, name).float().numpy()
+              for name in ("F", "G", "m0", "C0_sqrt", "W_sqrt", "V_chol",
+                           "V_chol_inv")}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DLM.from_jax_arrays(**arrays)
+    moved = DLM.from_jax_arrays(device="cpu", **arrays)
+    torch.testing.assert_close(moved.G, cpu.G.float(), rtol=0, atol=0)
+    result = cusmc_tpu_torch.bootstrap_filter(
+        0, cpu, np.zeros((3, 2), np.float32), 256, resampler="systematic")
+    assert result.final_particles.device.type == "cpu"
 
 
 def test_cpu_resolution_and_unsupported_devices():

@@ -124,7 +124,7 @@ def test_the_demo_model_as_it_is_collapses_at_d32():
     from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
 
     p = demo_model_params(32)
-    model = DLM.create(noise="mvn", **p)
+    model = DLM.create(device="cpu", noise="mvn", **p)
     _, ys = model.simulate(torch.Generator().manual_seed(cs.ORACLE_OBS_SEED),
                            30)
     _, _, zk = kalman_filter(ys, **{k: p[k] for k in
