@@ -35,7 +35,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    within BF16_BOUNDARY_RTOL of it), ll at 1e-4 on the particles whose
    states agree; the roll walk and the search-and-apply (both modes) at
    d = 2 and 32, ancestors equal to the float32 run's and values exactly
-   the plain version's; each timed beside its bound at 2-byte states.
+   the plain version's; take-columns on a bfloat16 state at d = 2 and 32,
+   on sorted and on shuffled ancestors, bitwise the plain version's; each
+   timed beside its bound at 2-byte states.
 3b. Statistics of the fused kernels (benchmarks/validate_fused_tpu.py
    checks 1-5d with their thresholds): zero-noise consistency, offspring
    against the indexed Metropolis resampler, noise moments, the inverse-CDF
@@ -87,7 +89,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    local-block kernels to their plain versions at N = 2^20 and d = 2, 32,
    at the shard shapes of a 4-way split (L = N/4 queries, base p N/4), the
    search-only kernel also on shuffled queries, and times the search-only
-   kernel at L = N, L = N/4 strided, the shard-1 shape and shuffled.
+   kernel at L = N, L = N/4 strided, the shard-1 shape and shuffled. Then
+   one row of a model without packed methods (the demo DLM as a
+   ``CustomSSM``: the batch layout and the all-gather op), systematic,
+   T=50, which launches the cumsum and the search-only kernel T-1 times
+   each and no other kernel.
 4d. Mixed precision, with every launch count set to 0 first: a bfloat16
    state (``DLM.create(state_dtype=torch.bfloat16)``) through
    ``bootstrap_filter``, MVT df=5, N=2^20: at d = 2 (T=200) metropolis
@@ -99,6 +105,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    launches its kernels (the fused step's, the roll walk's or the cumsum
    and the search-and-apply's bfloat16 launches) T-1 times each and no
    other.
+4e. The generic path (the log-space step), with every launch count set
+   to 0 first: the headline model (MVT df=5, N=2^20, T=200, d=2, B=10)
+   through ``bootstrap_filter`` with ``debug_checks=True`` for metropolis
+   (the roll kernel), systematic (the cumsum and the search-and-apply) and
+   residual (each twice a step), with a custom registry key (the indexed
+   Metropolis resampler, then take-columns), in the batch layout and as a
+   ``CustomSSM`` (no kernel), and a bfloat16 model at d=32 (T=100) with
+   the custom key (take-columns' bfloat16 gather); each one warm-up and
+   the best of 2, particle-steps/s, and kernels a step and the busy share
+   from a profiled run of 20 steps; each run launches exactly its kernels,
+   T-1 times (twice that for residual). Then the share of ancestors equal
+   between the fast and the generic metropolis runs on one seed, and the
+   Kalman logZ (MVN, N=2^17, the 1001-step trace, 2% of |loglik|) of six
+   generic runs.
 5. The block-window kernels on the main paths' own inputs, kept at steps
    0, 99 and 198 of the warm-up runs of phases 4 (the search-and-apply of
    the composed systematic headline, d = 2), 4b (the fused CDF step of the
@@ -970,14 +990,16 @@ def check_bf16_kernels() -> dict:
     N = 2^20, d = 2, 16 and 32, MVN and MVT df=5 (``_fused_step_case_bf16``);
     the roll walk and the search-and-apply (both modes) at d = 2 and 32,
     ancestors equal to the float32 run's and values exactly the plain
-    version's. Records at N = 2^20, d = 2; d = 16 and 32 printed."""
+    version's; take-columns at d = 2 and 32 on sorted and shuffled
+    ancestors, bitwise. Records at N = 2^20, d = 2 (take-columns: d = 32,
+    shuffled, the generic path's bfloat16 row); the others printed."""
     import torch
 
     from cusmc_tpu_torch.ops.cumsum import blocked_cumsum
     from cusmc_tpu_torch.ops.fused_step import fused_filter_step, \
         fused_filter_step_plain, step_path
     from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
-        inverse_cdf_apply_plain
+        inverse_cdf_apply_plain, take_columns, take_columns_plain
     from cusmc_tpu_torch.resampling.rolls import roll_metropolis_draws, \
         roll_metropolis_sweeps_expspace, \
         roll_metropolis_sweeps_expspace_plain
@@ -1017,6 +1039,30 @@ def check_bf16_kernels() -> dict:
               f"local_base L=N/4 at N/4) N=2^20 d={d}: ancestors equal to "
               f"the plain and the float32 runs', values exactly equal")
         cases[d] = X
+    # take-columns on a bfloat16 state: the generic path's gather for a
+    # registry key outside the fast ops, on sorted and on shuffled
+    # ancestors (a custom resampler's come in any order).
+    rand = torch.randint(0, n, (n,), generator=gen, device=dev)
+    takes = {"sorted": torch.sort(rand).values.to(torch.int32),
+             "shuffled": rand.to(torch.int32)}
+    for d in (D, D_WIDE):
+        for kind, a in takes.items():
+            y = take_columns(cases[d], a)
+            assert y.dtype == torch.bfloat16 and torch.equal(
+                y.view(torch.int16),
+                take_columns_plain(cases[d], a).view(torch.int16)), \
+                f"take_columns[bf16] {kind} d={d}"
+    print("  take_columns[bf16] N=2^20 d=2 and 32, sorted and shuffled "
+          "ancestors: values bitwise equal to the plain version's")
+    for d in (D, D_WIDE):
+        for kind in ("sorted", "shuffled"):  # d = 32 shuffled is recorded
+            X, a = cases[d], takes[kind]
+            rec["take_columns[bf16]"] = dict(max_abs_err=0.0, **time_kernel(
+                "take_columns[bf16]", lambda: take_columns(X, a),
+                lambda: take_columns_plain(X, a),
+                lambda: X.index_select(1, a),
+                f"N=2^20 d={d} bf16 {kind} (library: index_select)",
+                (4 + 4 * d) * n, 0))
     steps = {}
     for d in (D, D_MID, D_WIDE):
         for noise in ("mvn", "mvt"):
@@ -1558,7 +1604,7 @@ KERNELS = (
     ("inverse_cdf_search", GATHER_CU,
      "cusmc_tpu/ops/monotone_gather.py:422", "sharded"),
     ("take_columns", GATHER_CU,
-     "cusmc_tpu/ops/monotone_gather.py:204", "sharded"),
+     "cusmc_tpu/ops/monotone_gather.py:204", ("sharded", "generic")),
     ("inverse_cdf_apply[local_base]", GATHER_CU,
      "cusmc_tpu/ops/monotone_gather.py:401", "sharded"),
     ("fused_filter_step[bf16]", "cusmc_tpu_torch/csrc/fused_step.cu",
@@ -1567,6 +1613,8 @@ KERNELS = (
      "cusmc_tpu/resampling/rolls.py:109", "bf16"),
     ("inverse_cdf_apply[bf16]", GATHER_CU,
      "cusmc_tpu/ops/monotone_gather.py:277", "bf16"),
+    ("take_columns[bf16]", GATHER_CU,
+     "cusmc_tpu/ops/monotone_gather.py:204", "generic"),
 )
 
 
@@ -1595,7 +1643,8 @@ def _wrappers():
                 (roll_metropolis_sweeps_expspace, "bf16_launches"),
             "inverse_cdf_apply[bf16]": (inverse_cdf_apply, "bf16_launches"),
             "inverse_cdf_apply[bf16 local_base]": (inverse_cdf_apply,
-                                                   "bf16_local_launches")}
+                                                   "bf16_local_launches"),
+            "take_columns[bf16]": (take_columns, "bf16_launches")}
 
 
 def _counts():
@@ -1942,6 +1991,161 @@ def bf16_path(card: str) -> None:
                   f"run: {', '.join(used)} {steps - 1} each, no other")
 
 
+# The generic path's rows (phase 4e): label -> (bootstrap_filter keywords,
+# {kernel: launches a step}; every other kernel of the port launches 0).
+GENERIC_KEY = "metropolis_indexed"  # resampling.metropolis under a new key
+GENERIC_ROWS = {
+    "debug_checks metropolis": (
+        dict(resampler="metropolis", resampler_kwargs={"num_steps": 10},
+             debug_checks=True), {"roll_metropolis_sweeps_expspace": 1}),
+    "debug_checks systematic": (
+        dict(resampler="systematic", debug_checks=True),
+        {"blocked_cumsum": 1, "inverse_cdf_apply": 1}),
+    "debug_checks residual": (
+        dict(resampler="residual", debug_checks=True),
+        {"blocked_cumsum": 2, "inverse_cdf_apply": 2}),
+    "custom key": (
+        dict(resampler=GENERIC_KEY, resampler_kwargs={"num_steps": 10}),
+        {"take_columns": 1}),
+    "batch systematic": (dict(layout="batch", resampler="systematic"), {}),
+    "CustomSSM systematic": (dict(resampler="systematic"), {}),
+}
+GENERIC_PROFILE_STEPS = 20
+
+
+def custom_ssm(dlm):
+    """A DLM as a ``CustomSSM``: its batch methods only."""
+    from cusmc_tpu_torch.models.base import CustomSSM
+
+    return CustomSSM.create(
+        dlm.state_dim,
+        lambda m, gen, shape: m["dlm"].sample_initial(gen, shape),
+        lambda m, gen, x: m["dlm"].propagate(gen, x),
+        lambda m, y, x: m["dlm"].observation_logpdf(y, x),
+        params={"dlm": dlm})
+
+
+def generic_path(card: str) -> None:
+    """Phase 4e: the generic log-space step through bootstrap_filter, at
+    the headline (MVT df=5, N=2^20, T=200, d=2, B=10): the rows of
+    GENERIC_ROWS, and the bfloat16 model with the custom key at d=32
+    (T=100); each one warm-up and the best of 2, particle-steps/s, and
+    kernels a step and the busy share from a profiled run of
+    GENERIC_PROFILE_STEPS steps; every run launches each of its kernels
+    exactly as GENERIC_ROWS says. Then the share of ancestors equal
+    between the fast and the generic metropolis runs on one seed, and the
+    Kalman logZ (MVN, N=2^17, the bundled trace, 2%) of the generic
+    metropolis, systematic and residual runs, the custom key, the batch
+    layout and the CustomSSM."""
+    import numpy as np
+    import torch
+
+    from cusmc_tpu_torch.io.data import demo_model_params, load_y_sim
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.resampling import register_resampler
+    from cusmc_tpu_torch.resampling.metropolis import metropolis_ancestors
+    from cusmc_tpu_torch.smc.kalman import kalman_filter
+    from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+
+    register_resampler(GENERIC_KEY, metropolis_ancestors)
+    n = N_BIG
+    p = demo_model_params()
+    dlm = DLM.create(noise="mvt", df=5.0, device="cuda", **p)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    _, ys_h = dlm.simulate(gen, 200)
+    bf16 = DLM.create(noise="mvt", df=5.0, device="cuda",
+                      state_dtype=torch.bfloat16, **demo_model_params(D_WIDE))
+    gen.manual_seed(0)
+    _, ys_bf16 = bf16.simulate(gen, 100)
+    rows = {label: (custom_ssm(dlm) if label.startswith("CustomSSM")
+                    else dlm, ys_h, kw, used)
+            for label, (kw, used) in GENERIC_ROWS.items()}
+    rows["bf16 d=32 custom key"] = (
+        bf16, ys_bf16, GENERIC_ROWS["custom key"][0],
+        {"take_columns[bf16]": 1})
+    for label, (model, ys, kw, used) in rows.items():
+        steps = ys.shape[0]
+
+        def run(seed, ys=ys, model=model, kw=kw):
+            return bootstrap_filter(seed, model, ys, n, return_history=False,
+                                    device="cuda", **kw)
+
+        def one(seed, label=label, used=used, steps=steps):
+            before = _counts()
+            t0 = time.perf_counter()
+            res = run(seed)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            after = _counts()
+            for name in after:
+                grown = after[name] - before[name]
+                want = used.get(name, 0) * (steps - 1)
+                assert grown == want, f"generic {label}: {name} launched " \
+                    f"{grown} times, expected {want}"
+            assert bool(torch.isfinite(res.final_particles.float()).all())
+            assert math.isfinite(float(res.log_evidence))
+            return secs, res
+
+        one(0)
+        best = math.inf
+        for rep in range(2):
+            secs, res = one(rep + 1)
+            best = min(best, secs)
+        busy, kernels = device_busy(
+            lambda: run(7, ys[:GENERIC_PROFILE_STEPS]))
+        print(f"  generic {label} MVT df=5 N=2^20 T={steps} "
+              f"d={model.state_dim}: {n * (steps - 1) / best:.6g} "
+              f"particle-steps/s, best {best:.4f} s of 2, logZ "
+              f"{float(res.log_evidence):.3f}, device busy {busy:.3f}, "
+              f"{kernels / (GENERIC_PROFILE_STEPS - 1):.1f} kernels a step "
+              f"(torch.profiler); launches a step: "
+              f"{', '.join(f'{k} {v}' for k, v in used.items()) or 'none'}"
+              f" [{card}]")
+
+    # The fast and the generic metropolis steps draw the same numbers; the
+    # generic walk runs on exp(logw - max(logw)), which the fast carry
+    # meets only to rounding, so a tie may split them (and the runs then
+    # part).
+    kw = dict(resampler="metropolis", resampler_kwargs={"num_steps": 10})
+    fast = bootstrap_filter(3, dlm, ys_h, n, **kw)
+    slow = bootstrap_filter(3, dlm, ys_h, n, debug_checks=True, **kw)
+    same = (fast.ancestors[1:] == slow.ancestors[1:]).float().mean(dim=1)
+    split = torch.nonzero(same < 1.0)
+    first = int(split[0]) + 1 if split.numel() else None
+    print(f"  fast / generic metropolis, N=2^20 T=200 seed 3: ancestors "
+          f"equal in {float(same.mean()):.6f} of slots over all steps, "
+          f"{float(same[0]):.6f} at step 1; first step with a split: "
+          f"{first}")
+    del fast, slow
+
+    ys = load_y_sim()
+    T = ys.shape[0]
+    _, _, loglik = kalman_filter(ys, **{k: p[k] for k in
+                                        ("F", "G", "V", "W", "m0", "C0")})
+    mvn = DLM.create(noise="mvn", device="cuda", **p)
+    for label, model, kw in (
+            ("debug_checks metropolis", mvn,
+             GENERIC_ROWS["debug_checks metropolis"][0]),
+            ("debug_checks systematic", mvn,
+             GENERIC_ROWS["debug_checks systematic"][0]),
+            ("debug_checks residual", mvn,
+             GENERIC_ROWS["debug_checks residual"][0]),
+            ("custom key", mvn, GENERIC_ROWS["custom key"][0]),
+            ("batch systematic", mvn, GENERIC_ROWS["batch systematic"][0]),
+            ("CustomSSM systematic", custom_ssm(mvn),
+             dict(resampler="systematic"))):
+        res = bootstrap_filter(1, model, ys, 1 << 17, return_history=False,
+                               device="cuda", **kw)
+        lz = float(res.log_evidence)
+        gap = abs(lz - loglik)
+        print(f"  kalman MVN generic {label} N=2^17 T={T}: logZ {lz:.3f} vs "
+              f"Kalman {loglik:.3f} (|gap| {gap:.3f}, limit "
+              f"{0.02 * abs(loglik):.3f})")
+        assert np.isfinite(lz) and gap < 0.02 * abs(loglik), \
+            f"generic {label}: logZ off"
+
+
 def sharded_path(card: str) -> None:
     """Phase 4c: the sharded filter on a one-rank NCCL group, beside the
     single-device residual."""
@@ -2071,6 +2275,37 @@ def sharded_path(card: str) -> None:
                       f"best {best:.4f} s of 3, logZ "
                       f"{float(res.log_evidence):.3f}, device busy "
                       f"{busy:.3f}; launches {counts} [{card}]")
+
+            # A model without packed methods: the batch layout and the
+            # all-gather op, whose systematic ancestors take the cumsum
+            # and the search-only kernel once a step.
+            custom = custom_ssm(mvt)
+            steps = 50
+            best = math.inf
+            for rep in range(3):  # one warm-up, the best of 2
+                before = _counts()
+                t0 = time.perf_counter()
+                res = sharded_bootstrap_filter(rep, custom, ys_h[:steps], n,
+                                               axis, resampler="systematic",
+                                               device="cuda")
+                torch.cuda.synchronize()
+                if rep:
+                    best = min(best, time.perf_counter() - t0)
+                after = _counts()
+                for name in after:
+                    grown = after[name] - before[name]
+                    want = steps - 1 if name in (
+                        "blocked_cumsum", "inverse_cdf_search") else 0
+                    assert grown == want, f"sharded CustomSSM: {name} " \
+                        f"launched {grown} times, expected {want}"
+            assert bool(torch.isfinite(res.final_particles).all())
+            assert math.isfinite(float(res.log_evidence))
+            print(f"  CustomSSM (batch layout, all-gather op) systematic "
+                  f"MVT df=5 N=2^20 T={steps} d=2: "
+                  f"{n * (steps - 1) / best:.6g} particle-steps/s, best "
+                  f"{best:.4f} s of 2, logZ {float(res.log_evidence):.3f}; "
+                  f"launches blocked_cumsum and inverse_cdf_search "
+                  f"{steps - 1} each [{card}]")
         finally:
             dist.destroy_process_group()
 
@@ -2329,7 +2564,9 @@ def main(argv=None) -> int:
             ("pallas", "fused path (engine='pallas')", pallas_path),
             ("sharded", "sharded path (one-rank NCCL group)", sharded_path),
             ("bf16", "mixed precision (a bfloat16 state, beside float32)",
-             bf16_path)):
+             bf16_path),
+            ("generic", "generic path (the log-space step)",
+             generic_path)):
         with phase(title):
             _zero_counts()
             drive(card)
@@ -2338,9 +2575,12 @@ def main(argv=None) -> int:
         check_traffic(args.against)
 
     records = []
-    for name, source, replaces, path in KERNELS:
-        count = launches[path][name]
-        assert count > 0, f"{name} never launched on the {path} path"
+    for name, source, replaces, paths in KERNELS:
+        paths = (paths,) if isinstance(paths, str) else paths
+        for path in paths:
+            assert launches[path][name] > 0, \
+                f"{name} never launched on the {path} path"
+        count = sum(launches[path][name] for path in paths)
         records.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": count,
                         **rec[name]})

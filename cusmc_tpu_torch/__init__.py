@@ -5,14 +5,20 @@ module paths: ``cusmc_tpu/x/y.py`` has its counterpart at
 ``cusmc_tpu_torch/x/y.py``, and each module's docstring names the JAX lines
 it replaces. It imports torch and numpy, never jax and never cusmc_tpu.
 
-The port so far runs ``run()``'s main path: the bootstrap particle filter
-over the DLM in packed [d, N] layout, with hand-written Hopper kernels
-(``csrc/*.cu``, built by ``nvcc`` at first use) for the prefix sum, the
-inverse-CDF search-and-apply and the roll-Metropolis walk; and
-``engine="pallas"``, one fused resample-propagate-reweight kernel per step
-(windowed Metropolis, or systematic/stratified inverse CDF) with Philox
-bits made in the kernel. On a CUDA tensor each kernel wrapper launches its
-kernel or raises; only a CPU tensor takes the plain PyTorch version.
+The port so far has the reference's public API (``run``, ``MVN``,
+``MVNPDF``, ``MVT``, ``MVTPDF``, ``metropolis_hastings``) and the bootstrap
+particle filter: the packed [d, N] fast path over the DLM, with
+hand-written Hopper kernels (``csrc/*.cu``, built by ``nvcc`` at first
+use) for the prefix sum, the inverse-CDF search-and-apply, the
+roll-Metropolis walk and the take-columns gather; ``engine="pallas"``, one
+fused resample-propagate-reweight kernel per step (windowed Metropolis, or
+systematic/stratified inverse CDF) with Philox bits made in the kernel;
+the generic log-space step (``layout="batch"``, models without packed
+methods such as ``CustomSSM``, time-varying hooks, the resampler registry
+``get_resampler``/``register_resampler``, ``debug_checks``); mixed
+precision; and the particle-sharded filter (``cusmc_tpu_torch.parallel``).
+On a CUDA tensor each kernel wrapper launches its kernel or raises; only a
+CPU tensor takes the plain PyTorch version.
 
 TF32 is turned off here: the quadratic form feeds the weights, and TF32
 would cost about three digits there.
@@ -23,14 +29,28 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from cusmc_tpu_torch.api import run  # noqa: E402
+from cusmc_tpu_torch.api import (  # noqa: E402
+    MVN,
+    MVNPDF,
+    MVT,
+    MVTPDF,
+    metropolis_hastings,
+    run,
+)
 from cusmc_tpu_torch.device import resolve_device  # noqa: E402
+from cusmc_tpu_torch.models.base import CustomSSM  # noqa: E402
 from cusmc_tpu_torch.models.dlm import DLM  # noqa: E402
+from cusmc_tpu_torch.resampling import (  # noqa: E402
+    get_resampler,
+    register_resampler,
+)
 from cusmc_tpu_torch.smc.kalman import kalman_filter  # noqa: E402
 from cusmc_tpu_torch.smc.particle_filter import (  # noqa: E402
     FilterResult,
     bootstrap_filter,
 )
 
-__all__ = ["DLM", "FilterResult", "bootstrap_filter", "kalman_filter",
-           "resolve_device", "run"]
+__all__ = ["CustomSSM", "DLM", "FilterResult", "MVN", "MVNPDF", "MVT",
+           "MVTPDF", "bootstrap_filter", "get_resampler", "kalman_filter",
+           "metropolis_hastings", "register_resampler", "resolve_device",
+           "run"]

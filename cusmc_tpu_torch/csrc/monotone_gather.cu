@@ -18,7 +18,8 @@
 //   a state.
 // - take_columns replaces _take_kernel and its jnp.take fallback (behind
 //   take_columns): out[r, i] = X[r, clip(a[i], 0, n - 1)] for any ancestor
-//   vector, sorted or not.
+//   vector, sorted or not, of a float32 or a bfloat16 X (the TPU package
+//   sends a bfloat16 X to jnp.take).
 //
 // The TPU kernels walk 2048-element cdf or state windows with DMAs and a
 // two-gather lookup because Mosaic's dynamic gather spans one vreg; the
@@ -41,7 +42,9 @@
 // Bound on the card: memory: 4 B of positions and 4 B of ancestors per
 // query, 4 B per cdf element (inverse_cdf_apply adds 2 s d B of state read
 // and written per query for s-byte values: at d = 32 in float32 the gather
-// is 256 of its ~268 B a query).
+// is 256 of its ~268 B a query). take_columns moves 4 + 2 s d B a column;
+// on scattered ancestors each s-byte read still costs a 32-byte sector, so
+// a bfloat16 gather saves only its writes there.
 #include <cuda_bf16.h>
 #include <math.h>
 
@@ -169,16 +172,39 @@ inverse_cdf_apply_kernel(const float* __restrict__ cdf,
   }
 }
 
+// One thread a column of a band of kTakeRows state rows, band b =
+// blockIdx.y: the thread reads its ancestor once, loads the band's values,
+// then stores them (the stores of a row coalesced along i). The blocks of
+// band 0 run before those of band 1 (blockIdx.x varies fastest), so the
+// gather reads one band of X at a time, which scattered ancestors find in
+// the 50 MB L2. A thread walking all d rows of its column spread its reads
+// over the whole of X (64 MB at d = 32 in bfloat16) and took 2.2-2.3x
+// index_select's time there (PERF.md section 6). Bands of 1, 2, 4 and 8
+// rows timed against each other on the H100: 2 was the fastest, or within
+// 1%, on every shape the main paths give the kernel (d = 2, and d = 32 on
+// scattered ancestors); 1 lost on sorted ancestors, 8 on a scattered
+// float32 state at d = 32. T is the state's type, float or, under mixed
+// precision, __nv_bfloat16; the copy is exact.
+constexpr int kTakeRows = 2;
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-take_columns_kernel(const float* __restrict__ X, const int* __restrict__ a,
-                    float* __restrict__ out, long long n, long long m, int d) {
+take_columns_kernel(const T* __restrict__ X, const int* __restrict__ a,
+                    T* __restrict__ out, long long n, long long m, int d) {
   const long long i =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= m) return;
+  const int r0 = blockIdx.y * kTakeRows;
+  const int rows = min(kTakeRows, d - r0);
   const long long col = clip_index(static_cast<long long>(a[i]), n - 1);
-  for (int r = 0; r < d; ++r) {
-    out[static_cast<long long>(r) * m + i] =
-        X[static_cast<long long>(r) * n + col];
+  T v[kTakeRows];
+#pragma unroll
+  for (int k = 0; k < kTakeRows; ++k) {
+    if (k < rows) v[k] = X[static_cast<long long>(r0 + k) * n + col];
+  }
+#pragma unroll
+  for (int k = 0; k < kTakeRows; ++k) {
+    if (k < rows) out[static_cast<long long>(r0 + k) * m + i] = v[k];
   }
 }
 
@@ -231,11 +257,21 @@ CUSMC_EXPORT int cusmc_inverse_cdf_search(const float* cdf, const float* pos,
   return static_cast<int>(cudaGetLastError());
 }
 
-// X [d, n] f32 and a [m] int32 (contiguous) -> out [d, m] f32.
-CUSMC_EXPORT int cusmc_take_columns(const float* X, const int* a, float* out,
-                                    long long n, long long m, int d,
+// X [d, n] (f32, or bf16 when bf16 != 0) and a [m] int32 (contiguous) ->
+// out [d, m] of X's type.
+CUSMC_EXPORT int cusmc_take_columns(const void* X, const int* a, void* out,
+                                    long long n, long long m, int d, int bf16,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  take_columns_kernel<<<blocks_for(m), kThreads, 0, s>>>(X, a, out, n, m, d);
+  const dim3 grid(blocks_for(m),
+                  static_cast<unsigned>((d + kTakeRows - 1) / kTakeRows));
+  if (bf16) {
+    take_columns_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(X), a,
+        static_cast<__nv_bfloat16*>(out), n, m, d);
+  } else {
+    take_columns_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(X), a, static_cast<float*>(out), n, m, d);
+  }
   return static_cast<int>(cudaGetLastError());
 }

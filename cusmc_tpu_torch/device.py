@@ -10,8 +10,9 @@ the tests pass ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -31,6 +32,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r}")
     return dev
+
+
+def as_tensor(a, dtype: Optional[torch.dtype] = None,
+              device: DeviceLike = None) -> torch.Tensor:
+    """An entry point's array argument as a tensor. A tensor keeps its
+    device (unless ``device`` names one) and its dtype (unless ``dtype``
+    does); anything else goes to ``resolve_device(device)``, as float32
+    when ``dtype`` is None, the JAX package's default type."""
+    if isinstance(a, torch.Tensor):
+        dev = a.device if device is None else resolve_device(device)
+        return a.to(device=dev, dtype=dtype or a.dtype)
+    return torch.as_tensor(np.asarray(a), dtype=dtype or torch.float32,
+                           device=resolve_device(device))
 
 
 def make_generator(key: KeyLike, device: torch.device) -> torch.Generator:

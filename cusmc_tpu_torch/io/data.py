@@ -1,11 +1,16 @@
 """Bundled demo dataset and CSV IO.
 
-Port of ``cusmc_tpu/io/data.py:28-123`` (``demo_model_params``,
-``load_csv``, ``load_y_sim``, ``write_output``) in plain numpy. The bundled
-1001-step trace is read by file path from the JAX package's data directory
+Port of ``cusmc_tpu/io/data.py`` (``demo_model_params``,
+``generate_y_sim``, ``load_csv``, ``load_y_sim``, ``write_sim_output``,
+``write_output``) in plain numpy, the files byte for byte the JAX
+package's given the same arrays. The bundled 1001-step trace is read by
+file path from the JAX package's data directory
 (``cusmc_tpu/io/_data/y_sim.csv``): it is neither copied nor regenerated
-here, and ``cusmc_tpu`` is not imported. The native C++ CSV parser is not
-used.
+here (a missing file raises), and ``cusmc_tpu`` is not imported. So
+``generate_y_sim`` takes the file to write as a required argument; its
+trace comes from ``DLM.simulate`` on a ``torch.Generator`` (Philox), the
+same law as the bundled one but other numbers. The native C++ CSV parser
+is not used.
 """
 
 from __future__ import annotations
@@ -39,6 +44,35 @@ def demo_model_params(d: int = 2, dtype=np.float64) -> dict:
     )
 
 
+def _host(a) -> np.ndarray:
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def generate_y_sim(path, num_steps: int = 1001, seed: int = 0,
+                   device=None) -> np.ndarray:
+    """Simulate the demo DLM (MVN, float32) for ``num_steps`` steps on
+    ``device`` (None: the card) and write its observations to ``path`` in
+    the bundled trace's format: header ``y0,y1``, a zero first row,
+    ``%.6g``. Returns them [T, 2]."""
+    import torch
+
+    from cusmc_tpu_torch.models.dlm import DLM
+
+    model = DLM.create(noise="mvn", dtype=torch.float32, device=device,
+                       **demo_model_params())
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    _, ys = model.simulate(gen, num_steps)
+    ys = _host(ys)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    header = ",".join(f"y{j}" for j in range(ys.shape[1]))
+    np.savetxt(path, ys, delimiter=",", header=header, comments="",
+               fmt="%.6g")
+    return ys
+
+
 def load_csv(path) -> np.ndarray:
     """Load a headered CSV of floats -> [rows, cols] float64 array."""
     return np.genfromtxt(path, delimiter=",", skip_header=1, dtype=np.float64)
@@ -53,15 +87,27 @@ def load_y_sim(path: Optional[str] = None) -> np.ndarray:
     return load_csv(path)
 
 
-def write_output(out_dir: str, ys: np.ndarray, weights: np.ndarray,
-                 posterior_x: np.ndarray, p: int = 0) -> None:
+def write_sim_output(out_dir: str, prior_x, ys, weights, posterior_x,
+                     p: int = 0) -> None:
+    """Export a simulated run's traces: ``prior_x_t.csv`` (the latent
+    path, header ``x0,x1,...``) and the files of ``write_output``."""
+    os.makedirs(out_dir, exist_ok=True)
+    prior_x = _host(prior_x)
+    header = ",".join(f"x{j}" for j in range(prior_x.shape[1]))
+    np.savetxt(os.path.join(out_dir, "prior_x_t.csv"), prior_x,
+               delimiter=",", header=header, comments="", fmt="%.6g")
+    write_output(out_dir, ys, weights, posterior_x, p)
+
+
+def write_output(out_dir: str, ys, weights, posterior_x,
+                 p: int = 0) -> None:
     """Export run results: ``y_t.csv`` (observations) and ``x_t_N{p}.csv``
     with columns ``w,x...`` = first-particle weight then particle p's
-    state per step."""
+    state per step. Arrays or tensors (on any device)."""
     os.makedirs(out_dir, exist_ok=True)
-    ys = np.asarray(ys)
-    weights = np.asarray(weights)
-    posterior_x = np.asarray(posterior_x)
+    ys = _host(ys)
+    weights = _host(weights)
+    posterior_x = _host(posterior_x)
     d = ys.shape[1]
     header = ",".join(f"y{j}" for j in range(d))
     np.savetxt(os.path.join(out_dir, "y_t.csv"), ys, delimiter=",",

@@ -2,8 +2,10 @@
 
 Port of ``cusmc_tpu/models/dlm.py``: ``DLM.create`` (``:57-100``, with
 the ``df_int`` dispatch at ``:80-87``), the packed [d, N] methods
-(``:155-207``), ``sample_initial``/``propagate`` (``:112-120``) and
-``simulate`` (``:219-239``)::
+(``:155-207``), the batch [N, d] methods of the model protocol
+(``sample_initial``, ``propagate``, ``propagate_mean``,
+``lookahead_logpdf``, ``observation_logpdf``, ``sample_observation``,
+``:112-146, 211-217``) and ``simulate`` (``:219-239``)::
 
     x_0 ~ Dist(m0, C0)
     x_t = G x_{t-1} + w_t,  w_t ~ Dist(0, W)
@@ -17,7 +19,10 @@ every step.
 Randomness: every sampling method takes a ``torch.Generator``. The packed
 methods also take ``noise=``, the draws of ``packed_noise``, so that tests
 can hand them the numbers JAX drew (``_sample_packed`` splits its key as
-``kz, kg``: z from ``kz``, the chi-square draws from ``kg``).
+``kz, kg``: z from ``kz``, the chi-square draws from ``kg``). The batch
+methods take ``noise=(z,)`` or ``(z, g)`` with ``g`` the chi-square
+variates themselves, since the JAX batch sampler draws them with
+``jax.random.gamma``, which the port does not reproduce.
 
 Mixed precision (``create(state_dtype=torch.bfloat16)``, ``:58-99``): the
 particle state and the transition factors (``F``, ``G``, ``m0``,
@@ -41,8 +46,8 @@ import torch
 from torch import nn
 
 from cusmc_tpu_torch.device import resolve_device
-from cusmc_tpu_torch.distributions.mvn import mvn_sample
-from cusmc_tpu_torch.distributions.mvt import mvt_sample
+from cusmc_tpu_torch.distributions.mvn import mvn_logpdf, mvn_sample
+from cusmc_tpu_torch.distributions.mvt import mvt_logpdf, mvt_sample
 from cusmc_tpu_torch.ops.packed import matvec, quadform
 from cusmc_tpu_torch.ops.random import chi2_draws, chi2_transform, \
     integer_df, normal
@@ -166,24 +171,57 @@ class DLM(nn.Module):
     def state_dtype(self) -> torch.dtype:
         return self.G.dtype
 
-    # -- batch layout (x as [..., d]): what ``simulate`` needs ------------
+    # -- batch layout (x as [..., d]) -------------------------------------
 
-    def sample_initial(self, gen: Optional[torch.Generator],
-                       shape: tuple) -> torch.Tensor:
+    def sample_initial(self, gen: Optional[torch.Generator], shape: tuple,
+                       noise: Optional[tuple] = None) -> torch.Tensor:
         """x_0 draws, ``shape + (d,)``."""
-        return self._sample(gen, self.m0, self.C0_sqrt, shape)
+        return self._sample(gen, self.m0, self.C0_sqrt, shape, noise)
 
-    def propagate(self, gen: Optional[torch.Generator],
-                  x_prev: torch.Tensor) -> torch.Tensor:
+    def propagate(self, gen: Optional[torch.Generator], x_prev: torch.Tensor,
+                  noise: Optional[tuple] = None) -> torch.Tensor:
         """x_t | x_{t-1} for a batch [..., d]: G x plus Dist(0, W)."""
-        mean = matvec(x_prev, self.G.T)
-        return self._sample(gen, mean, self.W_sqrt, x_prev.shape[:-1])
+        return self._sample(gen, self.propagate_mean(x_prev), self.W_sqrt,
+                            x_prev.shape[:-1], noise)
 
-    def _sample(self, gen, mean, scale, shape):
+    def propagate_mean(self, x_prev: torch.Tensor) -> torch.Tensor:
+        """E[x_t | x_{t-1}] = G x, the auxiliary filter's lookahead point."""
+        return matvec(x_prev, self.G.T)
+
+    def lookahead_logpdf(self, y: torch.Tensor,
+                         x_prev: torch.Tensor) -> torch.Tensor:
+        """The predictive log p(y_t | x_{t-1}) = N(y; F G x, F W F' + V):
+        exact for MVN noise, a Gaussian lookahead for MVT."""
+        FW = matvec(self.F, self.W_sqrt)
+        pred_cov = matvec(matvec(FW, self.W_sqrt.T), self.F.T) \
+            + self.V_chol @ self.V_chol.T
+        chol = torch.linalg.cholesky(pred_cov)
+        return mvn_logpdf(y - matvec(self.propagate_mean(x_prev), self.F.T),
+                          0.0, chol)
+
+    def observation_logpdf(self, y: torch.Tensor,
+                           x: torch.Tensor) -> torch.Tensor:
+        """log p(y | x) = log Dist(y - F x; 0, V) for x [..., d], ``F x``
+        taken in the weight dtype whatever the state dtype."""
+        resid = y - matvec(x, self.F.T, out_dtype=self.V_chol.dtype)
+        if self.noise == "mvt":
+            return mvt_logpdf(resid, 0.0, self.V_chol, self.df_value)
+        return mvn_logpdf(resid, 0.0, self.V_chol)
+
+    def sample_observation(self, gen: Optional[torch.Generator],
+                           x: torch.Tensor,
+                           noise: Optional[tuple] = None) -> torch.Tensor:
+        """y | x ~ Dist(F x, V) for x [..., d] -> [..., k]."""
+        zero_k = torch.zeros(self.obs_dim, dtype=x.dtype, device=x.device)
+        return matvec(x, self.F.T) + self._sample(gen, zero_k, self.V_chol,
+                                                  x.shape[:-1], noise)
+
+    def _sample(self, gen, mean, scale, shape, noise=None):
         if self.noise == "mvt":
             return mvt_sample(gen, mean, scale, self.df_value, shape,
-                              self.per_dim_chi)
-        return mvn_sample(gen, mean, scale, shape)
+                              self.per_dim_chi, noise)
+        return mvn_sample(gen, mean, scale, shape,
+                          None if noise is None else noise[0])
 
     # -- packed [d, N] layout: the filter's hot path ----------------------
 
@@ -255,11 +293,9 @@ class DLM(nn.Module):
         xs = [x]
         ys = [torch.zeros(self.obs_dim, dtype=self.V_chol.dtype,
                           device=x.device)]
-        zero_k = torch.zeros(self.obs_dim, dtype=x.dtype, device=x.device)
         for _ in range(num_steps - 1):
             x = self.propagate(gen, x)
-            y = matvec(x, self.F.T) + self._sample(gen, zero_k,
-                                                   self.V_chol, ())
+            y = self.sample_observation(gen, x)
             xs.append(x)
             ys.append(y)
         return torch.stack(xs), torch.stack(ys)

@@ -59,8 +59,8 @@ SIGNATURES = {
     # cdf, pos, X, out, anc, n, nq, nloc, base, d, bf16, stream
     "cusmc_inverse_cdf_apply": (_P,) * 5 + (_LL,) * 4 + (_I, _I, _P),
     "cusmc_inverse_cdf_search": (_P, _P, _P, _LL, _LL, _P),
-    # X, a, out, n, m, d, stream
-    "cusmc_take_columns": (_P, _P, _P, _LL, _LL, _I, _P),
+    # X, a, out, n, m, d, bf16, stream
+    "cusmc_take_columns": (_P, _P, _P, _LL, _LL, _I, _I, _P),
     # w, shifts, u, X, out, anc, n, num_sweeps, d, bf16, stream
     "cusmc_roll_metropolis": (_P,) * 6 + (_LL, _I, _I, _I, _P),
     # X, logw, y, G, Q, F, Li, s, seed, Xo, ll, anc, n, tile, d, k,

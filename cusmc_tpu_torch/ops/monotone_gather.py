@@ -11,12 +11,14 @@ tensor each launches its kernel in ``csrc/monotone_gather.cu``: for
 most ``SEARCH_WINDOW`` floats of the stretch of the cdf between their
 smallest and largest (``csrc/common.cuh``; ``window_fit_share`` says how
 many blocks' stretches fit), ``inverse_cdf_apply`` then gathering each
-query's d values; for ``take_columns`` one thread per output column. On a
+query's d values; for ``take_columns`` one thread per output column and
+band of 2 state rows, the bands in order. On a
 CPU tensor each takes its plain version, ``torch.searchsorted``,
-``index_select`` and a clip. ``inverse_cdf_apply`` gathers a float32 or a
-bfloat16 (mixed-precision) state, in both modes, through the same kernel;
-the JAX wrapper sends a bfloat16 state to XLA's gather
-(``cusmc_tpu/ops/monotone_gather.py:96-102``), which the port does not.
+``index_select`` and a clip. ``inverse_cdf_apply`` (in both modes) and
+``take_columns`` gather a float32 or a bfloat16 (mixed-precision) state
+through the same kernel; the JAX wrappers send a bfloat16 state to XLA's
+gather (``cusmc_tpu/ops/monotone_gather.py:96-102``), which the port does
+not.
 
 The JAX wrappers' coarse placement (an argsort over the 128-strided cdf),
 merge-path windows and ``take_columns``' runtime monotonicity check are TPU
@@ -25,7 +27,8 @@ any query or ancestor order (order costs speed only). Each wrapper counts
 its kernel launches in ``.launches``; ``inverse_cdf_apply`` counts
 local-block launches apart, in ``.local_launches``, and launches on a
 bfloat16 state apart again, in ``.bf16_launches`` (global mode) and
-``.bf16_local_launches``.
+``.bf16_local_launches``; ``take_columns`` counts them in
+``.bf16_launches``.
 """
 
 from __future__ import annotations
@@ -126,28 +129,39 @@ def inverse_cdf_search(cdf: torch.Tensor,
     return a
 
 
+TAKE_MAX_ROWS = 2 * 65535  # two rows a band, one grid row a band
+
+
 def take_columns(X: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """``X[:, a]`` [d, M] for X [d, n] and int32 ancestors ``a`` [M] in
     any order. An index outside [0, n) is clipped to it, in the kernel and
     in the plain version alike; callers clip first. CUDA: the kernel
-    (float32, contiguous); CPU: the plain version."""
+    (a float32 or bfloat16 X, contiguous; launches on a bfloat16 X count
+    in ``.bf16_launches``); CPU: the plain version."""
     if not is_cuda(X, "take_columns"):
         return take_columns_plain(X, a)
     dev = X.device
-    kernels.require(X, "X", torch.float32, 2, dev)
+    bf16 = kernels.require_state(X, "X", dev)
     kernels.require(a, "a", torch.int32, 1, dev)
     d, n = X.shape
     if n < 1:
         raise ValueError("take_columns needs a source of n >= 1 columns")
+    if d > TAKE_MAX_ROWS:
+        raise ValueError(f"take_columns takes at most {TAKE_MAX_ROWS} rows "
+                         f"(the kernel's grid has one y-block a band of 2 "
+                         f"rows), got {d}")
     m = a.shape[0]
     out = torch.empty((d, m), dtype=X.dtype, device=dev)
     if m == 0 or d == 0:
         return out
     rc = kernels.library().cusmc_take_columns(
-        X.data_ptr(), a.data_ptr(), out.data_ptr(), n, m, d,
+        X.data_ptr(), a.data_ptr(), out.data_ptr(), n, m, d, bf16,
         kernels.stream_of(X))
     kernels.check(rc, "take_columns")
-    take_columns.launches += 1
+    if bf16:
+        take_columns.bf16_launches += 1
+    else:
+        take_columns.launches += 1
     return out
 
 
@@ -206,6 +220,7 @@ def inverse_cdf_apply(cdf: torch.Tensor, positions: torch.Tensor,
 
 inverse_cdf_search.launches = 0
 take_columns.launches = 0
+take_columns.bf16_launches = 0
 inverse_cdf_apply.launches = 0
 inverse_cdf_apply.local_launches = 0
 inverse_cdf_apply.bf16_launches = 0

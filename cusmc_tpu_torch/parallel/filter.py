@@ -2,12 +2,14 @@
 
 Port of ``cusmc_tpu/parallel/filter.py:34-116``. Each rank runs
 ``smc/particle_filter.bootstrap_filter`` on its block of L = N / P
-particles with an injected exp-space resample op of
-``parallel/resampling.py``: the ring exchange for the CDF family and
-residual, the global-proposal roll exchange for metropolis. The step is the
-single-device step; only the op and the axis differ. There is no
-``shard_map`` around it: every rank calls this function with the same
-arguments, as SPMD programs do.
+particles with an injected resample op of ``parallel/resampling.py``: in
+the packed layout an exp-space op, the ring exchange for the CDF family
+and residual, the global-proposal roll exchange for metropolis; for a
+model without packed methods (a ``models.base.CustomSSM``), the batch
+layout and the all-gather op over log weights (``:80-85``; O(N d) state
+memory a rank). The step is the single-device step; only the op and the
+axis differ. There is no ``shard_map`` around it: every rank calls this
+function with the same arguments, as SPMD programs do.
 """
 
 from __future__ import annotations
@@ -16,8 +18,10 @@ from typing import Optional
 
 import torch
 
+from cusmc_tpu_torch.models.base import supports_packed
 from cusmc_tpu_torch.parallel.mesh import axis_size
 from cusmc_tpu_torch.parallel.resampling import (
+    allgather_resample_op,
     ring_cdf_resample_op,
     roll_metropolis_sharded_op,
 )
@@ -28,23 +32,26 @@ def sharded_bootstrap_filter(key, model, ys, num_particles: int, axis=None,
                              resampler: str = "systematic",
                              resampler_kwargs: Optional[dict] = None,
                              ess_threshold: Optional[float] = None,
-                             return_history: bool = False):
+                             return_history: bool = False, device=None):
     """Run the filter with ``num_particles`` (N) particles sharded over
     ``axis`` (a ``parallel.mesh.ParticleAxis``; None: one shard).
 
     ``key`` is an int seed, the same on every rank. ``resampler``:
     "systematic", "stratified", "multinomial", "residual" or "metropolis"
     (``resampler_kwargs``: ``num_steps`` and ``exchange`` "global",
-    "binary" or "windowed"; the ring's ``ring_window``). Runs on the
-    model's device. Returns this rank's ``FilterResult``: the particles
-    and weights of its block, ancestors in global indices, and the ESS and
-    log-evidence, the same on every rank. Default ``return_history=False``:
-    at the scales that need sharding the [T, L, d] history dominates
-    device memory.
+    "binary" or "windowed"; the ring's ``ring_window``). Metropolis takes
+    the packed layout; the other resamplers take it when the model has
+    packed methods, else the batch layout. Runs on the model's device, or
+    for a model without one (a ``CustomSSM``) on ``device`` (None: the
+    card), as ``bootstrap_filter`` does. Returns this
+    rank's ``FilterResult``: the particles and weights of its block,
+    ancestors in global indices, and the ESS and log-evidence, the same on
+    every rank. Default ``return_history=False``: at the scales that need
+    sharding the [T, L, d] history dominates device memory.
 
-    A mixed-precision model (a bfloat16 state) is refused: the sharded
-    resample ops and the take-columns kernel are float32 only (ROADMAP
-    queue 1, "the sharded filter in bfloat16")."""
+    A mixed-precision model (a bfloat16 state) is refused: the ring and
+    roll exchanges are float32 only (ROADMAP queue 1, "the sharded filter
+    in bfloat16")."""
     if getattr(model, "state_dtype", torch.float32) != torch.float32:
         raise NotImplementedError(
             "the sharded filter with a bfloat16 state is not ported yet "
@@ -55,14 +62,19 @@ def sharded_bootstrap_filter(key, model, ys, num_particles: int, axis=None,
                          f"by the {n_shards} ranks of the particle axis")
     n_local = num_particles // n_shards
     kwargs = resampler_kwargs or {}
+    layout, weights = "packed", "exp"
     if resampler == "metropolis":
         op = roll_metropolis_sharded_op(axis, num_particles, n_local,
                                         weights="exp", **kwargs)
-    else:
+    elif supports_packed(model):
         op = ring_cdf_resample_op(resampler, axis, num_particles, n_local,
                                   weights="exp", **kwargs)
+    else:
+        layout, weights = "batch", "log"
+        op = allgather_resample_op(resampler, axis, num_particles, n_local,
+                                   **kwargs)
     return particle_filter.bootstrap_filter(
         key, model, ys, n_local, ess_threshold=ess_threshold,
-        return_history=return_history, axis_name=axis,
+        return_history=return_history, layout=layout, axis_name=axis,
         num_particles_global=num_particles, resample_op=op,
-        resample_op_weights="exp")
+        resample_op_weights=weights, device=device)

@@ -4,9 +4,11 @@ al., arXiv:1202.6163).
 Port of ``cusmc_tpu/resampling/metropolis.py:26-43``: each particle i runs
 a B-step Metropolis chain over ancestor indices, proposing a uniform
 random index j per chain and sweep and accepting it over the current k
-when ``log u < logw[j] - logw[k]``. It reaches no kernel: it is the
-reference law the fused step's offspring check compares against
-(``benchmarks/validate_fused_tpu.py:58-78``).
+when ``log u < logw[j] - logw[k]``. It reaches no kernel itself: it is the
+registry's "metropolis" (``resampling.get_resampler``) and the reference
+law the fused step's offspring check compares against
+(``benchmarks/validate_fused_tpu.py:58-78``). Under another registry key in
+the packed layout, its ancestors (in any order) feed ``take_columns``.
 
 As elsewhere in the port the draws and the transform are split, so a test
 can replay JAX's per-sweep ``(j, u)`` (``kj, ku = split(fold_in(key, b))``).
@@ -41,12 +43,13 @@ def metropolis_from_draws(log_weights: torch.Tensor, j: torch.Tensor,
 
 
 def metropolis_ancestors(gen: Optional[torch.Generator],
-                         log_weights: torch.Tensor,
-                         num_steps: int = 10) -> torch.Tensor:
+                         log_weights: torch.Tensor, num_steps: int = 10,
+                         j: Optional[torch.Tensor] = None,
+                         u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Ancestor indices [n] int32 via B-step Metropolis chains;
-    ``log_weights`` may be unnormalised."""
-    n = log_weights.shape[0]
-    return metropolis_from_draws(
-        log_weights, *metropolis_draws(gen, n, num_steps,
-                                       log_weights.device,
-                                       log_weights.dtype))
+    ``log_weights`` may be unnormalised. ``j`` and ``u`` (both or
+    neither): the draws of ``metropolis_draws``, in place of drawing."""
+    if j is None:
+        j, u = metropolis_draws(gen, log_weights.shape[0], num_steps,
+                                log_weights.device, log_weights.dtype)
+    return metropolis_from_draws(log_weights, j, u)

@@ -19,16 +19,26 @@ a 0/0 pair rejects). ``jnp.roll(w, -s)[i] == w[(i + s) mod N]``.
   both on the run's Generator, mirroring ``rolls.py:66-73``.
 - ``auto_num_steps`` is the ESS bucket of ``num_steps="auto"``
   (``rolls.py:120-157``): B, ceil(B/2) or ceil(B/4) sweeps.
+- ``roll_metropolis_sweeps`` takes log weights (``rolls.py:40-54``): it
+  exponentiates ``logw - max(logw)`` and runs the same kernel, so its
+  accept decisions equal the exp-space walk's up to that rounding.
+  ``roll_metropolis_resample_op`` (``:160-175``) is the generic filter
+  step's packed metropolis op, ``num_steps="auto"`` included.
+- ``systematic_ancestors_sortfree`` (``:178-195``) is systematic
+  resampling; its rank-by-merge is a TPU workaround for ``searchsorted``,
+  so the port searches, as ``classic.systematic_ancestors`` does.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
 from cusmc_tpu_torch.device import is_cuda
 from cusmc_tpu_torch.ops import kernels
+from cusmc_tpu_torch.resampling.classic import systematic_ancestors
 
 MAX_SWEEPS = 4096  # the kernel keeps the shifts in shared memory
 
@@ -153,3 +163,53 @@ def auto_num_steps(w: torch.Tensor, num_steps: int = 10) -> int:
                     reverse=True)
     idx = int(ratio > 0.5) + int(ratio > 0.75)
     return counts[min(idx, len(counts) - 1)]
+
+
+def roll_metropolis_sweeps(logw: torch.Tensor, shifts: torch.Tensor,
+                           u: torch.Tensor, X: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``roll_metropolis_sweeps_expspace`` from unnormalised log weights:
+    ``w = exp(logw - max(logw))``, the shift keeping exp in range (the
+    ratios are shift-invariant)."""
+    return roll_metropolis_sweeps_expspace(torch.exp(logw - torch.max(logw)),
+                                           shifts, u, X)
+
+
+class RollMetropolisResampleOp:
+    """The packed-layout op of the generic filter step:
+    ``draw(streams, logw)`` makes ``(shifts, u)`` from ``streams.rank``
+    (B sweeps, or the ESS bucket of ``num_steps="auto"`` over base 10);
+    ``op(X, logw, draws) -> (X[:, a], uniform log weights -log N, a)``."""
+
+    def __init__(self, num_steps=10, num_particles: Optional[int] = None):
+        self.num_steps = num_steps
+        self.num_particles = num_particles
+
+    def draw(self, streams, logw: torch.Tensor):
+        n = logw.shape[-1]
+        b = self.num_steps
+        if b == "auto":
+            b = auto_num_steps(torch.exp(logw - torch.max(logw)))
+        return roll_metropolis_draws(streams.rank, n, b, logw.device,
+                                     logw.dtype)
+
+    def __call__(self, X: torch.Tensor, logw: torch.Tensor, draws):
+        n = logw.shape[-1]
+        x_anc, a = roll_metropolis_sweeps(logw, *draws, X)
+        return x_anc, torch.full((n,), -math.log(self.num_particles or n),
+                                 dtype=logw.dtype, device=logw.device), a
+
+
+def roll_metropolis_resample_op(num_steps=10, num_particles: Optional[int]
+                                = None) -> RollMetropolisResampleOp:
+    """The packed metropolis op (see ``RollMetropolisResampleOp``)."""
+    return RollMetropolisResampleOp(num_steps, num_particles)
+
+
+def systematic_ancestors_sortfree(gen: Optional[torch.Generator],
+                                  log_weights: torch.Tensor,
+                                  u: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """Systematic ancestors [N] int32: #{cdf <= (i + u) / N}, clipped to
+    N-1, as the JAX rank-by-merge computes them (``u``: the offset)."""
+    return systematic_ancestors(gen, log_weights, u)

@@ -1,16 +1,18 @@
-"""Bootstrap particle filter: the packed exp-space path, one shard or many.
+"""Bootstrap particle filter: the packed exp-space path, the generic
+log-space step, the fused engines, one shard or many.
 
 Port of ``cusmc_tpu/smc/particle_filter.py``: ``FilterResult`` (``:47``),
-``_fast_exp_step_factory`` (``:158-275``, always-resample and
-ESS-adaptive, on one shard or over a particle axis),
-``packed_exp_resample_op`` (``:278-334``, metropolis with
+``_step_factory`` (``:66-155``, the generic step), ``_fast_exp_step_factory``
+(``:158-275``, always-resample and ESS-adaptive, on one shard or over a
+particle axis), ``packed_exp_resample_op`` (``:278-334``, metropolis with
 ``num_steps="auto"``, the ``POSITION_FNS`` family and residual),
-``_residual_resample_packed`` (``:417-463``) and the packed path of
-``bootstrap_filter`` (``:604-839``). The T-step ``lax.scan`` becomes a
-Python loop; tensors stay on the model's device and the always-resample
-loop reads nothing back to the host.
+``_residual_resample_packed`` (``:417-463``), ``local_resample_op`` and
+``packed_resample_op`` (``:466-535``) and ``bootstrap_filter`` (``:604-839``,
+its layout and engine checks line by line). The T-step ``lax.scan``
+becomes a Python loop; tensors stay on the model's device and the
+always-resample fast loop reads nothing back to the host.
 
-Each step resamples, propagates and reweights, carrying max-normalised
+The fast step resamples, propagates and reweights, carrying max-normalised
 exp-space weights ``w`` instead of log weights (see the JAX docstring for
 the evidence algebra and the 88-nat flush of exp-space weights, which the
 port shares). The resample goes through the hand-written kernels on a CUDA
@@ -19,20 +21,41 @@ device: ``ops/cumsum.blocked_cumsum`` and
 step) for residual, ``resampling/rolls.roll_metropolis_sweeps_expspace``
 for metropolis.
 
+The generic step carries normalised log weights and resamples through an
+op object (``draw(streams, logw)``, then ``op(x, logw, draws) -> (x_anc,
+logw_after, a)``). It serves everything outside the fast path, as in the
+JAX package: ``layout="batch"`` (the registry's ancestor functions and a
+row gather, plain torch, ``local_resample_op``), models without packed
+methods (``models.base.CustomSSM``; ``layout="auto"`` picks "batch" for
+them and for an injected ``resample_op``), injected log-space ops,
+``debug_checks=True`` (a weight guard that prints, one host read a step)
+and, in the packed layout, ``packed_resample_op``: the roll kernel on
+``exp(logw - max)`` for metropolis, the cumsum and the search-and-apply
+kernels on the softmax for the CDF family and residual, and the
+take-columns kernel after the registry's ancestor function for any other
+key. Its results stay in the chosen layout: batch particles are [T, N, d]
+as drawn. Model hooks that declare a parameter ``t`` (time-varying models)
+receive the step, 1..T-1, in both steps (``models.base.normalize_time_hook``).
+
 Randomness on one shard comes from one ``torch.Generator``, drawn in a
 fixed order: the initial cloud, then per step the resample draws (when it
-resamples) and the propagation noise. A step can instead be handed
-``draws=(resample draws, noise)``, which is how the tests replay JAX's
-numbers.
+resamples) and the propagation noise; both steps draw alike, so the fast
+and the generic metropolis paths draw the same numbers. A step can instead
+be handed ``draws=(resample draws, noise)``, which is how the tests replay
+JAX's numbers (a registry resampler's draws are the keyword arguments of
+its ancestor function, e.g. ``{"u": u}``).
 
 The sharded filter (``axis_name``, a ``parallel.mesh.ParticleAxis``) runs
-this same step on each rank's block of ``num_particles`` of
-``num_particles_global`` particles, with an injected exp-space resample op
-of ``parallel/resampling.py``: the weight sums are all-reduced (``psum``,
-``pmax``), the resample decision of the ESS-adaptive step comes from the
-reduced ESS (so every rank takes the same branch), ancestors are global,
-and each rank draws from the two streams of ``parallel.mesh`` (the rank
-stream for its initial cloud and noise).
+these same steps on each rank's block of ``num_particles`` of
+``num_particles_global`` particles, with an injected op of
+``parallel/resampling.py`` (exp-space ops in the packed layout, the
+all-gather op with log weights in the batch layout): the weight sums are
+all-reduced (``psum``, ``pmax``), the resample decision of the
+ESS-adaptive step comes from the reduced ESS (so every rank takes the same
+branch), ancestors are global, and each rank draws from the two streams of
+``parallel.mesh`` (the rank stream for its initial cloud and noise).
+Without an injected op, a sharded run resamples each shard locally, as the
+JAX package does.
 
 ``engine="pallas"`` (``:538-601``, ``:337-414``, ``:662-793``) runs one
 fused kernel per step: ``ops/fused_step`` (windowed Metropolis; the step
@@ -41,19 +64,16 @@ stratified; the step carries exp-space weights and runs ``blocked_cumsum``
 first). Their draws per step are ``(s, seed)`` or ``(u, seed)``, and the
 kernels make their own noise. ``engine="xla"`` is the composed path above,
 and ``"auto"`` always takes it: the windowed proposal is biased at finite
-B and the fused CDF step was never faster on the TPU (``:680-716``).
-``pallas_interpret`` is TPU-only and not ported: on a CPU tensor the fused
-ops run their plain versions.
+B and the fused CDF step was never faster on the TPU (``:680-716``). As in
+the JAX package, the fused Metropolis step ignores ``debug_checks`` and the
+fused CDF step refuses it. ``pallas_interpret`` is TPU-only and not
+ported: on a CPU tensor the fused ops run their plain versions.
 
 Mixed precision (a DLM with ``state_dtype=torch.bfloat16``): the state,
 its history and the resample's gathers are bfloat16; the weights, ESS,
 evidence and log-likelihoods stay float32 (``:776-777``). Both engines
 take it for metropolis, and ``engine="xla"`` for every resampler; the
 fused CDF step refuses it, as in the JAX package.
-
-Not ported yet (``NotImplementedError``, see ROADMAP queue 1):
-``layout="batch"``, injected log-space ``resample_op``s (the registry path
-``packed_resample_op``) and ``debug_checks``.
 """
 
 from __future__ import annotations
@@ -69,7 +89,7 @@ from cusmc_tpu_torch.diagnostics.metrics import (
     effective_sample_size,
     log_normalize,
 )
-from cusmc_tpu_torch.models.base import supports_packed
+from cusmc_tpu_torch.models.base import normalize_time_hook, supports_packed
 from cusmc_tpu_torch.models.dlm import DLM
 from cusmc_tpu_torch.ops.cumsum import blocked_cumsum
 from cusmc_tpu_torch.ops.fused_cdf_step import (
@@ -84,7 +104,8 @@ from cusmc_tpu_torch.ops.fused_step import (
     fused_filter_step,
     fused_filter_step_draws,
 )
-from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply
+from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
+    take_columns
 from cusmc_tpu_torch.parallel.mesh import (
     Streams,
     global_slots,
@@ -98,11 +119,14 @@ from cusmc_tpu_torch.resampling.classic import (
     residual_draws,
     roll_right,
 )
+from cusmc_tpu_torch.resampling import get_resampler
 from cusmc_tpu_torch.resampling.rolls import (
     auto_num_steps,
     roll_metropolis_draws,
+    roll_metropolis_resample_op,
     roll_metropolis_sweeps_expspace,
 )
+from cusmc_tpu_torch.utils.debug import assert_finite_weights
 
 
 @dataclass
@@ -204,19 +228,148 @@ def _residual_resample_packed(X: torch.Tensor, nw: torch.Tensor,
     return x_anc, a
 
 
+def _ancestors(fn: Callable, logw: torch.Tensor, draws) -> torch.Tensor:
+    """A registry resampler's ancestors: ``draws`` is the generator it
+    draws from, or the keyword arguments of its draws (a replay)."""
+    if isinstance(draws, dict):
+        return fn(None, logw, **draws)
+    return fn(draws, logw)
+
+
+def _uniform_logw(logw: torch.Tensor, n_global: int) -> torch.Tensor:
+    return torch.full(logw.shape, -math.log(n_global), dtype=logw.dtype,
+                      device=logw.device)
+
+
+class LocalResampleOp:
+    """Batch-layout op from a registry resampler ``fn(gen, logw) -> a``:
+    ``(x[a], -log N, a)`` for x [N, d]. Its draws come from the common
+    stream (the JAX step's resample key is common to the shards)."""
+
+    def __init__(self, resampler: Callable, num_particles_global: int):
+        self.fn = resampler
+        self.n = num_particles_global
+
+    def draw(self, streams: Streams, logw: torch.Tensor):
+        return streams.common
+
+    def __call__(self, x: torch.Tensor, logw: torch.Tensor, draws):
+        a = _ancestors(self.fn, logw, draws)
+        return x[a.long()], _uniform_logw(logw, self.n), a
+
+
+def local_resample_op(resampler: Callable,
+                      num_particles_global: int) -> LocalResampleOp:
+    """The batch-layout resample op of a (gen, logw) -> ancestors fn."""
+    return LocalResampleOp(resampler, num_particles_global)
+
+
+class PackedResampleOp:
+    """Packed-layout [d, N] op of the generic step for a registry key other
+    than metropolis: the CDF family (positions of ``POSITION_FNS`` against
+    the blocked cumsum of the softmax, ``inverse_cdf_apply``), residual (N
+    times the softmax into ``_residual_resample_packed``), or any other key
+    (its registry ancestor function, then ``take_columns`` on ancestors in
+    any order). Returns ``(X[:, a], -log N, a)``; draws from the common
+    stream."""
+
+    def __init__(self, name: str, num_particles_global: int, **kwargs):
+        self.name = name
+        self.n = num_particles_global
+        self.fn = (None if name in POSITION_FNS or name == "residual"
+                   else get_resampler(name, **kwargs))
+
+    def draw(self, streams: Streams, logw: torch.Tensor):
+        gen = streams.common
+        if self.fn is not None:
+            return gen
+        wdt = torch.promote_types(logw.dtype, torch.float32)
+        if self.name == "residual":
+            return residual_draws(gen, logw.shape[0], wdt, logw.device)
+        return POSITION_FNS[self.name](gen, logw.shape[0], wdt, logw.device)
+
+    def __call__(self, X: torch.Tensor, logw: torch.Tensor, draws):
+        if self.fn is not None:
+            a = _ancestors(self.fn, logw, draws)
+            return take_columns(X, a), _uniform_logw(logw, self.n), a
+        n = logw.shape[0]
+        p = torch.softmax(logw.to(torch.promote_types(logw.dtype,
+                                                      torch.float32)), 0)
+        if self.name == "residual":
+            x_anc, a = _residual_resample_packed(X, n * p, draws)
+        else:
+            cdf, _ = blocked_cumsum(p)
+            x_anc, a = inverse_cdf_apply(cdf, draws, X)
+        return x_anc, _uniform_logw(logw, self.n), a
+
+
+def packed_resample_op(resampler_name: str, num_particles_global: int,
+                       **kwargs):
+    """The packed-layout log-space op of a registry key: the roll op for
+    metropolis (``resampling/rolls.roll_metropolis_resample_op``), else
+    ``PackedResampleOp``. An unknown key raises ``KeyError``."""
+    if resampler_name == "metropolis":
+        return roll_metropolis_resample_op(
+            num_particles=num_particles_global, **kwargs)
+    return PackedResampleOp(resampler_name, num_particles_global, **kwargs)
+
+
+def _propagate(fn: Callable, x: torch.Tensor, t, streams, draws):
+    """A normalised propagate hook on its own draws (the rank stream) or,
+    given ``draws``, on the replayed noise ``draws[1]``."""
+    if draws is None:
+        return fn(streams.rank, x, t)
+    return fn(None, x, t, noise=draws[1])
+
+
+def _step_factory(propagate_fn: Callable, logpdf_fn: Callable, resample_op,
+                  ess_threshold: Optional[float], n_global: int, axis=None,
+                  debug_checks: bool = False) -> Callable:
+    """The generic log-space step ``step(x, logw, y_t, streams=None,
+    draws=None, t=None) -> (x_new, logw_new, ess, lz_inc, ll, a)``, for
+    any layout: ``x`` is whatever ``propagate_fn`` and ``resample_op``
+    take. An ESS-adaptive step reads its decision back to the host (every
+    rank reads the same all-reduced ESS); skipping keeps ``x``, ``logw``
+    and the identity ancestry in global slots. ``debug_checks`` prints the
+    weight guard (``utils.debug.assert_finite_weights``)."""
+    propagate_fn = normalize_time_hook(propagate_fn, "x")
+    logpdf_fn = normalize_time_hook(logpdf_fn, "y")
+
+    def step(x, logw, y_t, streams=None, draws=None, t=None):
+        ess = effective_sample_size(logw, axis)
+        if ess_threshold is None or bool(ess < ess_threshold * n_global):
+            res_draws = (draws[0] if draws is not None
+                         else resample_op.draw(streams, logw))
+            x_anc, logw_pre, a = resample_op(x, logw, res_draws)
+        else:
+            x_anc, logw_pre = x, logw
+            a = global_slots(logw.shape[0], axis, logw.device)
+        x_new = _propagate(propagate_fn, x_anc, t, streams, draws)
+        ll = logpdf_fn(y_t, x_new, t)
+        logw_new, lz_inc = log_normalize(logw_pre + ll, axis)
+        if debug_checks:
+            assert_finite_weights(logw_new, t)
+        return x_new, logw_new, ess, lz_inc, ll, a
+
+    return step
+
+
 def _fast_exp_step_factory(model, n_global: int, resample_op,
                            ess_threshold: Optional[float],
                            axis=None) -> Callable:
-    """The exp-space step ``step(x, w, y_t, streams=None, draws=None) ->
-    (x_new, w_new, ess, lz_inc, ll, a)``. ESS-adaptive steps read the
-    resample decision back to the host (the JAX ``lax.cond``). ``axis``:
-    the particle axis of a sharded run (the sums and maxima are then
-    all-reduced over it, so every rank computes the same ESS and takes
-    the same branch), None for one shard. ``resample_op(x, w, draws)``
-    returns ``(x_anc, a)`` or ``(x_anc, w_pre, a)``."""
+    """The exp-space step ``step(x, w, y_t, streams=None, draws=None,
+    t=None) -> (x_new, w_new, ess, lz_inc, ll, a)`` over the model's packed
+    methods. ESS-adaptive steps read the resample decision back to the
+    host (the JAX ``lax.cond``). ``axis``: the particle axis of a sharded
+    run (the sums and maxima are then all-reduced over it, so every rank
+    computes the same ESS and takes the same branch), None for one shard.
+    ``resample_op(x, w, draws)`` returns ``(x_anc, a)`` or ``(x_anc, w_pre,
+    a)``."""
     log_n = math.log(n_global)
+    propagate_fn = normalize_time_hook(model.propagate_packed, "x")
+    logpdf_fn = normalize_time_hook(model.observation_logpdf_packed, "y")
 
-    def step(x, w, y_t, streams=None, draws=None):
+    def step(x, w, y_t, streams=None, draws=None, t=None):
         s1 = torch.sum(w)
         s2 = torch.sum(w * w)
         if axis is not None:
@@ -232,10 +385,8 @@ def _fast_exp_step_factory(model, n_global: int, resample_op,
         else:  # identity ancestry, in global indices
             x_anc = x
             a = global_slots(w.shape[0], axis, w.device)
-        noise = draws[1] if draws is not None else None
-        gen = streams.rank if streams is not None else None
-        x_new = model.propagate_packed(gen, x_anc, noise)
-        ll = model.observation_logpdf_packed(y_t, x_new)
+        x_new = _propagate(propagate_fn, x_anc, t, streams, draws)
+        ll = logpdf_fn(y_t, x_new, t)
         m = pmax(torch.max(ll), axis)
         w_new = torch.exp(ll - m)
         if ess_threshold is None:
@@ -271,18 +422,17 @@ def _pallas_step_factory(model: DLM, num_particles: int, tile: int,
                          num_sweeps: int, num_window_tiles: int = 2
                          ) -> Callable:
     """The step around the fused windowed-Metropolis kernel
-    (``ops/fused_step.py``): ``step(x, logw, y_t, streams=None, draws=None)
-    ->
-    (x_new, logw_new, ess, lz_inc, ll, a)``, carrying normalised log
-    weights; ``draws = (s, seed)``. Always resamples, so the evidence
-    increment is ``logsumexp(ll) - log N``."""
+    (``ops/fused_step.py``): ``step(x, logw, y_t, streams=None, draws=None,
+    t=None) -> (x_new, logw_new, ess, lz_inc, ll, a)``, carrying normalised
+    log weights; ``draws = (s, seed)``; the DLM takes no ``t``. Always
+    resamples, so the evidence increment is ``logsumexp(ll) - log N``."""
     if not isinstance(num_sweeps, int):
         raise ValueError(f"engine='pallas' needs an integer num_steps, got "
                          f"{num_sweeps!r}")
     (G, Q, F, Li), df, log_norm = _fused_factors(model)
     log_n = math.log(num_particles)
 
-    def step(x, logw, y_t, streams=None, draws=None):
+    def step(x, logw, y_t, streams=None, draws=None, t=None):
         ess = effective_sample_size(logw)
         if draws is None:
             draws = fused_filter_step_draws(streams.rank, num_particles, tile,
@@ -301,14 +451,13 @@ def _fused_cdf_step_factory(model: DLM, num_particles: int, pos_mode: str,
                             tile: Optional[int], sr: int) -> Callable:
     """The step around the fused inverse-CDF kernel
     (``ops/fused_cdf_step.py``): ``step(x, w, y_t, streams=None,
-    draws=None)``
-    with the exp-space carry and evidence algebra of
+    draws=None, t=None)`` with the exp-space carry and evidence algebra of
     ``_fast_exp_step_factory``; ``draws = (u, seed)``. Outside the kernel
     a step runs the blocked cumsum and the weight reductions."""
     (G, Q, F, Li), df, log_norm = _fused_factors(model)
     log_n = math.log(num_particles)
 
-    def step(x, w, y_t, streams=None, draws=None):
+    def step(x, w, y_t, streams=None, draws=None, t=None):
         s1 = torch.sum(w)
         s2 = torch.sum(w * w)
         ess = s1 * s1 / s2
@@ -359,43 +508,6 @@ def _fused_cdf_eligible(model, n: int) -> bool:
             and n % 128 == 0 and n <= 1 << 24)
 
 
-def _engine_step(engine: str, model, n: int, resampler: str,
-                 resampler_kwargs: dict, ess_threshold: Optional[float],
-                 pallas_tile: Optional[int]):
-    """``(step, carries_log_weights)`` for the engine (the dispatch of
-    ``particle_filter.py:662-729, 781-793``)."""
-    if engine in ("auto", "xla"):
-        op = packed_exp_resample_op(resampler, n, **resampler_kwargs)
-        return _fast_exp_step_factory(model, n, op, ess_threshold), False
-    if resampler in ("systematic", "stratified"):
-        if ess_threshold is not None or not _fused_cdf_eligible(model, n):
-            raise ValueError(
-                "engine='pallas' with a CDF resampler needs no ESS "
-                f"threshold and a float32 DLM with d,k <= {MAX_MXU_DIM} "
-                "(standard MVT df >= 2), N compatible with the window walk")
-        return _fused_cdf_step_factory(
-            model, n, resampler, pallas_tile,
-            resampler_kwargs.get("sr", DEFAULT_SROWS)), False
-    if resampler != "metropolis" or ess_threshold is not None:
-        raise ValueError("engine='pallas' requires a "
-                         "metropolis/systematic/stratified resampler and no "
-                         "ESS threshold")
-    if pallas_tile is None:
-        dk, itemsize = ((max(model.state_dim, model.obs_dim),
-                         model.G.element_size())
-                        if isinstance(model, DLM) else (1, 4))
-        pallas_tile = auto_tile(n, dk, itemsize)
-    if not _pallas_eligible(model, n, pallas_tile):
-        raise ValueError(
-            f"pallas engine needs a DLM with d,k <= {MAX_MXU_DIM}, N a "
-            f"multiple of tile={pallas_tile} (and >= 2 tiles), tile a "
-            f"multiple of 128, standard MVT with concrete df >= 2, and a "
-            f"float32 or bfloat16 state")
-    return _pallas_step_factory(
-        model, n, pallas_tile, resampler_kwargs.get("num_steps", 10),
-        resampler_kwargs.get("num_window_tiles", 2)), True
-
-
 def bootstrap_filter(
     key: KeyLike,
     model,
@@ -410,7 +522,7 @@ def bootstrap_filter(
     pallas_tile: Optional[int] = None,
     axis_name=None,
     num_particles_global: Optional[int] = None,
-    resample_op: Optional[Callable] = None,
+    resample_op=None,
     resample_op_weights: str = "log",
     debug_checks: bool = False,
     device=None,
@@ -418,78 +530,159 @@ def bootstrap_filter(
     """Run the bootstrap filter on observations ``ys`` [T, k]; row 0 is
     ignored (t=0 is the prior draw).
 
-    ``key``: an int seed or a ``torch.Generator`` on the model's device.
-    ``device``: where to run; the model must already live there (None ->
-    the model's device). ``resampler``: "metropolis" | "systematic" |
-    "stratified" | "multinomial". ``ess_threshold=None`` resamples every
-    step; a float in (0, 1] resamples when ESS < threshold * N.
+    ``key``: an int seed or a ``torch.Generator`` on the run's device.
+    ``device``: where to run; a model with a ``device`` (a DLM) must
+    already live there (None -> the model's device; for a model without
+    one, such as a ``CustomSSM``, None means the card). ``resampler``: a
+    registry key (``resampling.get_resampler``: "metropolis",
+    "systematic", "stratified", "multinomial", "residual" or a registered
+    one). ``ess_threshold=None`` resamples every step; a float in (0, 1]
+    resamples when ESS < threshold * N.
+
+    ``layout``: "auto" (packed, unless a ``resample_op`` is injected or
+    the model has no packed methods: then "batch"), "packed" or "batch".
+    Batch results keep the drawn [T, N, d] layout. ``debug_checks=True``
+    takes the generic log-space step and prints a guard when the weights
+    turn NaN or all -inf.
 
     ``engine``: "auto" or "xla" (the composed path), or "pallas" (one
-    fused kernel per step: metropolis, systematic or stratified, no ESS
-    threshold, a DLM with d, k <= 128, float32, or bfloat16 at even d for
-    metropolis). ``pallas_tile``: the fused kernels' tile (None: their
-    auto choice). ``resampler_kwargs`` of the fused path: ``num_steps``
-    and ``num_window_tiles`` (metropolis), ``sr`` (the CDF family).
+    fused kernel per step: metropolis, systematic or stratified, packed,
+    no ESS threshold, one shard, a DLM with d, k <= 128, float32, or
+    bfloat16 at even d for metropolis). ``pallas_tile``: the fused
+    kernels' tile (None: their auto choice). ``resampler_kwargs`` of the
+    fused path: ``num_steps`` and ``num_window_tiles`` (metropolis),
+    ``sr`` (the CDF family).
 
+    ``resample_op`` replaces the resampling: an op object with
+    ``draw(streams, w)`` and ``op(x, w, draws) -> (x_anc, w_after, a)``
+    in the chosen layout, over log weights, or over max-normalised exp
+    weights with ``resample_op_weights="exp"`` (packed layout, engine
+    "auto" or "xla", no ``debug_checks``: the fast step carries them).
     The sharded filter (what ``parallel.sharded_bootstrap_filter`` calls
     on each rank): ``axis_name`` a ``parallel.mesh.ParticleAxis`` (None:
     one shard), ``num_particles`` this rank's block of
-    ``num_particles_global``, ``resample_op`` an exp-space op of
-    ``parallel/resampling.py`` with ``resample_op_weights="exp"``, and
+    ``num_particles_global``, an op of ``parallel/resampling.py``, and
     ``key`` an int seed for the two streams of ``parallel.mesh``. The
     result holds this rank's particles and weights, global ancestors, and
     the replicated ESS and log-evidence.
     """
     if engine not in ("auto", "xla", "pallas"):
         raise ValueError(f"unknown engine {engine!r}")
-    if layout == "batch":
-        raise NotImplementedError("layout='batch' is not ported yet "
-                                  "(ROADMAP queue 1, item 6)")
-    if layout not in ("auto", "packed"):
-        raise ValueError(f"unknown layout {layout!r}")
-    if debug_checks:
-        raise NotImplementedError("debug_checks is not ported yet (ROADMAP "
-                                  "queue 1, item 6)")
-    n_global = num_particles_global or num_particles
-    sharded = (axis_name is not None or resample_op is not None
-               or n_global != num_particles)
-    if sharded and (resample_op is None or resample_op_weights != "exp"):
-        raise NotImplementedError(
-            "a sharded run needs an injected exp-space resample op "
-            "(parallel.sharded_bootstrap_filter builds one); shard-local "
-            "and log-space injected ops (packed_resample_op) are not "
-            "ported yet (ROADMAP queue 1, item 6)")
-    if sharded and engine == "pallas":
-        raise ValueError("engine='pallas' runs a single shard only")
-    if not supports_packed(model):
-        raise NotImplementedError("models without packed-layout methods "
-                                  "need layout='batch', not ported yet")
-    dev = model.device
-    if device is not None and resolve_device(device) != dev:
-        raise ValueError(f"model lives on {dev}, not on {device}")
-
+    if isinstance(axis_name, str):
+        raise TypeError("axis_name is a parallel.mesh.ParticleAxis, not a "
+                        "mesh axis name")
+    resampler_kwargs = resampler_kwargs or {}
     n = num_particles
-    if sharded:
+    n_global = num_particles_global or n
+    if layout == "auto":
+        layout = ("batch" if resample_op is not None
+                  or not supports_packed(model) else "packed")
+    if layout not in ("packed", "batch"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if layout == "packed" and not supports_packed(model):
+        raise ValueError("model has no packed-layout methods; use "
+                         "layout='batch'")
+    packed = layout == "packed"
+
+    user_tile = pallas_tile  # the fused CDF step has its own auto tile
+    if pallas_tile is None:
+        dk, itemsize = ((max(model.state_dim, model.obs_dim),
+                         model.G.element_size())
+                        if isinstance(model, DLM) else (1, 4))
+        pallas_tile = auto_tile(n, dk, itemsize)
+    use_fused_cdf = False
+    if engine == "pallas" and resampler in ("systematic", "stratified"):
+        if not (packed and ess_threshold is None and axis_name is None
+                and resample_op is None and not debug_checks
+                and _fused_cdf_eligible(model, n)):
+            raise ValueError(
+                "engine='pallas' with a CDF resampler needs packed layout, "
+                "no ESS threshold, a single shard, no debug_checks, and a "
+                f"float32 DLM with d,k <= {MAX_MXU_DIM} (standard MVT df >= "
+                "2), N compatible with the window walk")
+        use_fused_cdf = True
+    if engine == "auto":
+        engine = "xla"
+    if engine == "pallas" and not use_fused_cdf:
+        # As in the JAX package, the fused Metropolis step takes no
+        # weight guard: debug_checks does not reach it.
+        if not (packed and resampler == "metropolis"
+                and ess_threshold is None and axis_name is None):
+            raise ValueError("engine='pallas' requires packed layout, a "
+                             "metropolis/systematic/stratified resampler, "
+                             "no ESS threshold, and a single shard")
+        if not _pallas_eligible(model, n, pallas_tile):
+            raise ValueError(
+                f"pallas engine needs a DLM with d,k <= {MAX_MXU_DIM}, N a "
+                f"multiple of tile={pallas_tile} (and >= 2 tiles), tile a "
+                f"multiple of 128, standard MVT with concrete df >= 2, and a "
+                f"float32 or bfloat16 state")
+
+    exp_op = None
+    injected_exp = resample_op is not None and resample_op_weights == "exp"
+    if injected_exp:
+        if not packed or engine != "xla" or debug_checks:
+            raise ValueError("resample_op_weights='exp' needs packed layout, "
+                             "engine in ('auto', 'xla'), and "
+                             "debug_checks=False")
+        exp_op = resample_op
+    elif (engine == "xla" and packed and not debug_checks
+          and resample_op is None and axis_name is None
+          and (resampler in ("metropolis", "residual")
+               or resampler in POSITION_FNS)):
+        exp_op = packed_exp_resample_op(resampler, n_global,
+                                        **resampler_kwargs)
+    if engine != "pallas" and exp_op is None and resample_op is None:
+        resample_op = (packed_resample_op(resampler, n_global,
+                                          **resampler_kwargs) if packed
+                       else local_resample_op(
+                           get_resampler(resampler, **resampler_kwargs),
+                           n_global))
+
+    dev = getattr(model, "device", None)
+    if dev is None:
+        dev = resolve_device(device)
+    elif device is not None and resolve_device(device) != dev:
+        raise ValueError(f"model lives on {dev}, not on {device}")
+    if axis_name is not None or injected_exp:
         if isinstance(key, torch.Generator):
             raise TypeError("the sharded filter takes an int seed")
-        step = _fast_exp_step_factory(model, n_global, resample_op,
-                                      ess_threshold, axis_name)
-        log_carry = False
         streams = make_streams(key, axis_name, dev)
     else:
-        step, log_carry = _engine_step(engine, model, n, resampler,
-                                       resampler_kwargs or {}, ess_threshold,
-                                       pallas_tile)
         gen = make_generator(key, dev)
         streams = Streams(gen, gen)
-    wdtype = model.V_chol.dtype
+
+    if use_fused_cdf:
+        step = _fused_cdf_step_factory(
+            model, n, resampler, user_tile,
+            resampler_kwargs.get("sr", DEFAULT_SROWS))
+    elif engine == "pallas":
+        step = _pallas_step_factory(
+            model, n, pallas_tile, resampler_kwargs.get("num_steps", 10),
+            resampler_kwargs.get("num_window_tiles", 2))
+    elif exp_op is not None:
+        step = _fast_exp_step_factory(model, n_global, exp_op,
+                                      ess_threshold, axis_name)
+    elif packed:
+        step = _step_factory(model.propagate_packed,
+                             model.observation_logpdf_packed, resample_op,
+                             ess_threshold, n_global, axis_name,
+                             debug_checks)
+    else:
+        step = _step_factory(model.propagate, model.observation_logpdf,
+                             resample_op, ess_threshold, n_global, axis_name,
+                             debug_checks)
+    # The carry: exp-space weights (the fast step and the fused CDF step)
+    # or normalised log weights (the fused Metropolis and generic steps).
+    log_carry = not (use_fused_cdf or exp_op is not None)
+
+    x = (model.sample_initial_packed(streams.rank, n) if packed
+         else model.sample_initial(streams.rank, (n,)))
+    # Weights are at least float32, whatever the state dtype.
+    wdtype = torch.promote_types(x.dtype, torch.float32)
     ys = torch.as_tensor(ys, dtype=wdtype).to(dev).contiguous()
     num_steps = ys.shape[0]
-
-    x = model.sample_initial_packed(streams.rank, n)
     logw0 = torch.full((n,), -math.log(n_global), dtype=wdtype, device=dev)
-    # The carry: normalised log weights (fused Metropolis) or exp-space
-    # weights, uniform -> ones.
     w = logw0 if log_carry else torch.exp(logw0 - torch.max(logw0))
     esss = torch.empty((num_steps - 1,), dtype=wdtype, device=dev)
     lzs = torch.empty((num_steps - 1,), dtype=wdtype, device=dev)
@@ -503,7 +696,7 @@ def bootstrap_filter(
         ancs[0] = global_slots(n, axis_name, dev)
 
     for t in range(1, num_steps):
-        x, w, ess, lz_inc, ll, a = step(x, w, ys[t], streams)
+        x, w, ess, lz_inc, ll, a = step(x, w, ys[t], streams, t=t)
         esss[t - 1] = ess
         lzs[t - 1] = lz_inc
         if return_history:
@@ -515,11 +708,12 @@ def bootstrap_filter(
               torch.log(w) - torch.log(psum(torch.sum(w), axis_name)))
     ess = torch.cat([effective_sample_size(logw0, axis_name)[None], esss])
     log_evidence = torch.sum(lzs)
-    x_f = x.T
+    x_f = x.T if packed else x
     if not return_history:
         return FilterResult(final_particles=x_f, final_log_weights=logw_f,
                             ess=ess, log_evidence=log_evidence)
     return FilterResult(
         final_particles=x_f, final_log_weights=logw_f, ess=ess,
-        log_evidence=log_evidence, particles=xs.transpose(1, 2),
+        log_evidence=log_evidence,
+        particles=xs.transpose(1, 2) if packed else xs,
         obs_loglik=lls, ancestors=ancs)

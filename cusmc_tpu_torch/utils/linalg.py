@@ -1,8 +1,10 @@
 """Covariance factorization helpers.
 
-Port of ``cusmc_tpu/utils/linalg.py:19-50`` (``chol_sqrt``, ``eigh_sqrt``,
-``cov_sqrt``). Factors are computed once when a model is built, never in
-the filter's step, so they run wherever the input tensor lies.
+Port of ``cusmc_tpu/utils/linalg.py`` (``chol_sqrt`` with its jitter,
+``eigh_sqrt``, ``cov_sqrt``, ``tri_solve``, ``tri_inverse``,
+``log_det_from_chol``). Factors are computed once, when a model or a
+log-density closure is built, never in the filter's step, so they run
+wherever the input tensor lies.
 """
 
 from __future__ import annotations
@@ -10,8 +12,12 @@ from __future__ import annotations
 import torch
 
 
-def chol_sqrt(cov: torch.Tensor) -> torch.Tensor:
-    """Lower-triangular Cholesky factor L with L @ L.T == cov."""
+def chol_sqrt(cov: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Lower-triangular Cholesky factor L with L @ L.T == cov (+ jitter I
+    when ``jitter`` is non-zero)."""
+    if jitter:
+        cov = cov + jitter * torch.eye(cov.shape[-1], dtype=cov.dtype,
+                                       device=cov.device)
     return torch.linalg.cholesky(cov)
 
 
@@ -35,12 +41,26 @@ def cov_sqrt(cov: torch.Tensor, method: str = "cholesky") -> torch.Tensor:
 
 def tri_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve L z = b for z with L lower triangular [d, d]; b is [..., d]
-    (``cusmc_tpu/utils/linalg.py:51-61``)."""
-    batch = b.shape[:-1]
-    d = b.shape[-1]
-    flat = b.reshape(-1, d)
-    z = torch.linalg.solve_triangular(chol, flat.T, upper=False)
-    return z.T.reshape(*batch, d)
+    (``cusmc_tpu/utils/linalg.py:51-61``). Forward substitution over the d
+    rows, each an elementwise pass over the batch: on the card
+    ``torch.linalg.solve_triangular`` with 2^20 right-hand sides took
+    minutes a call (PERF.md section 6), while d passes of [N] are what
+    the batch layout's log-densities need."""
+    zs = []
+    for i in range(b.shape[-1]):
+        acc = b[..., i]
+        if i:
+            acc = acc - torch.matmul(torch.stack(zs, -1), chol[i, :i])
+        zs.append(acc / chol[i, i])
+    return torch.stack(zs, -1)
+
+
+def tri_inverse(chol: torch.Tensor) -> torch.Tensor:
+    """Explicit inverse of a lower-triangular [d, d] factor
+    (``cusmc_tpu/utils/linalg.py:64-77``): one solve when a density is
+    built, so each evaluation is a product, not a triangular solve."""
+    eye = torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device)
+    return torch.linalg.solve_triangular(chol, eye, upper=False)
 
 
 def log_det_from_chol(chol: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,10 @@ block):
 - ``"single"``: the single-device filter of the same model seeded with
   the rank stream's seed, beside a ``"filter"`` case for the P = 1
   equality.
+
+A case with ``custom=True`` wraps the demo DLM in a ``CustomSSM`` (batch
+methods only): the sharded filter then runs the batch layout with the
+all-gather op, and a ``"single"`` case injects that op for one shard.
 """
 
 import os
@@ -66,6 +70,15 @@ def _model(case):
     noise = case.get("noise", "mvn")
     model = DLM.create(noise=noise, df=case.get("df"), device="cpu",
                        **params)
+    if case.get("custom"):
+        from cusmc_tpu_torch.models.base import CustomSSM
+
+        model = CustomSSM.create(
+            model.state_dim,
+            lambda m, gen, shape: m["dlm"].sample_initial(gen, shape),
+            lambda m, gen, x: m["dlm"].propagate(gen, x),
+            lambda m, y, x: m["dlm"].observation_logpdf(y, x),
+            params={"dlm": model})
     return model, load_y_sim()[:case["T"]]
 
 
@@ -85,16 +98,20 @@ def run_case(case, axis):
             resampler=case["resampler"],
             resampler_kwargs=case.get("kwargs"),
             ess_threshold=case.get("ess_threshold"),
-            return_history=case.get("history", False))
+            return_history=case.get("history", False), device="cpu")
         return _numpy((res.log_evidence, res.ess, res.final_particles,
                        res.final_log_weights, res.ancestors))
     if case["kind"] == "single":
         model, ys = _model(case)
         gen = torch.Generator().manual_seed(rank_seed(case["seed"], 0))
+        op = (resampling.allgather_resample_op(
+            case["resampler"], None, case["N"], case["N"])
+            if case.get("custom") else None)
         res = bootstrap_filter(gen, model, ys, case["N"],
                                resampler=case["resampler"],
                                resampler_kwargs=case.get("kwargs"),
-                               return_history=case.get("history", False))
+                               return_history=case.get("history", False),
+                               resample_op=op, device="cpu")
         return _numpy((res.log_evidence, res.ess, res.final_particles,
                        res.final_log_weights, res.ancestors))
 

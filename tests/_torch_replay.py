@@ -76,6 +76,27 @@ def roll_draws(key, n, num_steps):
     return to_torch(shifts), to_torch(u)
 
 
+def metropolis_draws(key, n, num_steps):
+    """``resampling/metropolis.metropolis_ancestors``: per sweep b,
+    ``kj, ku = split(fold_in(key, b))``, proposals j and uniforms u."""
+    js, us = [], []
+    for b in range(num_steps):
+        kj, ku = jax.random.split(jax.random.fold_in(key, b))
+        js.append(jax.random.randint(kj, (n,), 0, n, dtype=jnp.int32))
+        us.append(jax.random.uniform(ku, (n,), dtype=F32))
+    return to_torch(jnp.stack(js)), to_torch(jnp.stack(us))
+
+
+def dyadic_logw(rng, n):
+    """Log weights whose softmax is exact: {1, 1/2, 1/4, 1/8} summing to
+    n / 2, so every normalised weight and cdf entry is dyadic."""
+    n8, n4 = int(0.3 * n), n // 5
+    n2 = 3 * n - 7 * n8 - 3 * n4
+    w = np.repeat(np.float32([1.0, 0.5, 0.25, 0.125]),
+                  [n8, n4, n2, n - n8 - n4 - n2])
+    return np.log(rng.permutation(w)).astype(np.float32)
+
+
 def fused_step_draws(key, n, tile):
     """``ops/fused_step.fused_filter_step``'s draws: ``k_s, k_seed =
     split(key)``, the window offsets ``s`` and the seed pair."""

@@ -13,8 +13,9 @@ through at most 15 in-thread, 5 shuffle, 4 warp-offset and 2 applying
 additions, one per earlier 8192-element tile and a final one), monotone,
 and the same on every call; the search and the roll walk exactly, since kernel
 and plain version make the same float32 comparisons on the same numbers.
-The search-only kernel, the take-columns kernel and the local-block mode
-exactly (the same float32 comparisons, pure gathers). The fused steps:
+The search-only kernel, the take-columns kernel (float32 and bfloat16)
+and the local-block mode exactly (the same float32 comparisons, pure
+gathers). The fused steps:
 ancestors exactly (the same Philox bits, the same float32
 accept tests and positions), states and log-likelihoods at rtol 1e-4,
 atol 1e-4 (the kernel sums its d- and k-term products in FMA chains, or
@@ -189,6 +190,61 @@ def test_cuda_take_columns_kernel(cuda, kind):
     out = take_columns(X, a)
     assert take_columns.launches == before + 1
     assert torch.equal(out, take_columns_plain(X, a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 32])
+@pytest.mark.parametrize("kind", ["sorted", "shuffled", "clipped"])
+def test_cuda_bf16_take_columns_kernel(cuda, d, kind):
+    # The bfloat16 gather: bitwise the plain version's, counted apart.
+    n = 1 << 16
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    X = torch.randn((d, n), generator=gen, device=cuda).to(torch.bfloat16)
+    a = torch.randint(0, n, (n,), generator=gen, device=cuda)
+    if kind == "sorted":
+        a = torch.sort(a).values
+    elif kind == "clipped":
+        a = a - n // 2 + (a % 3) * n
+    a = a.to(torch.int32)
+    before = (take_columns.launches, take_columns.bf16_launches)
+    out = take_columns(X, a)
+    assert (take_columns.launches, take_columns.bf16_launches) == \
+        (before[0], before[1] + 1)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out.view(torch.int16),
+                       take_columns_plain(X, a).view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_cuda_generic_packed_path_launches_its_kernels(cuda):
+    # The generic step (debug_checks=True, or a key outside the fast ops)
+    # on the card: one roll, cumsum + search-and-apply, or take-columns
+    # launch a step.
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.resampling import RESAMPLERS, register_resampler
+    from cusmc_tpu_torch.resampling.metropolis import metropolis_ancestors
+    from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+
+    model = DLM.create(noise="mvt", df=5.0, device=cuda,
+                       **demo_model_params())
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    _, ys = model.simulate(gen, 20)
+    register_resampler("metropolis_indexed", metropolis_ancestors)
+    try:
+        for resampler, counter in (
+                ("metropolis", (roll_metropolis_sweeps_expspace,
+                                "launches")),
+                ("systematic", (inverse_cdf_apply, "launches")),
+                ("metropolis_indexed", (take_columns, "launches"))):
+            fn, attr = counter
+            before = getattr(fn, attr)
+            res = bootstrap_filter(0, model, ys, 1 << 14, resampler=resampler,
+                                   debug_checks=True)
+            assert getattr(fn, attr) - before == 19, resampler
+            assert res.particles.is_cuda
+            assert bool(torch.isfinite(res.log_evidence))
+    finally:
+        RESAMPLERS.pop("metropolis_indexed")
 
 
 @pytest.mark.cuda

@@ -32,6 +32,7 @@ from cusmc_tpu.resampling.classic import POSITION_FNS as JAX_POSITION_FNS
 from cusmc_tpu.smc import kalman as jkalman
 from cusmc_tpu.smc import particle_filter as jpf
 from cusmc_tpu_torch.io.data import demo_model_params, load_y_sim
+from cusmc_tpu_torch.models.base import CustomSSM
 from cusmc_tpu_torch.smc import particle_filter as tpf
 from cusmc_tpu_torch.smc.kalman import kalman_filter
 
@@ -186,21 +187,31 @@ def test_run_outputs_match_jax_structure(resampler, tmp_path):
 
 
 def test_unported_options_raise():
+    # What the port still refuses. Every option of bootstrap_filter is
+    # ported (the batch layout, debug_checks and injected log-space ops
+    # run since the generic step), so these are the refusals the JAX
+    # package shares (tests/test_torch_generic_filter.py holds the two
+    # packages to the same exception types), and two of the port's own:
+    # an unknown engine (the JAX package runs it as the generic step) and
+    # an axis given by name (a ParticleAxis is an object here).
     tm = port_model(jax_model("mvn"))
     ys = torch.zeros(5, 2)
-    # engine="pallas" is ported; 64 particles are too few for its tile.
-    # The residual resampler and injected exp-space ops are ported; a
-    # sharded run without an op, injected log-space ops and debug_checks
-    # are not.
-    for kw, exc in ((dict(engine="pallas"), ValueError),
-                    (dict(layout="batch"), NotImplementedError),
-                    (dict(axis_name="particles"), NotImplementedError),
-                    (dict(resample_op=lambda *a: a), NotImplementedError),
-                    (dict(debug_checks=True), NotImplementedError),
-                    (dict(resampler="nope"), KeyError),
-                    (dict(engine="other"), ValueError)):
+    custom = CustomSSM.create(2, lambda p, g, s: torch.zeros(s + (2,)),
+                              lambda p, g, x: x,
+                              lambda p, y, x: torch.zeros(x.shape[0]))
+    for model, kw, exc in (
+            (tm, dict(engine="pallas"), ValueError),  # 64 < 2 tiles
+            (tm, dict(engine="pallas", resampler="systematic",
+                      debug_checks=True), ValueError),
+            (tm, dict(layout="other"), ValueError),
+            (tm, dict(layout="batch", resample_op_weights="exp",
+                      resample_op=lambda *a: a), ValueError),
+            (custom, dict(layout="packed"), ValueError),
+            (tm, dict(resampler="nope"), KeyError),
+            (tm, dict(engine="other"), ValueError),
+            (tm, dict(axis_name="particles"), TypeError)):
         with pytest.raises(exc):
-            tpf.bootstrap_filter(0, tm, ys, 64, **kw)
+            tpf.bootstrap_filter(0, model, ys, 64, device="cpu", **kw)
 
 
 def test_same_seed_same_result_and_generator_key():
@@ -219,7 +230,15 @@ def test_port_runs_without_jax():
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
+        import torch
         import cusmc_tpu_torch
+        import cusmc_tpu_torch.diagnostics
+        import cusmc_tpu_torch.distributions.base
+        import cusmc_tpu_torch.io
+        import cusmc_tpu_torch.models.base
+        import cusmc_tpu_torch.parallel
+        import cusmc_tpu_torch.resampling
+        import cusmc_tpu_torch.utils.debug
         from cusmc_tpu_torch.io.data import demo_model_params, load_y_sim
         p = demo_model_params()
         out = cusmc_tpu_torch.run(256, 2, 5, load_y_sim()[:5], p["m0"],
@@ -227,6 +246,13 @@ def test_port_runs_without_jax():
                                   df=5.0, distribution="mvt", key=0,
                                   device="cpu")
         assert out["posterior_x"].shape == (5, 256, 2)
+        custom = cusmc_tpu_torch.CustomSSM.create(
+            2, lambda p, g, s: torch.zeros(s + (2,)),
+            lambda p, g, x: x + 0.01 * torch.randn(x.shape, generator=g),
+            lambda p, y, x: -((y - x) ** 2).sum(-1))
+        res = cusmc_tpu_torch.bootstrap_filter(0, custom, load_y_sim()[:5],
+                                               64, device="cpu")
+        assert res.particles.shape == (5, 64, 2)
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "cusmc_tpu", "flax")
                and sys.modules[m] is not None]

@@ -2,7 +2,9 @@
 and 4 gloo ranks, mirroring tests/test_parallel.py: the Kalman oracle,
 global ancestors across shards, the ESS-adaptive skip branch, diagnostics
 replicated on every rank, and the one-rank filter against the
-single-device filter.
+single-device filter; the same for a ``CustomSSM`` (the batch layout and
+the all-gather op, ``cusmc_tpu/parallel/filter.py:80-85``), whose one-rank
+run equals the single-device batch run with the same op, bitwise.
 
 Each group size starts its ranks once (tests/_torch_parallel_worker.py)
 and runs every case; the tests read the outputs.
@@ -55,6 +57,7 @@ def _cases():
               for r in ADAPTIVE]
     cases.append(_filter("history", "systematic", n=1024, steps=51,
                          history=True))
+    cases.append(_filter("custom-kalman", "systematic", custom=True))
     # Flat likelihood: the ESS stays ~N, so resampling never fires.
     cases.append(_filter("skip", "systematic", n=1024, steps=21,
                          history=True, ess_threshold=0.5,
@@ -79,9 +82,16 @@ def _join(results, cid):
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("groups")
     one = dict(resampler="metropolis", N=2048, T=51, seed=3, history=True)
+    # Stratified draws its offsets from the rank stream, so a one-shard
+    # run draws what the single-device run seeded with that stream draws.
+    custom = dict(resampler="stratified", N=2048, T=51, seed=3, history=True,
+                  custom=True)
     groups = {P: start_group(P, _cases(), tmp) for P in SIZES}
-    groups[1] = start_group(1, [dict(id="sharded", kind="filter", **one),
-                                dict(id="single", kind="single", **one)], tmp)
+    groups[1] = start_group(1, [
+        dict(id="sharded", kind="filter", **one),
+        dict(id="single", kind="single", **one),
+        dict(id="custom-sharded", kind="filter", **custom),
+        dict(id="custom-single", kind="single", **custom)], tmp)
     out = {P: functools.partial(_join, finish_group(groups[P]))
            for P in SIZES}
     out[1] = finish_group(groups[1])[0]
@@ -97,10 +107,11 @@ def kalman():
 
 
 @pytest.mark.parametrize("P", SIZES)
-@pytest.mark.parametrize("resampler", KALMAN)
+@pytest.mark.parametrize("resampler", KALMAN + ("custom",))
 def test_sharded_filter_matches_kalman(runs, kalman, P, resampler):
     km, kc, kll = kalman
-    lz, ess, xf, lwf, _ = runs[P](f"kalman-{resampler}")
+    lz, ess, xf, lwf, _ = runs[P](f"{resampler}-kalman" if resampler ==
+                                  "custom" else f"kalman-{resampler}")
     w = np.exp(lwf.astype(np.float64))
     assert abs(w.sum() - 1.0) < 1e-4
     fmean = (w[:, None] * xf).sum(0) / w.sum()
@@ -151,11 +162,13 @@ def test_sharded_adaptive_resampling(runs, P, resampler):
     assert (ess[0] < 0.5 * N).any() and (ess[0][1:] > 0.9 * N).any()
 
 
-def test_one_rank_equals_single_device(runs):
-    # A one-rank group runs the sharded metropolis filter: its roll sweeps,
+@pytest.mark.parametrize("case", ["", "custom-"])
+def test_one_rank_equals_single_device(runs, case):
+    # A one-rank group runs the sharded metropolis filter (a CustomSSM:
+    # the batch layout and the all-gather op): its resample draws,
     # initial cloud and noise come from the rank stream, so it equals the
     # single-device filter seeded with that stream's seed, bitwise.
-    for got, want in zip(runs[1]["sharded"], runs[1]["single"]):
+    for got, want in zip(runs[1][f"{case}sharded"], runs[1][f"{case}single"]):
         np.testing.assert_array_equal(got, want)
 
 

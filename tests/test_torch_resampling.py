@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_replay import TINY, roll_draws, to_torch
+from _torch_replay import TINY, dyadic_logw, metropolis_draws, \
+    roll_draws, to_torch
 
 from cusmc_tpu.resampling import classic as jclassic
 from cusmc_tpu.resampling import rolls as jrolls
@@ -133,17 +134,6 @@ def test_position_fns_draw_sorted_unit_positions(name):
     assert float(pos.min()) >= 0.0 and float(pos.max()) < 1.0
 
 
-def _metropolis_draws(key, n, num_steps):
-    """``resampling/metropolis.metropolis_ancestors``'s per-sweep draws:
-    ``kj, ku = split(fold_in(key, b))``."""
-    js, us = [], []
-    for b in range(num_steps):
-        kj, ku = jax.random.split(jax.random.fold_in(key, b))
-        js.append(jax.random.randint(kj, (n,), 0, n, dtype=jnp.int32))
-        us.append(jax.random.uniform(ku, (n,), dtype=jnp.float32))
-    return to_torch(jnp.stack(js)), to_torch(jnp.stack(us))
-
-
 @pytest.mark.parametrize("kind", ["exp", "uniform"])
 def test_metropolis_ancestors_match_jax_exactly(kind):
     from cusmc_tpu.resampling.metropolis import metropolis_ancestors as jma
@@ -153,7 +143,7 @@ def test_metropolis_ancestors_match_jax_exactly(kind):
     logw = np.log(np.maximum(_weights(kind), 1e-30)).astype(np.float32)
     ref = jma(key, jnp.asarray(logw), num_steps=B)
     a = metropolis.metropolis_from_draws(torch.from_numpy(logw),
-                                         *_metropolis_draws(key, N, B))
+                                         *metropolis_draws(key, N, B))
     np.testing.assert_array_equal(a.numpy(), np.asarray(ref))
     gen = torch.Generator().manual_seed(0)
     drawn = metropolis.metropolis_ancestors(gen, torch.from_numpy(logw), B)
@@ -161,22 +151,12 @@ def test_metropolis_ancestors_match_jax_exactly(kind):
     assert int(drawn.min()) >= 0 and int(drawn.max()) < N
 
 
-def _dyadic_logw(rng, n=N):
-    """Log weights whose softmax is exact: {1, 1/2, 1/4, 1/8} summing to
-    n / 2, so every normalised weight and cdf entry is dyadic."""
-    n8, n4 = int(0.3 * n), n // 5
-    n2 = 3 * n - 7 * n8 - 3 * n4
-    w = np.repeat(np.float32([1.0, 0.5, 0.25, 0.125]),
-                  [n8, n4, n2, n - n8 - n4 - n2])
-    return np.log(rng.permutation(w)).astype(np.float32)
-
-
 @pytest.mark.parametrize("name", ["systematic", "stratified", "multinomial"])
 def test_ancestor_functions_match_jax(monkeypatch, name):
     # Exact: dyadic weights make both packages' cdfs exact, and JAX's
     # sorted uniforms are handed the port's (its log and cumsum round in
     # another order).
-    logw = _dyadic_logw(np.random.default_rng(4))
+    logw = dyadic_logw(np.random.default_rng(4), N)
     key = jax.random.key(12)
     if name == "multinomial":
         u = np.array(jax.random.uniform(key, (N + 1,), jnp.float32,
