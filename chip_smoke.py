@@ -119,6 +119,28 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    between the fast and the generic metropolis runs on one seed, and the
    Kalman logZ (MVN, N=2^17, the 1001-step trace, 2% of |loglik|) of six
    generic runs.
+4f. The headless runner and the streaming filter, with every launch
+   count set to 0 first (the host runtime, ``make -C native``, is built
+   first when the checkout has none; the phase fails if its native store
+   or writer did not load): the chunk copy to the host and the host
+   append (native and numpy) of a 64-step chunk of the headline's
+   history, in GB/s; the headline (MVT df=5, N=2^20, T=200, d=2, chunk
+   64) for metropolis B=10 and systematic, streamed into the native arena,
+   its final particles, log weights, log-evidence, ESS and whole stored
+   history bitwise those of ``bootstrap_filter(return_history=True)``,
+   then one-shot without and with device history and streaming without
+   and with the store, one warm-up and the best of 2 in turns; a disk
+   spill (T=50) reopened equal to the arena's history; the d=32 row
+   (T=100) streamed without a store, bitwise the one-shot run; halt at a
+   NaN in step 50 (MVN, N=2^17, 81 steps, chunk 20: last good step 40, a
+   step_40 snapshot) and a resume bitwise the uninterrupted run; the
+   streamed log-evidence on the 1001-step trace within 2% of Kalman;
+   sharded streaming on a one-rank NCCL group, bitwise the sharded
+   one-shot run; and ``python -m cusmc_tpu_torch`` as subprocesses
+   (``demo``; ``run`` of an MVN config on the bundled trace plain with
+   ``--output-dir``, with ``--stream 64 --checkpoint``, then
+   ``--resume``), their log-evidence within 2% of Kalman and equal to
+   each other. Each streaming run launches its kernels T-1 times.
 5. The block-window kernels on the main paths' own inputs, kept at steps
    0, 99 and 198 of the warm-up runs of phases 4 (the search-and-apply of
    the composed systematic headline, d = 2), 4b (the fused CDF step of the
@@ -1592,11 +1614,11 @@ def check_tile_oracle() -> None:
 GATHER_CU = "cusmc_tpu_torch/csrc/monotone_gather.cu"
 KERNELS = (
     ("blocked_cumsum", "cusmc_tpu_torch/csrc/cumsum.cu",
-     "cusmc_tpu/ops/cumsum.py:45", "main"),
+     "cusmc_tpu/ops/cumsum.py:45", ("main", "streaming")),
     ("inverse_cdf_apply", GATHER_CU,
-     "cusmc_tpu/ops/monotone_gather.py:277", "main"),
+     "cusmc_tpu/ops/monotone_gather.py:277", ("main", "streaming")),
     ("roll_metropolis_sweeps_expspace", "cusmc_tpu_torch/csrc/rolls.cu",
-     "cusmc_tpu/resampling/rolls.py:109", "main"),
+     "cusmc_tpu/resampling/rolls.py:109", ("main", "streaming")),
     ("fused_filter_step", "cusmc_tpu_torch/csrc/fused_step.cu",
      "cusmc_tpu/ops/fused_step.py:127", "pallas"),
     ("fused_cdf_filter_step", "cusmc_tpu_torch/csrc/fused_cdf_step.cu",
@@ -1606,7 +1628,7 @@ KERNELS = (
     ("take_columns", GATHER_CU,
      "cusmc_tpu/ops/monotone_gather.py:204", ("sharded", "generic")),
     ("inverse_cdf_apply[local_base]", GATHER_CU,
-     "cusmc_tpu/ops/monotone_gather.py:401", "sharded"),
+     "cusmc_tpu/ops/monotone_gather.py:401", ("sharded", "streaming")),
     ("fused_filter_step[bf16]", "cusmc_tpu_torch/csrc/fused_step.cu",
      "cusmc_tpu/ops/fused_step.py:127", "bf16"),
     ("roll_metropolis_sweeps_expspace[bf16]", "cusmc_tpu_torch/csrc/rolls.cu",
@@ -2310,6 +2332,339 @@ def sharded_path(card: str) -> None:
             dist.destroy_process_group()
 
 
+# -- the headless runner and the streaming filter -------------------------
+
+STREAM_CHUNK = 64        # steps a chunk, the streaming filter's default
+STREAM_SPILL_STEPS = 50  # the disk spill's run: 50 x 8.39 MB to a file
+STREAM_WIDE_STEPS = 100  # the full-width rows, d = 32
+HALT_STEPS, HALT_CHUNK, HALT_NAN = 81, 20, 50  # halt and resume
+
+
+def build_native() -> None:
+    """Build the host runtime (``native/``, ``make -C native``) when the
+    checkout has no build of it: a ``git archive`` has no build directory.
+    Phase 4f fails if the streaming filter's native store did not load."""
+    from cusmc_tpu_torch.io import native
+
+    if native.lib_path() is None:
+        t0 = time.perf_counter()
+        root = os.path.dirname(os.path.abspath(__file__))
+        out = subprocess.run(["make", "-C", os.path.join(root, "native")],
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, f"make -C native failed:\n{out.stdout}" \
+            f"\n{out.stderr}"
+        print(f"native: built in {time.perf_counter() - t0:.1f} s")
+    assert native.get_lib() is not None, "native library did not load"
+    print(f"native: {native.lib_path()}")
+
+
+def _best_of(fns, reps=2) -> dict:
+    """label -> best wall seconds (ending in a synchronize) of each
+    function, one warm-up round first, the functions in turns."""
+    import torch
+
+    best = {k: math.inf for k in fns}
+    for rep in range(reps + 1):
+        for label, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            if rep:
+                best[label] = min(best[label], time.perf_counter() - t0)
+            del out
+    return best
+
+
+def _same_result(label, a, b) -> None:
+    """Final particles, log weights, log-evidence and ESS bitwise."""
+    import torch
+
+    for field in ("final_particles", "final_log_weights", "log_evidence",
+                  "ess"):
+        x, y = getattr(a, field), getattr(b, field)
+        assert torch.equal(x, y), f"{label}: {field} differs"
+
+
+def _cli(args, env):
+    return subprocess.Popen([sys.executable, "-m", "cusmc_tpu_torch"] + args,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+
+
+def _cli_line(proc, label, timeout=300) -> dict:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    assert proc.returncode == 0, f"{label}: exit {proc.returncode}\n{err}"
+    lines = out.strip().splitlines()
+    assert len(lines) == 1, f"{label}: stdout is not one line: {out!r}"
+    return json.loads(lines[0])
+
+
+def streaming_path(card: str) -> None:
+    """Phase 4f: the streaming filter and the headless runner."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cusmc_tpu_torch.checkpoint import FilterCheckpoint
+    from cusmc_tpu_torch.io.data import Y_SIM_PATH, demo_model_params, \
+        load_y_sim
+    from cusmc_tpu_torch.io.disk_store import DiskTrajectoryStore
+    from cusmc_tpu_torch.io.native_store import TrajectoryStore
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.parallel import ParticleAxis, \
+        initialize_distributed, sharded_bootstrap_filter
+    from cusmc_tpu_torch.smc.kalman import kalman_filter
+    from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+    from cusmc_tpu_torch.smc.streaming import streaming_bootstrap_filter
+    from cusmc_tpu_torch.utils.debug import FilterDivergedError
+
+    p = demo_model_params()
+    n, steps = N_BIG, 200
+    mvt = DLM.create(noise="mvt", df=5.0, device="cuda", **p)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    _, ys_h = mvt.simulate(gen, steps)
+    rows = {"metropolis": ({"num_steps": 10}, ROLL_KERNELS),
+            "systematic": (None, CDF_KERNELS)}
+    step_mb = n * D * 4 / 1e6
+
+    # The chunk's copy to the host and the host store's append, on a
+    # chunk of the headline's history.
+    block = torch.randn((STREAM_CHUNK, n, D), device="cuda")
+    nbytes = block.numel() * 4
+    host = block.cpu()
+    copy_s = min(_timed(lambda: block.cpu()) for _ in range(3))
+    append = {}
+    for kind, force in (("native", False), ("numpy", True)):
+        secs = []
+        for _ in range(3):
+            st = TrajectoryStore((n, D), STREAM_CHUNK, np.float32,
+                                 force_numpy=force)
+            assert st.native == (not force), f"{kind} store"
+            secs.append(_timed(lambda: st.append(host.numpy())))
+            del st
+        append[kind] = min(secs)
+    del block, host
+    print(f"  chunk copy to the host ({STREAM_CHUNK} x {step_mb:.2f} MB, "
+          f"pageable): {nbytes / copy_s / 1e9:.3f} GB/s; host append: "
+          f"native {nbytes / append['native'] / 1e9:.3f} GB/s, numpy "
+          f"{nbytes / append['numpy'] / 1e9:.3f} GB/s [{card}]")
+
+    # The headline: streamed history bitwise the one-shot history; the
+    # four rates; each streaming run launches its kernels T-1 times.
+    for resampler, (kwargs, used) in rows.items():
+        kw = dict(resampler=resampler, resampler_kwargs=kwargs)
+        one = bootstrap_filter(0, mvt, ys_h, n, return_history=True, **kw)
+        before = _counts()
+        st, store = streaming_bootstrap_filter(0, mvt, ys_h, n,
+                                               chunk_steps=STREAM_CHUNK, **kw)
+        torch.cuda.synchronize()
+        _expect_launches(before, _counts(), used, steps - 1,
+                         f"streaming {resampler} with store", FUSED_KERNELS)
+        assert store.native, "the streaming store is not the native arena"
+        _same_result(f"streaming {resampler}", st, one)
+        assert store.size == steps and store.start_step == 0
+        assert np.array_equal(store.view(), one.particles.cpu().numpy()), \
+            f"streaming {resampler}: stored history differs"
+        del one, st, store
+        torch.cuda.empty_cache()
+        best = _best_of({
+            "one-shot, no history": lambda: bootstrap_filter(
+                1, mvt, ys_h, n, return_history=False, **kw),
+            "one-shot, device history": lambda: bootstrap_filter(
+                1, mvt, ys_h, n, return_history=True, **kw),
+            "streaming, no store": lambda: streaming_bootstrap_filter(
+                1, mvt, ys_h, n, chunk_steps=STREAM_CHUNK,
+                store_particles=False, **kw),
+            "streaming, native store": lambda: streaming_bootstrap_filter(
+                1, mvt, ys_h, n, chunk_steps=STREAM_CHUNK, **kw)})
+        print(f"  headline MVT df=5 {resampler} N=2^20 T={steps} d=2, chunk "
+              f"{STREAM_CHUNK}: history bitwise the one-shot run's; " +
+              "; ".join(f"{k} {n * (steps - 1) / v:.6g} particle-steps/s "
+                        f"({v * 1e3 / (steps - 1):.4f} ms a step)"
+                        for k, v in best.items()) +
+              f"; one warm-up, best of 2, in turns [{card}]")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # Disk spill: the history written by the background thread equals
+        # the arena's.
+        ys_s = ys_h[:STREAM_SPILL_STEPS]
+        spill = os.path.join(tmp, "hist.bin")
+        t0 = time.perf_counter()
+        res_d, disk = streaming_bootstrap_filter(
+            2, mvt, ys_s, n, chunk_steps=STREAM_CHUNK, resampler="systematic",
+            spill_path=spill)
+        assert disk.native, "the disk store is not the native writer"
+        disk.finish()
+        secs = time.perf_counter() - t0
+        res_a, arena = streaming_bootstrap_filter(
+            2, mvt, ys_s, n, chunk_steps=STREAM_CHUNK, resampler="systematic")
+        _same_result("disk spill", res_d, res_a)
+        reopened = DiskTrajectoryStore.open(spill)
+        assert np.array_equal(reopened, arena.view()), "spilled history"
+        print(f"  disk spill, systematic T={STREAM_SPILL_STEPS}: "
+              f"{os.path.getsize(spill) / 1e6:.1f} MB, run and finish "
+              f"{secs:.2f} s, reopened history bitwise the arena's "
+              f"[{card}]")
+        del reopened, arena, disk
+
+        # Full width, d = 32, no store: bitwise the one-shot run.
+        wide = DLM.create(noise="mvt", df=5.0, device="cuda",
+                          **demo_model_params(D_WIDE))
+        gen.manual_seed(0)
+        _, ys_w = wide.simulate(gen, STREAM_WIDE_STEPS)
+        for resampler, (kwargs, used) in rows.items():
+            kw = dict(resampler=resampler, resampler_kwargs=kwargs)
+            one = bootstrap_filter(3, wide, ys_w, n, return_history=False,
+                                   **kw)
+            before = _counts()
+            st, store = streaming_bootstrap_filter(
+                3, wide, ys_w, n, chunk_steps=STREAM_CHUNK,
+                store_particles=False, **kw)
+            torch.cuda.synchronize()
+            assert store is None
+            _expect_launches(before, _counts(), used, STREAM_WIDE_STEPS - 1,
+                             f"streaming d={D_WIDE} {resampler}",
+                             FUSED_KERNELS)
+            _same_result(f"streaming d={D_WIDE} {resampler}", st, one)
+            print(f"  full width d={D_WIDE} {resampler} N=2^20 "
+                  f"T={STREAM_WIDE_STEPS}: bitwise the one-shot run, logZ "
+                  f"{float(st.log_evidence):.3f} [{card}]")
+
+        # Halt and resume: MVN, N=2^17, the bundled trace cut to 81 steps.
+        mvn = DLM.create(noise="mvn", device="cuda", **p)
+        ys = load_y_sim()
+        clean = ys[:HALT_STEPS]
+        bad = np.array(clean, np.float32)
+        bad[HALT_NAN, 0] = np.nan
+        ckpt = FilterCheckpoint(os.path.join(tmp, "snap"))
+        kw = dict(chunk_steps=HALT_CHUNK, resampler="systematic",
+                  store_particles=False)
+        try:
+            streaming_bootstrap_filter(4, mvn, bad, 1 << 17, checkpoint=ckpt,
+                                       **kw)
+            raise AssertionError("the NaN did not halt the filter")
+        except FilterDivergedError as e:
+            assert e.last_good_step == HALT_NAN - HALT_NAN % HALT_CHUNK, e
+            assert e.snapshot.endswith(f"step_{e.last_good_step}.npz"), e
+            halted = e
+        resumed, _ = streaming_bootstrap_filter(4, mvn, clean, 1 << 17,
+                                                checkpoint=ckpt, resume=True,
+                                                **kw)
+        full, _ = streaming_bootstrap_filter(4, mvn, clean, 1 << 17, **kw)
+        for field in ("final_particles", "final_log_weights",
+                      "log_evidence"):
+            assert torch.equal(getattr(resumed, field),
+                               getattr(full, field)), f"resume: {field}"
+        _, _, loglik = kalman_filter(ys, **{k: p[k] for k in
+                                            ("F", "G", "V", "W", "m0",
+                                             "C0")})
+        before = _counts()
+        long, _ = streaming_bootstrap_filter(
+            5, mvn, ys, 1 << 17, chunk_steps=STREAM_CHUNK,
+            resampler="systematic", store_particles=False)
+        _expect_launches(before, _counts(), CDF_KERNELS, ys.shape[0] - 1,
+                         "streaming kalman", FUSED_KERNELS)
+        gap = abs(float(long.log_evidence) - loglik)
+        assert gap < 0.02 * abs(loglik), "streaming logZ off"
+        print(f"  halt at NaN step {HALT_NAN}: last good step "
+              f"{halted.last_good_step}, snapshot "
+              f"{os.path.basename(halted.snapshot)}; resume bitwise the "
+              f"uninterrupted run; kalman MVN systematic N=2^17 "
+              f"T={ys.shape[0]} streamed: logZ "
+              f"{float(long.log_evidence):.3f} vs Kalman {loglik:.3f} "
+              f"(|gap| {gap:.3f}, limit {0.02 * abs(loglik):.3f}) [{card}]")
+
+        # Sharded streaming on a one-rank NCCL group: the sharded one-shot
+        # run, bitwise.
+        initialize_distributed(f"file://{tmp}/store", 1, 0)
+        try:
+            axis = ParticleAxis()
+            one = sharded_bootstrap_filter(0, mvt, ys_h, n, axis,
+                                           resampler="systematic")
+            before = _counts()
+            st, _ = streaming_bootstrap_filter(
+                0, mvt, ys_h, n, chunk_steps=STREAM_CHUNK,
+                resampler="systematic", store_particles=False, axis=axis)
+            torch.cuda.synchronize()
+            _expect_launches(before, _counts(),
+                             ("inverse_cdf_apply[local_base]",
+                              "blocked_cumsum"), steps - 1,
+                             "sharded streaming systematic", FUSED_KERNELS)
+            _same_result("sharded streaming", st, one)
+            best = _best_of({
+                "sharded one-shot": lambda: sharded_bootstrap_filter(
+                    1, mvt, ys_h, n, axis, resampler="systematic"),
+                "sharded streaming": lambda: streaming_bootstrap_filter(
+                    1, mvt, ys_h, n, chunk_steps=STREAM_CHUNK,
+                    resampler="systematic", store_particles=False,
+                    axis=axis)})
+            print(f"  sharded streaming systematic (one-rank NCCL group) "
+                  f"N=2^20 T={steps}: bitwise the sharded one-shot run; " +
+                  "; ".join(f"{k} {n * (steps - 1) / v:.6g} "
+                            "particle-steps/s" for k, v in best.items()) +
+                  f" [{card}]")
+        finally:
+            dist.destroy_process_group()
+
+        # The runner, as subprocesses on the card.
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root)
+        cfg = os.path.join(tmp, "cfg.json")
+        with open(cfg, "w") as f:
+            json.dump({"num_particles": 1 << 17,
+                       "model": {k: np.asarray(v).tolist()
+                                 for k, v in p.items()},
+                       "distribution": "mvn", "resampler": "systematic",
+                       "seed": 1}, f)
+        run = ["run", "--config", cfg, "--data", str(Y_SIM_PATH)]
+        ck = os.path.join(tmp, "cli_ck")
+        out_dir = os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        procs = {"demo": _cli(["demo"], env),
+                 "run": _cli(run + ["--output-dir", out_dir], env),
+                 "stream": _cli(run + ["--stream", str(STREAM_CHUNK),
+                                       "--checkpoint", ck], env)}
+        lines = {k: _cli_line(v, k) for k, v in procs.items()}
+        lines["resume"] = _cli_line(_cli(
+            run + ["--stream", str(STREAM_CHUNK), "--checkpoint", ck,
+                   "--resume"], env), "resume")
+        cli_s = time.perf_counter() - t0
+        assert math.isfinite(lines["demo"]["log_evidence"])
+        assert sorted(os.listdir(out_dir)) == ["x_t_N0.csv", "y_t.csv"]
+        for k in ("run", "stream", "resume"):
+            gap = abs(lines[k]["log_evidence"] - loglik)
+            assert gap < 0.02 * abs(loglik), f"cli {k}: logZ off"
+        assert lines["resume"]["log_evidence"] == \
+            lines["stream"]["log_evidence"] == lines["run"]["log_evidence"]
+        print(f"  cli (subprocesses, {cli_s:.1f} s): demo logZ "
+              f"{lines['demo']['log_evidence']:.3f}, "
+              f"{lines['demo']['particle_steps_per_sec']:.6g} "
+              f"particle-steps/s; run / --stream {STREAM_CHUNK} / --resume "
+              f"MVN N=2^17 T={ys.shape[0]}: logZ "
+              f"{lines['run']['log_evidence']:.3f} (Kalman {loglik:.3f}), "
+              f"equal in all three; --output-dir wrote y_t.csv, x_t_N0.csv "
+              f"[{card}]")
+
+
+def _timed(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 # -- the main paths' own traffic ------------------------------------------
 
 # Steps of a T = 200 run whose inputs to the block-window kernels are kept
@@ -2547,6 +2902,7 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     build_kernels()
+    build_native()
     with phase("kernels against their plain versions"):
         rec = check_kernels()
         rec.update(check_shard_kernels())
@@ -2566,7 +2922,9 @@ def main(argv=None) -> int:
             ("bf16", "mixed precision (a bfloat16 state, beside float32)",
              bf16_path),
             ("generic", "generic path (the log-space step)",
-             generic_path)):
+             generic_path),
+            ("streaming", "the headless runner and the streaming filter",
+             streaming_path)):
         with phase(title):
             _zero_counts()
             drive(card)

@@ -16,7 +16,11 @@ systematic/stratified inverse CDF) with Philox bits made in the kernel;
 the generic log-space step (``layout="batch"``, models without packed
 methods such as ``CustomSSM``, time-varying hooks, the resampler registry
 ``get_resampler``/``register_resampler``, ``debug_checks``); mixed
-precision; and the particle-sharded filter (``cusmc_tpu_torch.parallel``).
+precision; the particle-sharded filter (``cusmc_tpu_torch.parallel``); the
+streaming filter with checkpoints and snapshot-and-halt
+(``smc/streaming.py``, ``checkpoint.py``) over the native host stores of
+``native/`` (``io/native_store.py``, ``io/disk_store.py``); and the
+headless runner, ``python -m cusmc_tpu_torch demo|run`` (``config.py``).
 On a CUDA tensor each kernel wrapper launches its kernel or raises; only a
 CPU tensor takes the plain PyTorch version.
 

@@ -9,8 +9,10 @@ file path from the JAX package's data directory
 here (a missing file raises), and ``cusmc_tpu`` is not imported. So
 ``generate_y_sim`` takes the file to write as a required argument; its
 trace comes from ``DLM.simulate`` on a ``torch.Generator`` (Philox), the
-same law as the bundled one but other numbers. The native C++ CSV parser
-is not used.
+same law as the bundled one but other numbers. ``load_csv`` parses with
+the native C++ parser of ``native/`` (``io/native.py``) when the library
+is built (``make -C native``), as the JAX package does, and with numpy
+otherwise.
 """
 
 from __future__ import annotations
@@ -73,8 +75,20 @@ def generate_y_sim(path, num_steps: int = 1001, seed: int = 0,
     return ys
 
 
-def load_csv(path) -> np.ndarray:
-    """Load a headered CSV of floats -> [rows, cols] float64 array."""
+def load_csv(path, force_numpy: bool = False) -> np.ndarray:
+    """Load a headered CSV of floats -> [rows, cols] float64 array,
+    through the native parser when it is built (unless ``force_numpy``);
+    where the native parser fails, numpy parses (and reports) instead, as
+    in the JAX package."""
+    if not force_numpy:
+        from cusmc_tpu_torch.io.native import load_csv_native
+
+        try:
+            out = load_csv_native(path)
+        except OSError:
+            out = None
+        if out is not None:
+            return out
     return np.genfromtxt(path, delimiter=",", skip_header=1, dtype=np.float64)
 
 

@@ -106,6 +106,10 @@ class ParticleAxis:
         """Elementwise max over the ranks."""
         return self._all_reduce(x, dist.ReduceOp.MAX)
 
+    def barrier(self) -> None:
+        """Wait until every rank has reached this call."""
+        dist.barrier()
+
     def ppermute(self, x: torch.Tensor,
                  perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """``lax.ppermute``: ``perm`` lists (source, destination) rank

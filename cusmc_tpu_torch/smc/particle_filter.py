@@ -80,7 +80,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -126,7 +126,8 @@ from cusmc_tpu_torch.resampling.rolls import (
     roll_metropolis_resample_op,
     roll_metropolis_sweeps_expspace,
 )
-from cusmc_tpu_torch.utils.debug import assert_finite_weights
+from cusmc_tpu_torch.utils.debug import assert_finite_weights, \
+    nan_checks_enabled, raise_on_nan
 
 
 @dataclass
@@ -508,15 +509,32 @@ def _fused_cdf_eligible(model, n: int) -> bool:
             and n % 128 == 0 and n <= 1 << 24)
 
 
-def bootstrap_filter(
+class FilterSetup(NamedTuple):
+    """What a filter loop needs, from ``filter_setup``: the step function
+    ``step(x, w, y_t, streams, t=t) -> (x_new, w_new, ess, lz_inc, ll,
+    a)``; whether its carried weights are normalised log weights
+    (``log_carry``) or max-normalised exp-space weights; the layout; the
+    generator(s) it draws from; the initial cloud ``x0`` (packed [d, N] or
+    batch [N, d]), the carried initial weights ``w0`` and the initial log
+    weights ``logw0`` (uniform, -log N global); and the device."""
+
+    step: Callable
+    log_carry: bool
+    packed: bool
+    streams: Streams
+    x0: torch.Tensor
+    w0: torch.Tensor
+    logw0: torch.Tensor
+    device: torch.device
+
+
+def filter_setup(
     key: KeyLike,
     model,
-    ys,
     num_particles: int,
     resampler: str = "metropolis",
     resampler_kwargs: Optional[dict] = None,
     ess_threshold: Optional[float] = None,
-    return_history: bool = True,
     layout: str = "auto",
     engine: str = "auto",
     pallas_tile: Optional[int] = None,
@@ -526,46 +544,13 @@ def bootstrap_filter(
     resample_op_weights: str = "log",
     debug_checks: bool = False,
     device=None,
-) -> FilterResult:
-    """Run the bootstrap filter on observations ``ys`` [T, k]; row 0 is
-    ignored (t=0 is the prior draw).
-
-    ``key``: an int seed or a ``torch.Generator`` on the run's device.
-    ``device``: where to run; a model with a ``device`` (a DLM) must
-    already live there (None -> the model's device; for a model without
-    one, such as a ``CustomSSM``, None means the card). ``resampler``: a
-    registry key (``resampling.get_resampler``: "metropolis",
-    "systematic", "stratified", "multinomial", "residual" or a registered
-    one). ``ess_threshold=None`` resamples every step; a float in (0, 1]
-    resamples when ESS < threshold * N.
-
-    ``layout``: "auto" (packed, unless a ``resample_op`` is injected or
-    the model has no packed methods: then "batch"), "packed" or "batch".
-    Batch results keep the drawn [T, N, d] layout. ``debug_checks=True``
-    takes the generic log-space step and prints a guard when the weights
-    turn NaN or all -inf.
-
-    ``engine``: "auto" or "xla" (the composed path), or "pallas" (one
-    fused kernel per step: metropolis, systematic or stratified, packed,
-    no ESS threshold, one shard, a DLM with d, k <= 128, float32, or
-    bfloat16 at even d for metropolis). ``pallas_tile``: the fused
-    kernels' tile (None: their auto choice). ``resampler_kwargs`` of the
-    fused path: ``num_steps`` and ``num_window_tiles`` (metropolis),
-    ``sr`` (the CDF family).
-
-    ``resample_op`` replaces the resampling: an op object with
-    ``draw(streams, w)`` and ``op(x, w, draws) -> (x_anc, w_after, a)``
-    in the chosen layout, over log weights, or over max-normalised exp
-    weights with ``resample_op_weights="exp"`` (packed layout, engine
-    "auto" or "xla", no ``debug_checks``: the fast step carries them).
-    The sharded filter (what ``parallel.sharded_bootstrap_filter`` calls
-    on each rank): ``axis_name`` a ``parallel.mesh.ParticleAxis`` (None:
-    one shard), ``num_particles`` this rank's block of
-    ``num_particles_global``, an op of ``parallel/resampling.py``, and
-    ``key`` an int seed for the two streams of ``parallel.mesh``. The
-    result holds this rank's particles and weights, global ancestors, and
-    the replicated ESS and log-evidence.
-    """
+) -> FilterSetup:
+    """The step, the carry's form and the initial carry of a run of
+    ``bootstrap_filter`` with these arguments (see its docstring): the
+    layout and engine checks, the choice of step, the generator(s) and
+    the initial draw. ``bootstrap_filter`` and the streaming filter
+    (``smc/streaming.py``) both start here, so a chunked run executes the
+    same step object on the same generators in the same order."""
     if engine not in ("auto", "xla", "pallas"):
         raise ValueError(f"unknown engine {engine!r}")
     if isinstance(axis_name, str):
@@ -676,44 +661,146 @@ def bootstrap_filter(
     # or normalised log weights (the fused Metropolis and generic steps).
     log_carry = not (use_fused_cdf or exp_op is not None)
 
-    x = (model.sample_initial_packed(streams.rank, n) if packed
-         else model.sample_initial(streams.rank, (n,)))
+    x0 = (model.sample_initial_packed(streams.rank, n) if packed
+          else model.sample_initial(streams.rank, (n,)))
     # Weights are at least float32, whatever the state dtype.
-    wdtype = torch.promote_types(x.dtype, torch.float32)
+    wdtype = torch.promote_types(x0.dtype, torch.float32)
+    logw0 = torch.full((n,), -math.log(n_global), dtype=wdtype, device=dev)
+    w0 = logw0 if log_carry else torch.exp(logw0 - torch.max(logw0))
+    return FilterSetup(step, log_carry, packed, streams, x0, w0, logw0, dev)
+
+
+def scan_steps(step: Callable, x: torch.Tensor, w: torch.Tensor,
+               ys: torch.Tensor, t0: int, streams: Streams,
+               esss: torch.Tensor, lzs: torch.Tensor, xs=None, lls=None,
+               ancs=None):
+    """Run the steps t0, t0 + 1, ... on the observation rows ``ys`` from
+    the carry ``(x, w)``; row i of ``esss``, ``lzs`` and of each history
+    buffer given (``xs``, ``lls``, ``ancs``) receives step t0 + i.
+    Returns the carry after the last step. Under
+    ``utils.debug.debug_mode()`` each step's state, weights and evidence
+    increment are checked for NaN (one host read a step), and the first
+    NaN raises ``FloatingPointError`` naming the step."""
+    check = nan_checks_enabled()
+    for i in range(ys.shape[0]):
+        t = t0 + i
+        x, w, ess, lz_inc, ll, a = step(x, w, ys[i], streams, t=t)
+        esss[i] = ess
+        lzs[i] = lz_inc
+        if xs is not None:
+            xs[i] = x
+        if lls is not None:
+            lls[i] = ll
+            ancs[i] = a
+        if check:
+            raise_on_nan(t, x=x, weights=w, evidence=lz_inc)
+    return x, w
+
+
+def final_log_weights(w: torch.Tensor, log_carry: bool,
+                      axis=None) -> torch.Tensor:
+    """The normalised log weights of a carry's weights (global
+    normalisation over ``axis``)."""
+    if log_carry:
+        return w
+    return torch.log(w) - torch.log(psum(torch.sum(w), axis))
+
+
+def bootstrap_filter(
+    key: KeyLike,
+    model,
+    ys,
+    num_particles: int,
+    resampler: str = "metropolis",
+    resampler_kwargs: Optional[dict] = None,
+    ess_threshold: Optional[float] = None,
+    return_history: bool = True,
+    layout: str = "auto",
+    engine: str = "auto",
+    pallas_tile: Optional[int] = None,
+    axis_name=None,
+    num_particles_global: Optional[int] = None,
+    resample_op=None,
+    resample_op_weights: str = "log",
+    debug_checks: bool = False,
+    device=None,
+) -> FilterResult:
+    """Run the bootstrap filter on observations ``ys`` [T, k]; row 0 is
+    ignored (t=0 is the prior draw).
+
+    ``key``: an int seed or a ``torch.Generator`` on the run's device.
+    ``device``: where to run; a model with a ``device`` (a DLM) must
+    already live there (None -> the model's device; for a model without
+    one, such as a ``CustomSSM``, None means the card). ``resampler``: a
+    registry key (``resampling.get_resampler``: "metropolis",
+    "systematic", "stratified", "multinomial", "residual" or a registered
+    one). ``ess_threshold=None`` resamples every step; a float in (0, 1]
+    resamples when ESS < threshold * N.
+
+    ``layout``: "auto" (packed, unless a ``resample_op`` is injected or
+    the model has no packed methods: then "batch"), "packed" or "batch".
+    Batch results keep the drawn [T, N, d] layout. ``debug_checks=True``
+    takes the generic log-space step and prints a guard when the weights
+    turn NaN or all -inf. Under ``utils.debug.debug_mode()`` every step
+    is checked for NaN and the first raises ``FloatingPointError``.
+
+    ``engine``: "auto" or "xla" (the composed path), or "pallas" (one
+    fused kernel per step: metropolis, systematic or stratified, packed,
+    no ESS threshold, one shard, a DLM with d, k <= 128, float32, or
+    bfloat16 at even d for metropolis). ``pallas_tile``: the fused
+    kernels' tile (None: their auto choice). ``resampler_kwargs`` of the
+    fused path: ``num_steps`` and ``num_window_tiles`` (metropolis),
+    ``sr`` (the CDF family).
+
+    ``resample_op`` replaces the resampling: an op object with
+    ``draw(streams, w)`` and ``op(x, w, draws) -> (x_anc, w_after, a)``
+    in the chosen layout, over log weights, or over max-normalised exp
+    weights with ``resample_op_weights="exp"`` (packed layout, engine
+    "auto" or "xla", no ``debug_checks``: the fast step carries them).
+    The sharded filter (what ``parallel.sharded_bootstrap_filter`` calls
+    on each rank): ``axis_name`` a ``parallel.mesh.ParticleAxis`` (None:
+    one shard), ``num_particles`` this rank's block of
+    ``num_particles_global``, an op of ``parallel/resampling.py``, and
+    ``key`` an int seed for the two streams of ``parallel.mesh``. The
+    result holds this rank's particles and weights, global ancestors, and
+    the replicated ESS and log-evidence.
+    """
+    s = filter_setup(
+        key, model, num_particles, resampler=resampler,
+        resampler_kwargs=resampler_kwargs, ess_threshold=ess_threshold,
+        layout=layout, engine=engine, pallas_tile=pallas_tile,
+        axis_name=axis_name, num_particles_global=num_particles_global,
+        resample_op=resample_op, resample_op_weights=resample_op_weights,
+        debug_checks=debug_checks, device=device)
+    n, dev, x = num_particles, s.device, s.x0
+    wdtype = s.logw0.dtype
     ys = torch.as_tensor(ys, dtype=wdtype).to(dev).contiguous()
     num_steps = ys.shape[0]
-    logw0 = torch.full((n,), -math.log(n_global), dtype=wdtype, device=dev)
-    w = logw0 if log_carry else torch.exp(logw0 - torch.max(logw0))
     esss = torch.empty((num_steps - 1,), dtype=wdtype, device=dev)
     lzs = torch.empty((num_steps - 1,), dtype=wdtype, device=dev)
+    xs = lls = ancs = None
     if return_history:
         xs = torch.empty((num_steps,) + tuple(x.shape), dtype=x.dtype,
                          device=dev)
         lls = torch.empty((num_steps, n), dtype=wdtype, device=dev)
         ancs = torch.empty((num_steps, n), dtype=torch.int32, device=dev)
         xs[0] = x
-        lls[0] = logw0  # t=0 raw weight is the uniform 1/N fill
+        lls[0] = s.logw0  # t=0 raw weight is the uniform 1/N fill
         ancs[0] = global_slots(n, axis_name, dev)
 
-    for t in range(1, num_steps):
-        x, w, ess, lz_inc, ll, a = step(x, w, ys[t], streams, t=t)
-        esss[t - 1] = ess
-        lzs[t - 1] = lz_inc
-        if return_history:
-            xs[t] = x
-            lls[t] = ll
-            ancs[t] = a
+    hist = (xs[1:], lls[1:], ancs[1:]) if return_history else ()
+    x, w = scan_steps(s.step, x, s.w0, ys[1:], 1, s.streams, esss, lzs,
+                      *hist)
 
-    logw_f = (w if log_carry else
-              torch.log(w) - torch.log(psum(torch.sum(w), axis_name)))
-    ess = torch.cat([effective_sample_size(logw0, axis_name)[None], esss])
+    logw_f = final_log_weights(w, s.log_carry, axis_name)
+    ess = torch.cat([effective_sample_size(s.logw0, axis_name)[None], esss])
     log_evidence = torch.sum(lzs)
-    x_f = x.T if packed else x
+    x_f = x.T if s.packed else x
     if not return_history:
         return FilterResult(final_particles=x_f, final_log_weights=logw_f,
                             ess=ess, log_evidence=log_evidence)
     return FilterResult(
         final_particles=x_f, final_log_weights=logw_f, ess=ess,
         log_evidence=log_evidence,
-        particles=xs.transpose(1, 2) if packed else xs,
+        particles=xs.transpose(1, 2) if s.packed else xs,
         obs_loglik=lls, ancestors=ancs)

@@ -1,15 +1,24 @@
 """Debug and validation helpers.
 
 Port of ``cusmc_tpu/utils/debug.py``: ``FilterDivergedError`` (``:30-42``),
-``assert_finite_weights`` (``:52-65``, the weight guard of
-``bootstrap_filter(debug_checks=True)``) and ``validate_dlm_inputs``
-(``:68-89``). ``debug_mode`` (JAX's ``jax_debug_nans``) and
-``count_primitive`` (a jaxpr walk) have no counterpart in the port yet
-(ROADMAP queue 1, item 10).
+``debug_mode`` (``:45-49``), ``assert_finite_weights`` (``:52-65``, the
+weight guard of ``bootstrap_filter(debug_checks=True)``) and
+``validate_dlm_inputs`` (``:68-89``). ``count_primitive`` (a jaxpr walk,
+used by a sharded test) has no counterpart yet (ROADMAP queue 1, item 16).
+
+``debug_mode`` stands for ``jax.debug_nans``: torch has no global switch
+that raises where a NaN is made, so the filter loops check each step's
+state, weights and evidence increment while the context is open
+(``nan_checks_enabled``, ``raise_on_nan``) and raise ``FloatingPointError``
+naming the step. The switch is a context variable: it holds for the
+thread (or task) that opened the context, and closing it restores the
+state before.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import numpy as np
@@ -26,6 +35,41 @@ class FilterDivergedError(RuntimeError):
         super().__init__(message)
         self.last_good_step = last_good_step
         self.snapshot = snapshot
+
+
+_NAN_CHECKS = contextvars.ContextVar("cusmc_tpu_torch_nan_checks",
+                                     default=False)
+
+
+@contextlib.contextmanager
+def debug_mode(disable_jit: bool = False):
+    """Check every filter step for NaN within the scope (the counterpart
+    of ``jax.debug_nans``). ``disable_jit`` is accepted for the JAX
+    package's signature; torch runs op by op already, so it changes
+    nothing."""
+    del disable_jit
+    token = _NAN_CHECKS.set(True)
+    try:
+        yield
+    finally:
+        _NAN_CHECKS.reset(token)
+
+
+def nan_checks_enabled() -> bool:
+    """True inside ``debug_mode()``."""
+    return _NAN_CHECKS.get()
+
+
+def raise_on_nan(t: int, **tensors: torch.Tensor) -> None:
+    """Raise ``FloatingPointError`` naming step ``t`` and the tensors that
+    hold a NaN (one host read for all of them)."""
+    names = list(tensors)
+    flags = torch.stack([torch.isnan(v).any() for v in tensors.values()]
+                        ).tolist()
+    bad = [name for name, flag in zip(names, flags) if flag]
+    if bad:
+        raise FloatingPointError(
+            f"NaN in the filter's {', '.join(bad)} at step {t}")
 
 
 def assert_finite_weights(logw: torch.Tensor, t=None) -> None:

@@ -20,10 +20,20 @@ block):
   ``x`` as [d, L] in either layout.
 - ``"filter"``: ``sharded_bootstrap_filter`` on the demo DLM and the first
   ``T`` rows of the bundled trace. Outputs log-evidence, ESS, the block's
-  final particles and log weights, and its ancestors when kept.
+  final particles and log weights, and its ancestors and particle history
+  when kept.
 - ``"single"``: the single-device filter of the same model seeded with
   the rank stream's seed, beside a ``"filter"`` case for the P = 1
   equality.
+- ``"stream"``: ``smc/streaming.streaming_bootstrap_filter`` over the
+  group (``sharded=False``: on one device, every rank alike), with
+  ``chunk`` steps a chunk and an optional snapshot directory
+  ``checkpoint`` (saved every ``every`` steps, default every chunk).
+  ``mode`` "run" outputs log-evidence, ESS, the block's final particles
+  and log weights, the store's history and start step; "halt" puts a NaN
+  in row ``nan_at`` and outputs the raised error's last good step and
+  snapshot file name; "spy" runs without store and checkpoint and outputs
+  the halt guard's host reads and the shapes that crossed to the host.
 
 A case with ``custom=True`` wraps the demo DLM in a ``CustomSSM`` (batch
 methods only): the sharded filter then runs the batch layout with the
@@ -82,6 +92,52 @@ def _model(case):
     return model, load_y_sim()[:case["T"]]
 
 
+def stream_case(case, axis):
+    from cusmc_tpu_torch.checkpoint import FilterCheckpoint
+    from cusmc_tpu_torch.smc import streaming
+    from cusmc_tpu_torch.utils.debug import FilterDivergedError
+
+    model, ys = _model(case)
+    ckpt = (FilterCheckpoint(case["checkpoint"]) if case.get("checkpoint")
+            else None)
+    kw = dict(chunk_steps=case["chunk"], resampler=case["resampler"],
+              resampler_kwargs=case.get("kwargs"), checkpoint=ckpt,
+              checkpoint_every=case.get("every"),
+              axis=axis if case.get("sharded", True) else None)
+    mode = case.get("mode", "run")
+    if mode == "halt":
+        bad = np.array(ys, np.float32)
+        bad[case["nan_at"], 0] = np.nan
+        try:
+            streaming.streaming_bootstrap_filter(
+                case["seed"], model, bad, case["N"], store_particles=False,
+                **kw)
+        except FilterDivergedError as e:
+            return e.last_good_step, os.path.basename(e.snapshot)
+        raise AssertionError("the filter did not halt")
+    if mode == "spy":
+        reads, shapes = [], []
+        fetch, flag = streaming._host_fetch, streaming._host_flag
+        streaming._host_fetch = lambda x: shapes.append(
+            tuple(x.shape)) or fetch(x)
+        streaming._host_flag = lambda x: reads.append(
+            tuple(x.shape)) or flag(x)
+        try:
+            res, _ = streaming.streaming_bootstrap_filter(
+                case["seed"], model, ys, case["N"], store_particles=False,
+                **kw)
+        finally:
+            streaming._host_fetch, streaming._host_flag = fetch, flag
+        return reads, shapes, _numpy(res.log_evidence)
+    res, store = streaming.streaming_bootstrap_filter(
+        case["seed"], model, ys, case["N"], resume=case.get("resume", False),
+        store_particles=case.get("store", False), **kw)
+    hist = None if store is None else (np.array(store.view()),
+                                       store.start_step)
+    return _numpy((res.log_evidence, res.ess, res.final_particles,
+                   res.final_log_weights)) + (hist,)
+
+
 def run_case(case, axis):
     import torch
 
@@ -91,6 +147,8 @@ def run_case(case, axis):
     from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
 
     p = axis.index
+    if case["kind"] == "stream":
+        return stream_case(case, axis)
     if case["kind"] == "filter":
         model, ys = _model(case)
         res = sharded_bootstrap_filter(
@@ -100,7 +158,7 @@ def run_case(case, axis):
             ess_threshold=case.get("ess_threshold"),
             return_history=case.get("history", False), device="cpu")
         return _numpy((res.log_evidence, res.ess, res.final_particles,
-                       res.final_log_weights, res.ancestors))
+                       res.final_log_weights, res.ancestors, res.particles))
     if case["kind"] == "single":
         model, ys = _model(case)
         gen = torch.Generator().manual_seed(rank_seed(case["seed"], 0))

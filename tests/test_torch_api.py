@@ -11,6 +11,7 @@ rtol 1e-5 against the JAX functions; files, ancestors and fractions
 exactly.
 """
 
+import _torch_threads  # noqa: F401
 import filecmp
 import os
 

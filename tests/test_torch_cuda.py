@@ -26,6 +26,7 @@ chip_smoke.py's functions and limits (tests/test_torch_wide_oracle.py
 states them), so chip_smoke.py must sit at the root of the checkout.
 """
 
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch
@@ -598,3 +599,50 @@ def test_cuda_bf16_fused_step_kernel(cuda, d, noise, df):
     diff, _ = cs.bf16_state_mismatches(x, x_p, x_pre)
     same = diff.logical_not().all(0)
     _close(ll[same], ll_p[same])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resampler", ["metropolis", "systematic"])
+def test_cuda_streaming_launches_its_kernels(cuda, resampler):
+    # The streaming filter runs the one-shot filter's steps on the card:
+    # one roll, or one cumsum and one search-and-apply, launch a step, and
+    # the streamed run and its history equal the one-shot run bitwise.
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+    from cusmc_tpu_torch.smc.streaming import streaming_bootstrap_filter
+
+    model = DLM.create(noise="mvt", df=5.0, device=cuda,
+                       **demo_model_params())
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    _, ys = model.simulate(gen, 41)
+    counters = ([roll_metropolis_sweeps_expspace]
+                if resampler == "metropolis"
+                else [blocked_cumsum, inverse_cdf_apply])
+    before = [fn.launches for fn in counters]
+    res, store = streaming_bootstrap_filter(0, model, ys, 1 << 14,
+                                            chunk_steps=16,
+                                            resampler=resampler)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == \
+        [40] * len(counters)
+    one = bootstrap_filter(0, model, ys, 1 << 14, resampler=resampler)
+    assert torch.equal(res.final_particles, one.final_particles)
+    assert torch.equal(res.log_evidence, one.log_evidence)
+    assert torch.equal(res.ess, one.ess)
+    np.testing.assert_array_equal(store.view(), one.particles.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_generator_state_round_trip(cuda):
+    # A CUDA generator's state (Philox seed and offset) restores the same
+    # stream: what a snapshot of a run on the card holds.
+    from cusmc_tpu_torch.utils.rng import generator_state, \
+        set_generator_state
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    torch.rand(10, generator=gen, device=cuda)
+    state = generator_state(gen)
+    assert state.size == 16
+    want = torch.rand(5, generator=gen, device=cuda)
+    other = torch.Generator(device=cuda).manual_seed(9)
+    set_generator_state(other, state)
+    assert torch.equal(torch.rand(5, generator=other, device=cuda), want)

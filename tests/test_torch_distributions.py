@@ -13,6 +13,7 @@ there); against the JAX functions in float32 at rtol 1e-5 (atol 1e-5 for
 log-densities near zero).
 """
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

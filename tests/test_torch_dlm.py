@@ -8,6 +8,7 @@ arithmetic, with matmuls summed in another order); atol 1e-6 for values
 near zero.
 """
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

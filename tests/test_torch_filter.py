@@ -10,6 +10,7 @@ and the CDF search compares identical numbers. The filter-level bands are
 the JAX tests' (tests/test_particle_filter.py:32-61), not tighter ones.
 """
 
+import _torch_threads  # noqa: F401
 import os
 import subprocess
 import sys
@@ -239,6 +240,15 @@ def test_port_runs_without_jax():
         import cusmc_tpu_torch.parallel
         import cusmc_tpu_torch.resampling
         import cusmc_tpu_torch.utils.debug
+        import cusmc_tpu_torch.__main__
+        import cusmc_tpu_torch.checkpoint
+        import cusmc_tpu_torch.config
+        import cusmc_tpu_torch.io.disk_store
+        import cusmc_tpu_torch.io.native
+        import cusmc_tpu_torch.io.native_store
+        import cusmc_tpu_torch.smc.streaming
+        import cusmc_tpu_torch.utils.rng
+        import cusmc_tpu_torch.utils.timing
         from cusmc_tpu_torch.io.data import demo_model_params, load_y_sim
         p = demo_model_params()
         out = cusmc_tpu_torch.run(256, 2, 5, load_y_sim()[:5], p["m0"],
@@ -253,6 +263,11 @@ def test_port_runs_without_jax():
         res = cusmc_tpu_torch.bootstrap_filter(0, custom, load_y_sim()[:5],
                                                64, device="cpu")
         assert res.particles.shape == (5, 64, 2)
+        model = cusmc_tpu_torch.DLM.create(device="cpu", **p)
+        res, store = cusmc_tpu_torch.smc.streaming.\
+            streaming_bootstrap_filter(0, model, load_y_sim()[:9], 64,
+                                       chunk_steps=4)
+        assert store.view().shape == (9, 64, 2)
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "cusmc_tpu", "flax")
                and sys.modules[m] is not None]

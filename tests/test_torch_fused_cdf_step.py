@@ -11,6 +11,7 @@ statistical checks 5a-5d of ``benchmarks/validate_fused_tpu.py``
 own thresholds.
 """
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

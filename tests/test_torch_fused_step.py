@@ -11,6 +11,7 @@ the JAX package can run only on a TPU, run here through the plain version
 with real (Philox) bits and their own thresholds.
 """
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

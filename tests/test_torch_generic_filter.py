@@ -18,6 +18,7 @@ sizes and tolerances, the oracle runs the JAX tests' bands
 (``tests/test_particle_filter.py:32-61, 219-246``).
 """
 
+import _torch_threads  # noqa: F401
 import inspect
 
 import jax

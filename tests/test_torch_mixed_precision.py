@@ -25,6 +25,7 @@ against the JAX package on the CPU.
   the draws replayed.
 """
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ rtol 1e-5 as the float32 quadform and normaliser are summed in another
 order; an atol of 1e-6 covers values that cross zero.
 """
 
+import _torch_threads  # noqa: F401
 import math
 
 import jax

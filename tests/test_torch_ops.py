@@ -12,6 +12,7 @@ The JAX local-block kernel leaves the values of out-of-block ancestors
 unset, so values are compared where the ancestor lies in the block.
 """
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,7 @@ standard deviations, log-evidence within 5% of the Kalman value); the
 replicated diagnostics and the one-rank equality exactly.
 """
 
+import _torch_threads  # noqa: F401
 import functools
 import types
 

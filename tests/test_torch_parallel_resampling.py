@@ -15,6 +15,7 @@ exp-space and log-space Metropolis accept tests differ by rounding, so
 they agree on > 99.9% of the ancestors, the JAX test's own bound.
 """
 
+import _torch_threads  # noqa: F401
 import functools
 
 import jax

@@ -7,6 +7,7 @@ layout tests pin the counter layout that ``csrc/philox.cuh`` shares.
 Imports no jax.
 """
 
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -4,6 +4,7 @@ comparisons on the same numbers), and the sorted positions given JAX's
 uniforms (rtol 1e-6: one float32 division may round differently).
 """
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

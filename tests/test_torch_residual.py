@@ -22,6 +22,7 @@ sharded residual caps the value one ulp below the remainder total
 statistic above 1 - 1e-6, tested on its own for each of the three.
 """
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -25,6 +25,7 @@ The card runs the same checks on the kernels (tests/test_torch_cuda.py,
 and phase 3c at m = N = 2^20).
 """
 
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

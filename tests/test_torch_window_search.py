@@ -23,6 +23,7 @@ held to ``inverse_cdf_apply_plain`` and, on sorted queries, to the JAX
 same kinds of input.
 """
 
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest
