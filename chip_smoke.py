@@ -37,7 +37,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    d = 2 and 32, ancestors equal to the float32 run's and values exactly
    the plain version's; take-columns on a bfloat16 state at d = 2 and 32,
    on sorted and on shuffled ancestors, bitwise the plain version's; each
-   timed beside its bound at 2-byte states.
+   timed beside its bound at 2-byte states. Then the kernels at the other
+   models' widths (phase 4g): the search-and-apply and the roll walk at
+   d = 1 and d = 13 (N = 2^20, exp-space and concentrated weights), and
+   both fused kernels on the monthly structural DLM, d = 13, k = 1, which
+   takes their runtime-width "thread" template (``launch<0, 0>``): the
+   Metropolis step MVN and MVT df=5, the CDF step systematic and
+   stratified in both; each held to its plain version as above and timed
+   beside its bound.
 3b. Statistics of the fused kernels (benchmarks/validate_fused_tpu.py
    checks 1-5d with their thresholds): zero-noise consistency, offspring
    against the indexed Metropolis resampler, noise moments, the inverse-CDF
@@ -141,6 +148,34 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``--output-dir``, with ``--stream 64 --checkpoint``, then
    ``--resume``), their log-evidence within 2% of Kalman and equal to
    each other. Each streaming run launches its kernels T-1 times.
+4g. The other models and the auxiliary family, with every launch count
+   set to 0 first; each row one warm-up and the best of 2, its rate, and
+   exact launches (T-1 of each of its kernels, none of any other; the
+   kernels' wrappers are watched for the state width they are given):
+   the stochastic volatility model (mu=-1, phi=0.95, sigma=0.3, beta=1;
+   N=2^20, T=200, d=1) through ``bootstrap_filter``, metropolis B=10 (the
+   roll walk) and systematic (the cumsum and the search-and-apply), each
+   log-evidence within SV_APF_BAND of ``auxiliary_filter``'s on the same
+   trace (and the fault of a float32 registry cdf shown: its zero-weight
+   ancestors, and the APF's evidence with it); UNGM (q=10, r=1; N=2^20,
+   T=100, systematic, with history), its
+   filtered means against the dense-grid filter (median error < 0.5,
+   mean < 1.5, tests/test_ungm.py); the monthly structural DLM
+   (``local_linear_trend`` + ``seasonal(12)``, prior variance 0.01, MVN,
+   d=13, k=1; N=2^20, T=200), metropolis and systematic on engine "xla"
+   (the roll walk; the cumsum and the search-and-apply) and "pallas" (the
+   two fused kernels), log-evidence within 2% of Kalman (8% for the
+   windowed fused metropolis, as phase 4b); then the aux table at
+   benchmarks/bench_subsystems.py's sizes, T=200, none of which launches
+   a kernel: the RBPF on the offset CLGSSM (N=16384; the shared
+   covariance and the general bank), the EnKF (d=16 at N=16384
+   and 65536, d=64 at 65536; means against Kalman within 5% of scale),
+   the fully adapted APF (N=65536, 2% of Kalman), Liu-West (N=32768),
+   FFBS (M=256 over a systematic run's N=8192 history, draw-steps/s, the
+   device time of its transition matrix, categorical draw and gather, and
+   the smoothed means against RTS as tests/test_ffbs.py holds them),
+   particle Gibbs (N=512, 20 sweeps, seconds a sweep) and ``forecast``
+   (h=20 from the APF's cloud, predictive means against Kalman's).
 5. The block-window kernels on the main paths' own inputs, kept at steps
    0, 99 and 198 of the warm-up runs of phases 4 (the search-and-apply of
    the composed systematic headline, d = 2), 4b (the fused CDF step of the
@@ -713,14 +748,15 @@ def _fused_model(d, noise, dev, state_dtype=None):
     return m, mats
 
 
-def _state(gen, d, n, dev):
-    """A particle cloud near the demo trace and max-normalised log
-    weights with the spread of a filter step."""
+def _state(gen, d, n, dev, k=None):
+    """A particle cloud near the demo trace, max-normalised log weights
+    with the spread of a filter step, and an observation of k (None: d)
+    rows."""
     import torch
 
     X = 0.1 * torch.randn((d, n), generator=gen, device=dev)
     ll = -25.0 * torch.randn(n, generator=gen, device=dev) ** 2
-    y = torch.full((d,), 0.05, device=dev)
+    y = torch.full((d if k is None else k,), 0.05, device=dev)
     return X, ll - ll.max(), y
 
 
@@ -794,16 +830,26 @@ def _compare(name, a, a_p, outs, plains, ties):
     return err, bad.numel()
 
 
-def _fused_step_case(n, d, noise, gen, dev):
+def _model_mats(m):
+    """A DLM and its fused kernels' arguments (G, Q, F, Li), contiguous."""
+    return m, tuple(t.contiguous() for t in (m.G, m.W_sqrt, m.F,
+                                             m.V_chol_inv))
+
+
+def _fused_step_case(n, d, noise, gen, dev, model=None):
+    """The fused Metropolis step against its plain version on the demo DLM
+    of width d, or on ``model`` (a DLM of width d with its own k)."""
     import torch
 
     from cusmc_tpu_torch.ops.fused_step import auto_tile, \
         fused_filter_step, fused_filter_step_draws, fused_filter_step_plain, \
         step_path
 
-    m, (G, Q, F, Li) = _fused_model(d, noise, dev)
-    X, logw, y = _state(gen, d, n, dev)
-    tile = auto_tile(n, d)
+    m, (G, Q, F, Li) = (_fused_model(d, noise, dev) if model is None
+                        else _model_mats(model))
+    k = m.obs_dim
+    X, logw, y = _state(gen, d, n, dev, k)
+    tile = auto_tile(n, max(d, k))
     draws = fused_filter_step_draws(gen, n, tile, dev)
     df = m.df_value if noise == "mvt" else None
     args = (X, logw, y, G, Q, F, Li, df, float(m.log_norm), draws)
@@ -817,8 +863,8 @@ def _fused_step_case(n, d, noise, gen, dev):
             margin = _metropolis_margin(X, logw, draws, tile, 2, 10, p)
             assert margin <= ACCEPT_TIE, f"slot {p}: margin {margin}"
 
-    label = (f"fused_step N={n} d={d} {noise} tile={tile} "
-             f"path={step_path(d, d)}")
+    label = (f"fused_step N={n} d={d} k={k} {noise} tile={tile} "
+             f"path={step_path(d, k)}")
     err, nbad = _compare(label, a, a_p, (x, ll), (x_p, ll_p), ties)
     moved = float((a != torch.arange(n, device=dev)).float().mean())
     print(f"  {label}: ancestors {'equal' if not nbad else 'equal but ties'}"
@@ -827,7 +873,9 @@ def _fused_step_case(n, d, noise, gen, dev):
     return err, args, kw
 
 
-def _fused_cdf_case(n, d, mode, gen, dev):
+def _fused_cdf_case(n, d, mode, gen, dev, model=None):
+    """The fused CDF step against its plain version on the demo DLM of
+    width d (MVT df=5), or on ``model``."""
     import torch
 
     from cusmc_tpu_torch.ops.cumsum import blocked_cumsum
@@ -837,13 +885,16 @@ def _fused_cdf_case(n, d, mode, gen, dev):
     from cusmc_tpu_torch.ops.fused_step import step_path, to_uniform
     from cusmc_tpu_torch.ops.philox import philox_bits
 
-    m, (G, Q, F, Li) = _fused_model(d, "mvt", dev)
-    X, logw, y = _state(gen, d, n, dev)
+    m, (G, Q, F, Li) = (_fused_model(d, "mvt", dev) if model is None
+                        else _model_mats(model))
+    k = m.obs_dim
+    X, logw, y = _state(gen, d, n, dev, k)
     cdf, _ = blocked_cumsum(torch.exp(logw))
-    tile = cdf_auto_tile(n, d)
+    tile = cdf_auto_tile(n, max(d, k))
     draws = fused_cdf_filter_step_draws(gen, dev)
-    args = (cdf, X, y, G, Q, F, Li, m.df_value, float(m.log_norm), draws)
-    kw = dict(noise="mvt", mode=mode, tile=tile, df_int=m.df_int)
+    df = m.df_value if m.noise == "mvt" else None
+    args = (cdf, X, y, G, Q, F, Li, df, float(m.log_norm), draws)
+    kw = dict(noise=m.noise, mode=mode, tile=tile, df_int=m.df_int)
     x, ll, a = fused_cdf_filter_step(*args, **kw)
     x_p, ll_p, a_p = fused_cdf_filter_step_plain(*args, **kw)
 
@@ -859,8 +910,8 @@ def _fused_cdf_case(n, d, mode, gen, dev):
             lo, hi = sorted((int(a[g]), int(a_p[g])))
             assert _cdf_tie(cdf, p, lo, hi), f"slot {g} is no cdf tie"
 
-    label = f"fused_cdf {mode} N={n} d={d} tile={tile} " \
-        f"path={step_path(d, d)}"
+    label = f"fused_cdf {mode} N={n} d={d} k={k} {m.noise} tile={tile} " \
+        f"path={step_path(d, k)}"
     err, nbad = _compare(label, a, a_p, (x, ll), (x_p, ll_p), ties)
     print(f"  {label}: ancestors {'equal' if not nbad else 'equal but ties'}"
           f", max|kernel-plain| {err:.3e} (states, ll), distinct ancestors "
@@ -921,6 +972,122 @@ def check_fused_kernels() -> dict:
             f"path={step_path(d, d)}", nbytes, flops, PLAIN_FUSED_REPS, peak))
     torch.cuda.synchronize()
     return rec
+
+
+# -- the kernels at the widths of the other models (phase 4g) -------------
+
+# The stochastic volatility model and UNGM run the packed fast step on a
+# state of one row; the monthly structural DLM (a local linear trend and a
+# 12-period seasonal) is d = 13 with k = 1, which takes both fused kernels'
+# runtime-width "thread" template (launch<0, 0>).
+D_ONE = 1
+D_MONTHLY = 13
+
+
+def monthly_components():
+    """The monthly structural DLM's components. The builders' default
+    prior C0 = I on all 13 states is far wider than a year of data pins
+    down, and a bootstrap filter's evidence then falls far below Kalman's
+    (the impoverishment tests/test_structural.py:62-67 warns of); a prior
+    of variance 0.01 keeps the default noise variances and passes."""
+    from cusmc_tpu_torch.models import structural
+
+    return [structural.local_linear_trend(init_var=0.01),
+            structural.seasonal(12, init_var=0.01)]
+
+
+def monthly_model(dev, noise="mvn"):
+    from cusmc_tpu_torch.models.structural import combine
+
+    return combine(monthly_components(), noise=noise,
+                   df=5.0 if noise == "mvt" else None, device=dev)
+
+
+def fused_bound(d, k, n):
+    """(bytes, flops) of one fused step: X read and written, the log
+    weights read, ll and the ancestors written; the G, Q, F and Li
+    products."""
+    return (8 * d + 12) * n, 2.0 * (2 * d * d + k * d + k * k) * n
+
+
+def check_model_kernels() -> None:
+    """Phase 3 at the widths phase 4g gives the existing kernels: the
+    search-and-apply and the roll walk at d = 1 and d = 13 (N = 2^20, on
+    exp-space and concentrated weights), and both fused kernels on the
+    monthly structural DLM (d = 13, k = 1; the Metropolis step MVN and MVT
+    df=5, the CDF step systematic and stratified, MVN and MVT df=5), each
+    against its plain version as the rest of phase 3 holds them, then
+    timed beside its bound."""
+    import torch
+
+    from cusmc_tpu_torch.ops.cumsum import blocked_cumsum
+    from cusmc_tpu_torch.ops.fused_cdf_step import fused_cdf_filter_step, \
+        fused_cdf_filter_step_plain
+    from cusmc_tpu_torch.ops.fused_step import fused_filter_step, \
+        fused_filter_step_plain, step_path
+    from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
+        inverse_cdf_apply_plain
+    from cusmc_tpu_torch.resampling.rolls import \
+        roll_metropolis_sweeps_expspace, \
+        roll_metropolis_sweeps_expspace_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
+    n, b = N_BIG, 10
+    ll = -0.5 * torch.randn(n, generator=gen, device=dev) ** 2 * 50.0
+    w_exp = torch.exp(ll - ll.max())
+    w_conc = torch.full((n,), 1e-12, device=dev)
+    w_conc[n // 3] = 1.0
+    cdf, _ = blocked_cumsum(w_exp)
+    pos = (torch.arange(n, device=dev, dtype=torch.float32) + 0.5) / n \
+        * cdf[-1]
+    for d in (D_ONE, D_MONTHLY):
+        X = torch.randn((d, n), generator=gen, device=dev)
+        for name, w in (("exp", w_exp), ("concentrated", w_conc)):
+            _search_case(blocked_cumsum(w)[0], X, f"2^20/{name}")
+            shifts, u, _ = _rolls_case(w, X, gen, f"2^20/{name} d={d}")
+        time_kernel("inverse_cdf_apply",
+                    lambda: inverse_cdf_apply(cdf, pos, X),
+                    lambda: inverse_cdf_apply_plain(cdf, pos, X),
+                    lambda: X.index_select(1, torch.searchsorted(
+                        cdf, pos, right=True)),
+                    f"N=2^20 d={d} (library: searchsorted + index_select)",
+                    (12 + 8 * d) * n, 0)
+        time_kernel("roll_metropolis_sweeps_expspace",
+                    lambda: roll_metropolis_sweeps_expspace(w_exp, shifts, u,
+                                                            X),
+                    lambda: roll_metropolis_sweeps_expspace_plain(
+                        w_exp, shifts, u, X),
+                    None, f"N=2^20 d={d} B={b}", (8 + 4 * b + 8 * d) * n,
+                    b * n)
+    d, k = D_MONTHLY, 1
+    cases = {}
+    for noise in ("mvn", "mvt"):
+        model = monthly_model(dev, noise)
+        _, args, kw = _fused_step_case(n, d, noise, gen, dev, model=model)
+        cases["step", noise] = (args, kw)
+        for mode in ("systematic", "stratified"):
+            _, args, kw = _fused_cdf_case(n, d, mode, gen, dev, model=model)
+            cases["cdf", noise, mode] = (args, kw)
+    assert step_path(d, k) == "thread"
+    nbytes, flops = fused_bound(d, k, n)
+    for noise in ("mvn", "mvt"):
+        args, kw = cases["step", noise]
+        time_kernel("fused_filter_step",
+                    lambda: fused_filter_step(*args, **kw),
+                    lambda: fused_filter_step_plain(*args, **kw), None,
+                    f"N=2^20 d={d} k={k} {noise} B=10 tile={kw['tile']} "
+                    f"path=thread (launch<0, 0>)", nbytes, flops,
+                    PLAIN_FUSED_REPS)
+        args, kw = cases["cdf", noise, "systematic"]
+        time_kernel("fused_cdf_filter_step",
+                    lambda: fused_cdf_filter_step(*args, **kw),
+                    lambda: fused_cdf_filter_step_plain(*args, **kw), None,
+                    f"N=2^20 d={d} k={k} {noise} systematic "
+                    f"tile={kw['tile']} path=thread (launch<0, 0>)", nbytes,
+                    flops, PLAIN_FUSED_REPS)
+    torch.cuda.synchronize()
 
 
 # -- the bfloat16 (mixed-precision) state ---------------------------------
@@ -1614,15 +1781,16 @@ def check_tile_oracle() -> None:
 GATHER_CU = "cusmc_tpu_torch/csrc/monotone_gather.cu"
 KERNELS = (
     ("blocked_cumsum", "cusmc_tpu_torch/csrc/cumsum.cu",
-     "cusmc_tpu/ops/cumsum.py:45", ("main", "streaming")),
+     "cusmc_tpu/ops/cumsum.py:45", ("main", "streaming", "models")),
     ("inverse_cdf_apply", GATHER_CU,
-     "cusmc_tpu/ops/monotone_gather.py:277", ("main", "streaming")),
+     "cusmc_tpu/ops/monotone_gather.py:277", ("main", "streaming",
+                                              "models")),
     ("roll_metropolis_sweeps_expspace", "cusmc_tpu_torch/csrc/rolls.cu",
-     "cusmc_tpu/resampling/rolls.py:109", ("main", "streaming")),
+     "cusmc_tpu/resampling/rolls.py:109", ("main", "streaming", "models")),
     ("fused_filter_step", "cusmc_tpu_torch/csrc/fused_step.cu",
-     "cusmc_tpu/ops/fused_step.py:127", "pallas"),
+     "cusmc_tpu/ops/fused_step.py:127", ("pallas", "models")),
     ("fused_cdf_filter_step", "cusmc_tpu_torch/csrc/fused_cdf_step.cu",
-     "cusmc_tpu/ops/fused_cdf_step.py:104", "pallas"),
+     "cusmc_tpu/ops/fused_cdf_step.py:104", ("pallas", "models")),
     ("inverse_cdf_search", GATHER_CU,
      "cusmc_tpu/ops/monotone_gather.py:422", "sharded"),
     ("take_columns", GATHER_CU,
@@ -2665,6 +2833,443 @@ def _timed(fn) -> float:
     return time.perf_counter() - t0
 
 
+# -- the other models and the auxiliary family (phase 4g) -----------------
+
+AUX_T = 200              # steps of every phase-4g row but UNGM's
+UNGM_T = 100
+# |logZ(bootstrap) - logZ(APF)| on the stochastic volatility trace, in nats:
+# sized on the CPU at N = 2^14, where the spread is wider than here
+# (tests/test_torch_models.py::test_sv_band_holds_on_the_cpu holds it).
+SV_APF_BAND = 0.5
+# Kalman bands of the structural rows (phase 4b's: the windowed fused
+# Metropolis step's finite-B bias, benchmarks/validate_fused_tpu.py).
+STRUCT_BANDS = {("xla", "metropolis"): 0.02, ("xla", "systematic"): 0.02,
+                ("pallas", "metropolis"): 0.08,
+                ("pallas", "systematic"): 0.02}
+# Kernels a step of each composed and fused run, and the widths their
+# wrappers must see: (X rows,) or, for the fused kernels, (X rows, F rows).
+MODEL_RUNS = {
+    ("xla", "metropolis"): {"roll_metropolis_sweeps_expspace": 1},
+    ("xla", "systematic"): {"blocked_cumsum": 1, "inverse_cdf_apply": 1},
+    ("pallas", "metropolis"): {"fused_filter_step": 1},
+    ("pallas", "systematic"): {"fused_cdf_filter_step": 1,
+                               "blocked_cumsum": 1}}
+
+
+def _wrapper_width(name, args):
+    if name == "roll_metropolis_sweeps_expspace":
+        return (args[3].shape[0],)
+    if name == "inverse_cdf_apply":
+        return (args[2].shape[0],)
+    if name == "fused_filter_step":
+        return (args[0].shape[0], args[5].shape[0])
+    if name == "fused_cdf_filter_step":
+        return (args[1].shape[0], args[5].shape[0])
+    return ()
+
+
+@contextlib.contextmanager
+def widths_seen():
+    """While open, the kernel wrappers that the filter calls (through the
+    names ``smc/particle_filter.py`` imported) record the widths of the
+    state they are given: {name: {width, ...}}."""
+    from cusmc_tpu_torch.smc import particle_filter
+
+    seen = {}
+    names = ("roll_metropolis_sweeps_expspace", "inverse_cdf_apply",
+             "fused_filter_step", "fused_cdf_filter_step")
+    originals = {name: getattr(particle_filter, name) for name in names}
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            seen.setdefault(name, set()).add(_wrapper_width(name, args))
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in originals.items():
+        setattr(particle_filter, name, recorder(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in originals.items():
+            setattr(particle_filter, name, fn)
+
+
+def _counted_best(label, run, used, steps, width=None, reps=2):
+    """One warm-up and the best of ``reps`` runs of ``run(seed)``, each
+    launching exactly ``used[kernel]`` launches a step for T-1 steps and no
+    other kernel, at the state width ``width`` (None: no kernel). Returns
+    (best seconds, last result)."""
+    import torch
+
+    best, res = math.inf, None
+    for rep in range(reps + 1):
+        before = _counts()
+        with widths_seen() as seen:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(rep)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        after = _counts()
+        for name in after:
+            grown = after[name] - before[name]
+            want = used.get(name, 0) * (steps - 1)
+            assert grown == want, f"{label}: {name} launched {grown} " \
+                f"times, expected {want}"
+        if width is not None:
+            for name, widths in seen.items():
+                assert widths == {width}, \
+                    f"{label}: {name} saw widths {widths}, not {width}"
+        if rep:
+            best = min(best, secs)
+    return best, res
+
+
+def grid_filter(q, r, x0_std, ys, lo=-30.0, hi=30.0, ng=1201):
+    """The exact UNGM filter on a dense grid (tests/test_ungm.py:16):
+    posterior means [T]."""
+    import numpy as np
+
+    xs = np.linspace(lo, hi, ng)
+    p = np.exp(-0.5 * xs * xs / x0_std ** 2)
+    p /= p.sum()
+    means = [float((p * xs).sum())]
+    for t in range(1, ys.shape[0]):
+        f = 0.5 * xs + 25.0 * xs / (1.0 + xs * xs) + 8.0 * np.cos(1.2 * t)
+        trans = np.exp(-0.5 * (xs[:, None] - f[None, :]) ** 2 / q)
+        trans /= trans.sum(axis=0, keepdims=True)
+        p = trans @ p
+        p = p * np.exp(-0.5 * (float(ys[t, 0]) - xs * xs / 20.0) ** 2 / r)
+        p /= p.sum()
+        means.append(float((p * xs).sum()))
+    return np.asarray(means)
+
+
+def bench_clgssm(mats_constant, dev):
+    """The offset CLGSSM of benchmarks/bench_subsystems.py:43-66: the demo
+    DLM (d = k = 2) for the linear substate, a scalar random walk u whose
+    [sin u, cos u] is the observation offset."""
+    import torch
+
+    from cusmc_tpu_torch.io.data import demo_model_params
+    from cusmc_tpu_torch.models.clgssm import CLGSSM, params_from_numpy
+
+    pr = params_from_numpy({k: v.astype("float32") for k, v in
+                            demo_model_params(2).items()}, dev)
+    return CLGSSM.create(
+        nl_dim=1, lin_dim=2, obs_dim=2,
+        sample_initial_nl=lambda pp, g, n: 0.1 * torch.randn(
+            (n, 1), generator=g, device=pp["m0"].device),
+        propagate_nl=lambda pp, g, u: u + 0.15 * torch.randn(
+            u.shape, generator=g, device=u.device),
+        Fmat=lambda pp, u: pp["F"], Gmat=lambda pp, u: pp["G"],
+        Vcov=lambda pp, u: pp["V"], Wcov=lambda pp, u: pp["W"],
+        c=lambda pp, u: torch.stack([torch.sin(u[0]), torch.cos(u[0])]),
+        m0=pr["m0"].cpu().numpy(), C0=pr["C0"].cpu().numpy(), params=pr,
+        mats_constant=mats_constant, device=dev)
+
+
+def bench_liu_west_fns():
+    """benchmarks/bench_subsystems.py:92-113's one-parameter model."""
+    import torch
+
+    sw, sv = 0.3, 0.2
+
+    def sample_initial(gen, n, theta):
+        return torch.randn((n, 1), generator=gen, device=theta.device)
+
+    def propagate(gen, x, theta):
+        return theta[:, :1] * x + sw * torch.randn(x.shape, generator=gen,
+                                                   device=x.device)
+
+    def propagate_mean(x, theta):
+        return theta[:, :1] * x
+
+    def observation_logpdf(y, x, theta):
+        r = y[0] - x[:, 0]
+        return -0.5 * r * r / (sv * sv)
+
+    def theta_prior(gen, n):
+        return 0.5 + 0.2 * torch.randn((n, 1), generator=gen, device="cuda")
+
+    return (sample_initial, propagate, propagate_mean, observation_logpdf,
+            theta_prior)
+
+
+def _aux_row(table, name, config, units, secs, unit, card, extra=""):
+    rate = units / secs
+    table.append((name, config, rate, unit))
+    print(f"  aux {name} ({config}): {rate:.6g} {unit}, best {secs:.4f} s"
+          f"{extra} [{card}]")
+
+
+def registry_cdf_fault(sv, ys, lz_apf) -> None:
+    """The fault ``resampling/classic.weight_cdf`` fixes, shown on the
+    card: over the stochastic volatility lookahead at y = 3 (N = 2^20),
+    the float32 ``torch.cumsum`` dips and steps up over zero weights, and
+    systematic positions land on zero-weight particles; the float64 cdf
+    gives them none. Then the APF on the SV trace with the float32 cdf in
+    place, beside ``lz_apf``, its log-evidence with the float64 one."""
+    import torch
+
+    from cusmc_tpu_torch.resampling import classic
+    from cusmc_tpu_torch.smc.apf import auxiliary_filter
+
+    n = N_BIG
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = -1.0 + torch.randn(n, generator=gen, device="cuda")
+    logw = torch.log_softmax(-0.5 * (x + 9.0 * torch.exp(-x)), 0)
+    w = torch.softmax(logw, 0)
+    cdf32 = torch.cumsum(w, 0)
+    pos = (torch.arange(n, device="cuda", dtype=torch.float32)
+           + torch.rand((), generator=gen, device="cuda")) / n
+    a32 = torch.searchsorted(cdf32, pos, right=True).clamp_(0, n - 1)
+    a64 = classic.systematic_ancestors(gen, logw).long()
+    on_zero = int((w[a64] == 0).sum())
+    print(f"  registry cdf, SV lookahead at y=3, N=2^20: zero weights "
+          f"{int((w == 0).sum())}; float32 torch.cumsum dips "
+          f"{int((cdf32[1:] < cdf32[:-1]).sum())} times, steps up over a "
+          f"zero weight {int(((cdf32[1:] > cdf32[:-1]) & (w[1:] == 0)).sum())}"
+          f" times, systematic ancestors on zero weights "
+          f"{int((w[a32] == 0).sum())}; weight_cdf (float64): {on_zero}")
+    assert on_zero == 0, "weight_cdf gave zero-weight particles ancestors"
+    fixed = classic.weight_cdf
+    classic.weight_cdf = lambda v: torch.cumsum(v, dim=0)
+    try:
+        lz32 = float(auxiliary_filter(1, sv, ys, n,
+                                      return_history=False).log_evidence)
+    finally:
+        classic.weight_cdf = fixed
+    print(f"  SV APF N=2^20 T={ys.shape[0]} with the float32 cdf: logZ "
+          f"{lz32:.3f}; with weight_cdf: {lz_apf:.3f}")
+
+
+def models_path(card: str) -> None:
+    """Phase 4g: the other model families and the auxiliary filters and
+    smoothers (the module docstring, 4g)."""
+    import numpy as np
+    import torch
+
+    from cusmc_tpu_torch.io.data import demo_model_params
+    from cusmc_tpu_torch.models import structural
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.models.stochvol import StochasticVolatility
+    from cusmc_tpu_torch.models.ungm import UNGM
+    from cusmc_tpu_torch.smc import rbpf as rbpf_mod
+    from cusmc_tpu_torch.smc.apf import auxiliary_filter
+    from cusmc_tpu_torch.smc.csmc import particle_gibbs
+    from cusmc_tpu_torch.smc.enkf import ensemble_kalman_filter
+    from cusmc_tpu_torch.smc.ffbs import ffbs, transition_logpdf
+    from cusmc_tpu_torch.smc.forecast import forecast
+    from cusmc_tpu_torch.smc.kalman import kalman_filter, rts_smoother
+    from cusmc_tpu_torch.smc.liu_west import liu_west_filter
+    from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+    from cusmc_tpu_torch.ops.random import categorical
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    n, steps = N_BIG, AUX_T
+    oracle_keys = ("F", "G", "V", "W", "m0", "C0")
+
+    # Row 1: stochastic volatility, the packed fast step at d = 1.
+    sv = StochasticVolatility.create(device=dev)
+    # The trace that tests/test_torch_models.py sizes SV_APF_BAND on: made
+    # on the CPU from seed 0.
+    _, ys = StochasticVolatility.create(device="cpu").simulate(
+        torch.Generator().manual_seed(0), steps)
+    ys = ys.to(dev)
+    t0 = time.perf_counter()
+    apf = auxiliary_filter(1, sv, ys, n, return_history=False)
+    torch.cuda.synchronize()
+    apf_secs = time.perf_counter() - t0
+    lz_apf = float(apf.log_evidence)
+    for resampler, kw, used in (
+            ("metropolis", {"num_steps": 10}, MODEL_RUNS["xla", "metropolis"]),
+            ("systematic", None, MODEL_RUNS["xla", "systematic"])):
+        best, res = _counted_best(
+            f"SV {resampler}", lambda s: bootstrap_filter(
+                s, sv, ys, n, resampler=resampler, resampler_kwargs=kw,
+                return_history=False), used, steps, (D_ONE,))
+        lz = float(res.log_evidence)
+        gap = abs(lz - lz_apf)
+        print(f"  SV (mu=-1, phi=0.95, sigma=0.3, beta=1) {resampler} N=2^20 "
+              f"T={steps} d=1: {n * (steps - 1) / best:.6g} particle-steps/s,"
+              f" best {best:.4f} s of 2, logZ {lz:.3f} vs APF {lz_apf:.3f} "
+              f"(|gap| {gap:.3f}, band {SV_APF_BAND}) [{card}]")
+        assert gap < SV_APF_BAND, f"SV {resampler}: logZ off the APF's"
+    print(f"  SV APF N=2^20 T={steps}: {n * (steps - 1) / apf_secs:.6g} "
+          f"particle-steps/s (one run, first use) [{card}]")
+    registry_cdf_fault(sv, ys, lz_apf)
+
+    # Row 2: UNGM, the time-hooked fast step at d = 1, against the grid.
+    ungm = UNGM.create(device=dev)
+    gen.manual_seed(0)
+    _, ys = ungm.simulate(gen, UNGM_T)
+    best, res = _counted_best(
+        "UNGM systematic", lambda s: bootstrap_filter(
+            s, ungm, ys, n, resampler="systematic"),
+        MODEL_RUNS["xla", "systematic"], UNGM_T, (D_ONE,))
+    w = torch.softmax(res.obs_loglik.double(), dim=1)
+    pm = (w * res.particles[..., 0].double()).sum(1).cpu().numpy()
+    err = np.abs(pm[1:] - grid_filter(10.0, 1.0, 2.0, ys.cpu().numpy())[1:])
+    print(f"  UNGM (q=10, r=1) systematic N=2^20 T={UNGM_T} d=1 (history): "
+          f"{n * (UNGM_T - 1) / best:.6g} particle-steps/s, best {best:.4f} "
+          f"s of 2; filtered means against the grid filter: median |err| "
+          f"{np.median(err):.4f} (limit 0.5), mean {err.mean():.4f} (limit "
+          f"1.5) [{card}]")
+    assert np.median(err) < 0.5 and err.mean() < 1.5, "UNGM off the grid"
+    del res, w
+
+    # Row 3: the monthly structural DLM, d = 13, k = 1, both engines.
+    model = monthly_model(dev)
+    gen.manual_seed(0)
+    _, ys = model.simulate(gen, steps)
+    mats = structural.combine_matrices(monthly_components())
+    _, _, kll = kalman_filter(ys.cpu(), **mats)
+    for engine in ("xla", "pallas"):
+        for resampler in ("metropolis", "systematic"):
+            kw = {"num_steps": 10} if resampler == "metropolis" else None
+            width = (D_MONTHLY, 1) if engine == "pallas" else (D_MONTHLY,)
+            best, res = _counted_best(
+                f"structural {engine} {resampler}",
+                lambda s: bootstrap_filter(s, model, ys, n,
+                                           resampler=resampler,
+                                           resampler_kwargs=kw,
+                                           engine=engine,
+                                           return_history=False),
+                MODEL_RUNS[engine, resampler], steps, width)
+            lz = float(res.log_evidence)
+            limit = STRUCT_BANDS[engine, resampler] * abs(kll)
+            print(f"  structural monthly (trend + seasonal(12)) MVN "
+                  f"{resampler} engine={engine} N=2^20 T={steps} d=13 k=1: "
+                  f"{n * (steps - 1) / best:.6g} particle-steps/s, best "
+                  f"{best:.4f} s of 2, logZ {lz:.3f} vs Kalman {kll:.3f} "
+                  f"(|gap| {abs(lz - kll):.3f}, limit {limit:.3f}) [{card}]")
+            assert abs(lz - kll) < limit, f"structural {engine} " \
+                f"{resampler}: logZ off"
+
+    # Row 4: the auxiliary family at benchmarks/bench_subsystems.py's sizes.
+    table = []
+    p2 = demo_model_params(2)
+    dlm = DLM.create(noise="mvn", device=dev, **p2)
+    gen.manual_seed(3)
+    _, ys2 = dlm.simulate(gen, steps)
+    km2, kc2, kll2 = kalman_filter(ys2.cpu(), **{k: p2[k] for k in
+                                                 oracle_keys})
+    nothing = {}
+    rb_n = 16384
+    for label, mats_constant in (("shared covariance", True),
+                                 ("general bank", False)):
+        rb_model = bench_clgssm(mats_constant, dev)
+        best, res = _counted_best(
+            f"RBPF {label}", lambda s: rbpf_mod.rao_blackwell_filter(
+                s, rb_model, ys2, rb_n), nothing, steps)
+        lz = float(res.log_evidence)
+        assert math.isfinite(lz), "RBPF: logZ not finite"
+        _aux_row(table, "RBPF", f"offset CLGSSM, {label}, N={rb_n}, "
+                 f"T={steps}", rb_n * (steps - 1), best, "particle-steps/s",
+                 card, f", logZ {lz:.3f} (Kalman of the DLM without the "
+                 f"offset: {kll2:.3f})")
+    for d, n_e in ((16, 16384), (16, 65536), (64, 65536)):
+        pd = demo_model_params(d)
+        m_d = DLM.create(noise="mvn", device=dev, **pd)
+        gen.manual_seed(3)
+        _, ys_d = m_d.simulate(gen, steps)
+        km, _, _ = kalman_filter(ys_d.cpu(), **{k: pd[k] for k in
+                                                oracle_keys})
+        best, res = _counted_best(
+            f"EnKF d={d}", lambda s: ensemble_kalman_filter(
+                s, m_d, ys_d, n_e), nothing, steps)
+        rel = float(np.abs(res.means.cpu().numpy()[5:] - km[5:]).mean()
+                    / (np.abs(km[5:]).mean() + 1.0))
+        _aux_row(table, "EnKF", f"d={d}, stochastic update, N={n_e}, "
+                 f"T={steps}", n_e * (steps - 1), best, "particle-steps/s",
+                 card, f", mean error / scale against Kalman {rel:.5f} "
+                 f"(limit 0.05)")
+        assert rel < 0.05, f"EnKF d={d} N={n_e}: means off Kalman"
+    apf_n = 65536
+    best, apf = _counted_best("APF", lambda s: auxiliary_filter(
+        s, dlm, ys2, apf_n, return_history=False), nothing, steps)
+    gap = abs(float(apf.log_evidence) - kll2)
+    _aux_row(table, "APF", f"fully adapted, demo DLM d=2, N={apf_n}, "
+             f"T={steps}", apf_n * (steps - 1), best, "particle-steps/s",
+             card, f", logZ {float(apf.log_evidence):.3f} vs Kalman "
+             f"{kll2:.3f} (|gap| {gap:.3f}, limit {0.02 * abs(kll2):.3f})")
+    assert gap < 0.02 * abs(kll2), "APF: logZ off Kalman"
+    lw_n = 32768
+    ys_lw = torch.randn((steps, 1), generator=gen, device=dev)
+    best, res = _counted_best("Liu-West", lambda s: liu_west_filter(
+        s, *bench_liu_west_fns(), ys_lw, lw_n, device=dev), nothing, steps)
+    assert math.isfinite(float(res.log_evidence)), "Liu-West: logZ"
+    _aux_row(table, "Liu-West", f"1 parameter, kernel shrinkage, N={lw_n}, "
+             f"T={steps}", lw_n * (steps - 1), best, "particle-steps/s",
+             card, f", final theta mean {float(res.theta_mean[-1, 0]):.4f}")
+
+    # FFBS over a systematic filter's history, and its breakdown.
+    ff_n, ff_m = 8192, 256
+    hist = bootstrap_filter(0, dlm, ys2, ff_n, resampler="systematic")
+    best, paths = _counted_best("FFBS", lambda s: ffbs(s, dlm, hist, ff_m),
+                                nothing, 1)
+    sm, sc = rts_smoother(ys2.cpu(), **{k: p2[k] for k in oracle_keys})
+    sd = np.sqrt(sc.diagonal(axis1=1, axis2=2))
+    err = np.abs(paths.double().mean(1).cpu().numpy()[5:] - sm[5:])
+    inside, med = float((err < 5.0 * sd[5:]).mean()), float(
+        np.median(err / sd[5:]))
+    parts = hist.particles
+    x_next = parts[-1][:ff_m]
+    logits = hist.obs_loglik[0][None, :] + transition_logpdf(
+        dlm, x_next, parts[0])
+    idx = categorical(gen, logits)
+    shares = {
+        "transition matrix": device_ms(lambda: [
+            hist.obs_loglik[t][None, :] + transition_logpdf(dlm, x_next,
+                                                            parts[t])
+            for t in range(steps - 1)], 3),
+        "categorical draw": device_ms(lambda: [
+            categorical(gen, logits) for _ in range(steps - 1)], 3),
+        "gather": device_ms(lambda: [parts[t][idx]
+                                     for t in range(steps - 1)], 3)}
+    total = sum(shares.values())
+    _aux_row(table, "FFBS", f"{ff_m} backward draws, T={steps}, N={ff_n}",
+             ff_m * (steps - 1), best, "draw-steps/s", card,
+             "; device time of its parts over T-1 steps: " + ", ".join(
+                 f"{k} {v:.3f} ms ({v / total:.3f})"
+                 for k, v in shares.items())
+             + f"; smoothed means against RTS: {inside:.4f} within 5 sd "
+             f"(limit 0.99), median |err| / sd {med:.4f} (limit 0.6)")
+    assert inside > 0.99 and med < 0.6, "FFBS: smoothed means off RTS"
+
+    pg_n, pg_sweeps = 512, 20
+    best, paths = _counted_best("particle Gibbs", lambda s: particle_gibbs(
+        s, dlm, ys2, pg_n, pg_sweeps), nothing, 1)
+    assert bool(torch.isfinite(paths).all())
+    _aux_row(table, "particle Gibbs", f"demo DLM d=2, N={pg_n}, T={steps}, "
+             f"{pg_sweeps} sweeps", pg_sweeps, best, "sweeps/s", card,
+             f", {best / pg_sweeps:.4f} s a sweep")
+
+    h = 20
+    best, (fx, fy) = _counted_best("forecast", lambda s: forecast(
+        s, dlm, apf.final_particles, apf.final_log_weights, h), nothing, 1)
+    G, W = (np.asarray(p2[k], np.float64) for k in "GW")
+    m, P = km2[-1], kc2[-1]
+    worst = 0.0
+    for t in range(h):
+        m, P = G @ m, G @ P @ G.T + W
+        se = np.sqrt(np.diag(P) / apf_n)
+        z = np.abs(fx[t].double().mean(0).cpu().numpy() - m) / (
+            6 * se + 1e-3)
+        worst = max(worst, float(z.max()))
+    _aux_row(table, "forecast", f"h={h} from the APF's cloud, N={apf_n} "
+             f"draws", apf_n * h, best, "draw-steps/s", card,
+             f"; predictive means within {worst:.3f} of their bands "
+             f"(6 se + 1e-3) of the Kalman predictive")
+    assert worst < 1.0, "forecast: predictive means off Kalman"
+    print("  aux table [" + card + "]:")
+    for name, config, rate, unit in table:
+        print(f"    | {name} | {config} | {rate:.6g} {unit} |")
+
+
 # -- the main paths' own traffic ------------------------------------------
 
 # Steps of a T = 200 run whose inputs to the block-window kernels are kept
@@ -2907,6 +3512,9 @@ def main(argv=None) -> int:
         rec = check_kernels()
         rec.update(check_shard_kernels())
         rec.update(check_fused_kernels())
+    with phase("the kernels at the other models' widths (d = 1; d = 13, "
+               "k = 1)"):
+        check_model_kernels()
     with phase("the kernels on a bfloat16 state (mixed precision)"):
         rec.update(check_bf16_kernels())
     with phase("statistics of the fused kernels"):
@@ -2924,7 +3532,9 @@ def main(argv=None) -> int:
             ("generic", "generic path (the log-space step)",
              generic_path),
             ("streaming", "the headless runner and the streaming filter",
-             streaming_path)):
+             streaming_path),
+            ("models", "the other models and the auxiliary family",
+             models_path)):
         with phase(title):
             _zero_counts()
             drive(card)

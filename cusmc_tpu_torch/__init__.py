@@ -20,7 +20,11 @@ precision; the particle-sharded filter (``cusmc_tpu_torch.parallel``); the
 streaming filter with checkpoints and snapshot-and-halt
 (``smc/streaming.py``, ``checkpoint.py``) over the native host stores of
 ``native/`` (``io/native_store.py``, ``io/disk_store.py``); and the
-headless runner, ``python -m cusmc_tpu_torch demo|run`` (``config.py``).
+headless runner, ``python -m cusmc_tpu_torch demo|run`` (``config.py``);
+the other model families (``models/{stochvol,ungm,structural,clgssm}.py``)
+and the auxiliary filters and smoothers (``smc/{apf,liu_west,rbpf,csmc,
+enkf,ffbs,smoothing,forecast}.py``, ``kalman.rts_smoother``), which run the
+existing kernels or plain torch, as their JAX counterparts run XLA.
 On a CUDA tensor each kernel wrapper launches its kernel or raises; only a
 CPU tensor takes the plain PyTorch version.
 
@@ -43,18 +47,33 @@ from cusmc_tpu_torch.api import (  # noqa: E402
 )
 from cusmc_tpu_torch.device import resolve_device  # noqa: E402
 from cusmc_tpu_torch.models.base import CustomSSM  # noqa: E402
+from cusmc_tpu_torch.models.clgssm import CLGSSM  # noqa: E402
 from cusmc_tpu_torch.models.dlm import DLM  # noqa: E402
 from cusmc_tpu_torch.resampling import (  # noqa: E402
     get_resampler,
     register_resampler,
 )
+from cusmc_tpu_torch.smc.enkf import (  # noqa: E402
+    EnKFResult,
+    ensemble_kalman_filter,
+)
 from cusmc_tpu_torch.smc.kalman import kalman_filter  # noqa: E402
+from cusmc_tpu_torch.smc.liu_west import (  # noqa: E402
+    LiuWestResult,
+    liu_west_filter,
+)
 from cusmc_tpu_torch.smc.particle_filter import (  # noqa: E402
     FilterResult,
     bootstrap_filter,
 )
+from cusmc_tpu_torch.smc.rbpf import (  # noqa: E402
+    RBPFResult,
+    rao_blackwell_filter,
+)
 
-__all__ = ["CustomSSM", "DLM", "FilterResult", "MVN", "MVNPDF", "MVT",
-           "MVTPDF", "bootstrap_filter", "get_resampler", "kalman_filter",
-           "metropolis_hastings", "register_resampler", "resolve_device",
+__all__ = ["CLGSSM", "CustomSSM", "DLM", "EnKFResult", "FilterResult",
+           "LiuWestResult", "MVN", "MVNPDF", "MVT", "MVTPDF", "RBPFResult",
+           "bootstrap_filter", "ensemble_kalman_filter", "get_resampler",
+           "kalman_filter", "liu_west_filter", "metropolis_hastings",
+           "rao_blackwell_filter", "register_resampler", "resolve_device",
            "run"]

@@ -17,7 +17,8 @@ Optional (packed layout, x as [d, N]; the filter's fast path):
 A ``gen`` is a ``torch.Generator`` where the JAX protocol takes a key.
 ``CustomSSM`` adapts plain functions to the protocol; the filter runs it in
 the batch layout. ``normalize_time_hook`` gives the filter's steps one
-form of hook for time-invariant and time-varying models.
+form of hook for time-invariant and time-varying models. ``draw`` calls a
+sampling method on its generator or, replayed, on given noise.
 """
 
 from __future__ import annotations
@@ -67,6 +68,15 @@ class CustomSSM:
 
     def observation_logpdf(self, y, x):
         return self._observation_logpdf(self.params, y, x)
+
+
+def draw(fn: Callable, gen, *args, noise=None):
+    """``fn(gen, *args)``, or ``fn(None, *args, noise=noise)`` when
+    ``noise`` is given: a model's sampling method on its generator, or on
+    replayed draws (the models' ``noise=`` keyword)."""
+    if noise is None:
+        return fn(gen, *args)
+    return fn(None, *args, noise=noise)
 
 
 def normalize_time_hook(fn: Callable, kind: str) -> Callable:

@@ -195,7 +195,7 @@ class DLM(nn.Module):
         FW = matvec(self.F, self.W_sqrt)
         pred_cov = matvec(matvec(FW, self.W_sqrt.T), self.F.T) \
             + self.V_chol @ self.V_chol.T
-        chol = torch.linalg.cholesky(pred_cov)
+        chol = torch.linalg.cholesky_ex(pred_cov).L  # no host read
         return mvn_logpdf(y - matvec(self.propagate_mean(x_prev), self.F.T),
                           0.0, chol)
 

@@ -4,7 +4,10 @@ Port of ``cusmc_tpu/ops/random.py:24-104``: ``fast_gamma`` (a
 Marsaglia-Tsang squeeze sampler with a FIXED number of proposal rounds,
 unresolved lanes fall back to the mean, bias < 1e-5 relative) and
 ``chi2_integer_df`` (exact chi-square for small integer df from one log of
-a product of uniforms).
+a product of uniforms). ``gumbel`` and ``categorical`` are the law of
+``jax.random.categorical`` (an argmax of logits plus Gumbel noise
+``-log(-log u)``, u in [tiny, 1)), which the forecast, FFBS and conditional
+SMC draw their indices from; given JAX's noise they pick JAX's indices.
 
 Each sampler is split into a draw step (a ``torch.Generator`` -> normals
 and uniforms) and a pure transform of those draws, so that a test can feed
@@ -217,3 +220,40 @@ def chi2_transform(df: float, df_int: Optional[int], draws) -> torch.Tensor:
     if df_int is not None:
         return chi2_integer_df_transform(df_int, *draws)
     return 2.0 * fast_gamma_transform(0.5 * df, *draws)
+
+
+# Elements of Gumbel noise drawn at once by ``categorical``: an [M, N]
+# draw (M draws over N categories) is made in blocks of rows this large.
+CATEGORICAL_BLOCK = 1 << 26
+
+
+def gumbel(gen: Optional[torch.Generator], shape, dtype=torch.float32,
+           device=None) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log u)``, u in [tiny, 1)."""
+    return -torch.log(-torch.log(tiny_uniform(gen, shape, dtype, device)))
+
+
+def categorical(gen: Optional[torch.Generator], logits: torch.Tensor,
+                num: Optional[int] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Indices over the last axis of ``logits`` [..., N], drawn with
+    probabilities softmax(logits): ``argmax(logits + g)`` with g Gumbel
+    noise of ``(num,) + logits.shape`` (``num`` draws per row; None: one).
+    ``noise`` replaces the draw. The noise is made in blocks of rows of
+    ``CATEGORICAL_BLOCK`` elements, so an [M, N] draw never holds more
+    than one block. Returns int64 of shape ``(num,) + logits.shape[:-1]``."""
+    shape = ((num,) if num is not None else ()) + tuple(logits.shape)
+    if noise is not None:
+        return torch.argmax(noise + logits, dim=-1)
+    n = shape[-1]
+    rows = math.prod(shape[:-1])
+    flat = logits.reshape(-1, n)
+    out = torch.empty(rows, dtype=torch.int64, device=logits.device)
+    step = max(1, CATEGORICAL_BLOCK // max(n, 1))
+    for r0 in range(0, rows, step):
+        r1 = min(rows, r0 + step)
+        g = gumbel(gen, (r1 - r0, n), logits.dtype, logits.device)
+        lg = flat if flat.shape[0] == 1 else flat[
+            torch.arange(r0, r1, device=logits.device) % flat.shape[0]]
+        out[r0:r1] = torch.argmax(g + lg, dim=-1)
+    return out.reshape(shape[:-1])

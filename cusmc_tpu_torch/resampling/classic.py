@@ -6,7 +6,7 @@ generators (``systematic_positions``, ``stratified_positions``,
 (``systematic_ancestors``, ``stratified_ancestors``,
 ``multinomial_ancestors``) and residual resampling (``_residual_parts``,
 ``_residual_positions``, ``residual_ancestors``). The ancestor functions
-are plain torch (``torch.cumsum`` and ``torch.searchsorted`` in place of
+are plain torch (``weight_cdf`` and ``torch.searchsorted`` in place of
 the JAX rank-by-merge, a TPU workaround); the packed filters feed the
 positions to the kernels of ``ops/monotone_gather``.
 
@@ -88,12 +88,30 @@ POSITION_FNS = {
 }
 
 
+def weight_cdf(w: torch.Tensor) -> torch.Tensor:
+    """The inclusive cumsum of non-negative weights [N] for a search:
+    monotone, and flat over a zero weight, so that no position falls in a
+    zero-weight particle's bin. On the CPU ``torch.cumsum`` adds in order,
+    which gives both. On a CUDA tensor it is a parallel scan whose float32
+    sum gives neither: over 2^20 softmax weights on the H100 it dipped 8156
+    times and stepped up by an ulp over zero weights 478 times, where the
+    search placed 19 systematic positions (the auxiliary filter's
+    second-stage weight divides by such a particle's first-stage weight,
+    and its evidence rose by 23.4 nats at N = 2^20, T = 200;
+    ``chip_smoke.registry_cdf_fault``). There the sum is taken in float64,
+    whose steps over a zero weight no float32 position spacing
+    resolves."""
+    if w.device.type == "cuda":
+        return torch.cumsum(w.double(), dim=0)
+    return torch.cumsum(w, dim=0)
+
+
 def _inverse_cdf(positions: torch.Tensor,
                  log_weights: torch.Tensor) -> torch.Tensor:
     """Ancestors with cdf[a-1] <= p < cdf[a] over the normalised weights,
     clipped to N-1 (the last cdf entry may round below 1), int32."""
     n = log_weights.shape[0]
-    cdf = torch.cumsum(torch.softmax(log_weights, dim=0), dim=0)
+    cdf = weight_cdf(torch.softmax(log_weights, dim=0))
     a = torch.searchsorted(cdf, positions.to(cdf.dtype), right=True)
     return a.clamp_(0, n - 1).to(torch.int32)
 
@@ -203,8 +221,8 @@ def residual_ancestors(gen: Optional[torch.Generator],
     slots = torch.arange(n, device=log_weights.device)
     det = torch.searchsorted(ccum, slots.to(ccum.dtype), right=True)
     det = det.clamp_(max=n - 1)
-    rcdf = torch.cumsum(resid, dim=0)
-    v = residual_positions_from_uniforms(u, n_det) * rcdf[-1]
+    rcdf = weight_cdf(resid)
+    v = residual_positions_from_uniforms(u, n_det).to(rcdf.dtype) * rcdf[-1]
     res = torch.searchsorted(rcdf, v, right=True).clamp_(0, n - 1)
     res = res[roll_right(n, n_det)]
     return torch.where(slots < n_det, det, res).to(torch.int32)

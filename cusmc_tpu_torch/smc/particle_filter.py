@@ -509,6 +509,18 @@ def _fused_cdf_eligible(model, n: int) -> bool:
             and n % 128 == 0 and n <= 1 << 24)
 
 
+def model_device(model, device=None) -> torch.device:
+    """Where a run on ``model`` happens: the model's ``device`` when it has
+    one (``device``, if given, must name it), else ``resolve_device(device)``
+    (None: the card)."""
+    dev = getattr(model, "device", None)
+    if dev is None:
+        return resolve_device(device)
+    if device is not None and resolve_device(device) != dev:
+        raise ValueError(f"model lives on {dev}, not on {device}")
+    return dev
+
+
 class FilterSetup(NamedTuple):
     """What a filter loop needs, from ``filter_setup``: the step function
     ``step(x, w, y_t, streams, t=t) -> (x_new, w_new, ess, lz_inc, ll,
@@ -624,11 +636,7 @@ def filter_setup(
                            get_resampler(resampler, **resampler_kwargs),
                            n_global))
 
-    dev = getattr(model, "device", None)
-    if dev is None:
-        dev = resolve_device(device)
-    elif device is not None and resolve_device(device) != dev:
-        raise ValueError(f"model lives on {dev}, not on {device}")
+    dev = model_device(model, device)
     if axis_name is not None or injected_exp:
         if isinstance(key, torch.Generator):
             raise TypeError("the sharded filter takes an int seed")

@@ -27,3 +27,21 @@ def search_inputs(rng, case, n, d):
            * cdf[-1]).astype(np.float32)
     X = rng.standard_normal((d, n)).astype(np.float32)
     return cdf, pos, X
+
+
+def monthly_dlm(device, noise="mvn"):
+    """The monthly structural DLM of chip_smoke.py's phase 4g (a local
+    linear trend and a 12-period seasonal: d = 13, k = 1), on ``device``;
+    MVT with df=5 for ``noise="mvt"``."""
+    import chip_smoke
+
+    return chip_smoke.monthly_model(device, noise)
+
+
+def offset_clgssm(device, mats_constant):
+    """The offset CLGSSM of benchmarks/bench_subsystems.py:43-66 (the demo
+    DLM, d = k = 2, with a [sin u, cos u] observation offset), as
+    chip_smoke.py's phase 4g builds it."""
+    import chip_smoke
+
+    return chip_smoke.bench_clgssm(mats_constant, device)

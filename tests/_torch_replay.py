@@ -221,9 +221,21 @@ def fused_filter_parity(monkeypatch, jm, ys, n, resampler, tile, draw_name,
 
 
 def port_model(jmodel):
-    """The port's DLM carrying the JAX model's factors across."""
+    """The port's model carrying the JAX model's leaves across: a DLM's
+    factors, or the scalars of a stochastic volatility model or a UNGM."""
+    from cusmc_tpu.models.stochvol import StochasticVolatility as JSV
+    from cusmc_tpu.models.ungm import UNGM as JUNGM
     from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.models.stochvol import StochasticVolatility
+    from cusmc_tpu_torch.models.ungm import UNGM
 
+    if isinstance(jmodel, JSV):
+        return StochasticVolatility.from_jax_arrays(
+            mu=jmodel.mu, phi=jmodel.phi, sigma=jmodel.sigma,
+            beta=jmodel.beta, device="cpu")
+    if isinstance(jmodel, JUNGM):
+        return UNGM.from_jax_arrays(q=jmodel.q, r=jmodel.r,
+                                    x0_std=jmodel.x0_std, device="cpu")
     return DLM.from_jax_arrays(
         F=jmodel.F, G=jmodel.G, m0=jmodel.m0, C0_sqrt=jmodel.C0_sqrt,
         W_sqrt=jmodel.W_sqrt, V_chol=jmodel.V_chol,
@@ -240,3 +252,97 @@ def jax_model(noise, df=None, d=2, state_dtype=None, per_dim_chi=False):
     return DLM.create(noise=noise, df=df, dtype=F32, state_dtype=state_dtype,
                       per_dim_chi=per_dim_chi, **demo_model_params(d=d))
 
+
+
+def gumbel_draws(key, shape):
+    """The Gumbel noise that ``jax.random.categorical(key, ...)`` adds to
+    its logits (``-log(-log u)``, u in [tiny, 1)), computed by JAX."""
+    u = jax.random.uniform(key, shape, F32, minval=TINY)
+    return to_torch(-jnp.log(-jnp.log(u)))
+
+
+def fold_split(key, t, num=2):
+    """A step's keys in the auxiliary filters: ``split(fold_in(key, t),
+    num)`` (APF, cSMC, RBPF, EnKF: 2; Liu-West: 3)."""
+    return jax.random.split(jax.random.fold_in(key, t), num)
+
+
+def normal_noise(key, shape):
+    """``(z,)``: the standard normals of ``jax.random.normal(key, shape)``
+    in float32 (the stochastic volatility model's and UNGM's draws)."""
+    return (to_torch(jax.random.normal(key, shape, F32)),)
+
+
+def batch_noise(key, jm, shape):
+    """The draws of the JAX batch ``DLM._sample(key, mean, scale, shape)``
+    for the port's ``noise=``: ``(z,)`` for MVN, ``(z, g)`` for MVT with g
+    the chi-square variates of ``jax.random.gamma``
+    (``distributions/mvt.py:119-131``: ``kz, kg = split(key)``). ``jm``
+    the JAX model; ``d`` is the width of the scale sampled (state or
+    observation)."""
+    shape, d = tuple(shape[:-1]), shape[-1]
+    if jm.noise != "mvt":
+        return (to_torch(jax.random.normal(key, shape + (d,), F32)),)
+    kz, kg = jax.random.split(key)
+    z = jax.random.normal(kz, shape + (d,), F32)
+    df = jnp.asarray(jm.df, F32)
+    g = 2.0 * jax.random.gamma(kg, 0.5 * df, shape + (1,), dtype=F32)
+    return to_torch(z), to_torch(g)
+
+
+def model_noise(key, jm, shape):
+    """The draws of a JAX model's batch sampling method at ``shape`` (its
+    output's shape): a DLM's ``batch_noise``, else ``normal_noise``."""
+    from cusmc_tpu.models.dlm import DLM as JDLM
+
+    if isinstance(jm, JDLM):
+        return batch_noise(key, jm, shape)
+    return normal_noise(key, shape)
+
+
+def registry_draws(name, key, n, num_steps=10):
+    """The keyword draws of the port's registry resampler ``name`` that
+    replay the JAX resampler on ``key``: ``{"u": ...}`` for systematic
+    (one offset), stratified (N) and multinomial (N+1 in [tiny, 1)),
+    ``{"j": ..., "u": ...}`` for metropolis."""
+    if name == "systematic":
+        return {"u": to_torch(jax.random.uniform(key, (), F32))}
+    if name == "stratified":
+        return {"u": to_torch(jax.random.uniform(key, (n,), F32))}
+    if name == "multinomial":
+        return {"u": to_torch(jax.random.uniform(key, (n + 1,), F32,
+                                                 minval=TINY))}
+    if name == "metropolis":
+        j, u = metropolis_draws(key, n, num_steps)
+        return {"j": j, "u": u}
+    raise KeyError(name)
+
+
+def assert_ancestors_or_ties(ours, ref, logw, draws, name="systematic"):
+    """Ancestors of a registry resampler equal, or a shown cdf tie: the
+    two packages sum the softmax's cdf in different float32 orders, so a
+    slot may differ where its position lies on a cdf boundary within that
+    rounding (each boundary between the two ancestors within 1e-5 of the
+    position, the total being 1). Returns the number of such slots."""
+    ours, ref = np.asarray(ours), np.asarray(ref)
+    diff = np.nonzero(ours != ref)[0]
+    if not diff.size:
+        return 0
+    assert name in ("systematic", "stratified", "multinomial"), name
+    n = ours.shape[0]
+    cdf = np.cumsum(np.exp(np.asarray(logw, np.float64)
+                           - np.logaddexp.reduce(np.asarray(logw,
+                                                            np.float64))))
+    u = np.asarray(draws["u"], np.float64)
+    if name == "systematic":
+        pos = (np.arange(n) + u) / n
+    elif name == "stratified":
+        pos = (np.arange(n) + u) / n
+    else:
+        s = np.cumsum(-np.log(u))
+        pos = s[:n] / s[n]
+    for g in diff:
+        lo, hi = sorted((ours[g], ref[g]))
+        assert np.all(np.abs(cdf[lo:hi] - pos[g]) <= 1e-5), \
+            f"slot {g}: ancestors {lo} / {hi} off a tie"
+    return diff.size

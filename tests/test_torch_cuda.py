@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_inputs import search_inputs
+from _torch_inputs import monthly_dlm, offset_clgssm, search_inputs
 
 from cusmc_tpu_torch.io.data import demo_model_params
 from cusmc_tpu_torch.ops import fused_cdf_step as fc
@@ -646,3 +646,132 @@ def test_cuda_generator_state_round_trip(cuda):
     other = torch.Generator(device=cuda).manual_seed(9)
     set_generator_state(other, state)
     assert torch.equal(torch.rand(5, generator=other, device=cuda), want)
+
+
+# -- the widths of the other models: d = 1 and the monthly DLM -----------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 13])
+@pytest.mark.parametrize("case", ["uniform", "concentrated", "zero-runs"])
+def test_cuda_search_and_roll_at_model_widths(cuda, case, d):
+    # The stochastic volatility model and UNGM (d = 1) and the monthly
+    # structural DLM (d = 13) on the composed path: the search-and-apply
+    # and the roll walk, exactly their plain versions.
+    n = 1 << 16
+    cdf, pos, X = (torch.from_numpy(a).to(cuda) for a in search_inputs(
+        np.random.default_rng(d), case, n, d))
+    y, a = inverse_cdf_apply(cdf, pos, X)
+    y_p, a_p = inverse_cdf_apply_plain(cdf, pos, X)
+    assert torch.equal(a, a_p) and torch.equal(y, y_p)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    w = torch.diff(cdf, prepend=cdf[:1] * 0)
+    shifts, u = roll_metropolis_draws(gen, n, 10, cuda)
+    y, a = roll_metropolis_sweeps_expspace(w, shifts, u, X)
+    y_p, a_p = roll_metropolis_sweeps_expspace_plain(w, shifts, u, X)
+    assert torch.equal(a, a_p) and torch.equal(y, y_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["metropolis", "systematic", "stratified"])
+@pytest.mark.parametrize("noise", ["mvn", "mvt"])
+def test_cuda_fused_kernels_at_d13_k1(cuda, kind, noise):
+    # The fused kernels' runtime-width "thread" template (launch<0, 0>)
+    # on the monthly DLM, d = 13, k = 1: ancestors exactly, states and
+    # log-likelihoods at rtol 1e-4, atol 1e-4, as at the other widths.
+    m = monthly_dlm(cuda, noise)
+    n = 1 << 16
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    X = 0.1 * torch.randn((13, n), generator=gen, device=cuda)
+    logw = -5.0 * torch.rand(n, generator=gen, device=cuda)
+    mats = tuple(t.contiguous() for t in (m.G, m.W_sqrt, m.F, m.V_chol_inv))
+    y = torch.full((1,), 0.05, device=cuda)
+    df = 5.0 if noise == "mvt" else None
+    assert fs.step_path(13, 1) == "thread"
+    if kind == "metropolis":
+        draws = fs.fused_filter_step_draws(gen, n, 2048, cuda)
+        kw = dict(noise=noise, num_sweeps=10, tile=2048, df_int=m.df_int,
+                  num_window_tiles=2)
+        args = (X, logw, y, *mats, df, float(m.log_norm), draws)
+        out = fs.fused_filter_step(*args, **kw)
+        plain = fs.fused_filter_step_plain(*args, **kw)
+    else:
+        cdf, _ = blocked_cumsum(torch.exp(logw))
+        draws = fc.fused_cdf_filter_step_draws(gen, cuda)
+        kw = dict(noise=noise, mode=kind, df_int=m.df_int)
+        args = (cdf, X, y, *mats, df, float(m.log_norm), draws)
+        out = fc.fused_cdf_filter_step(*args, **kw)
+        plain = fc.fused_cdf_filter_step_plain(*args, **kw)
+    assert torch.equal(out[2], plain[2])
+    _close(out[0], plain[0])
+    _close(out[1], plain[1])
+
+
+@pytest.mark.cuda
+def test_cuda_models_run_through_their_kernels(cuda):
+    # The stochastic volatility model and UNGM on the packed fast step
+    # (d = 1) and the monthly DLM on both engines (d = 13, k = 1): each
+    # run launches its kernels T-1 times.
+    from cusmc_tpu_torch.models import StochasticVolatility, UNGM
+    from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    sv, ungm, monthly = (StochasticVolatility.create(device=cuda),
+                         UNGM.create(device=cuda), monthly_dlm(cuda))
+    runs = [(sv, "metropolis", "xla", (roll_metropolis_sweeps_expspace,)),
+            (sv, "systematic", "xla", (blocked_cumsum, inverse_cdf_apply)),
+            (ungm, "systematic", "xla", (blocked_cumsum, inverse_cdf_apply)),
+            (monthly, "metropolis", "pallas", (fs.fused_filter_step,)),
+            (monthly, "systematic", "pallas", (fc.fused_cdf_filter_step,))]
+    for model, resampler, engine, wrappers in runs:
+        _, ys = model.simulate(gen, 20)
+        before = [f.launches for f in wrappers]
+        res = bootstrap_filter(0, model, ys, 1 << 16, resampler=resampler,
+                               engine=engine, return_history=False)
+        assert bool(torch.isfinite(res.log_evidence))
+        assert [f.launches - b for f, b in zip(wrappers, before)] == \
+            [19] * len(wrappers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_cuda_rbpf_general_bank_step_matches_the_shared_one(cuda, n):
+    # One step of the general bank (vmapped matrices; batched library
+    # factor and solves over [n, 2, 2]) on particles sharing one
+    # covariance, against the shared-covariance step: means, covariances
+    # and log-likelihoods at rtol 1e-5, atol 1e-5.
+    from cusmc_tpu_torch.smc import rbpf
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    u = torch.randn((n, 1), generator=gen, device=cuda)
+    m = torch.randn((n, 2), generator=gen, device=cuda)
+    A = 0.3 * torch.randn((2, 2), generator=gen, device=cuda)
+    P = A @ A.T + 0.1 * torch.eye(2, device=cuda)
+    y = torch.tensor([0.3, -0.2], device=cuda)
+    general = rbpf._kf_general(offset_clgssm(cuda, False), y, u, m,
+                               P.expand(n, 2, 2))
+    shared = rbpf._kf_constant(offset_clgssm(cuda, True), y, u, m, P)
+    for ours, theirs in zip(general, shared):
+        torch.testing.assert_close(ours, theirs.expand_as(ours), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["systematic", "stratified", "multinomial",
+                                  "residual"])
+def test_cuda_registry_resamplers_skip_zero_weights(cuda, name):
+    # The registry's cdf (resampling.classic.weight_cdf) on the card: in
+    # float32, torch.cumsum's parallel scan stepped up by an ulp over
+    # zero weights and the search gave those particles ancestors. The
+    # weights are the stochastic volatility lookahead at y = 3, about
+    # 6000 of them zero in float32.
+    from cusmc_tpu_torch.resampling import get_resampler
+
+    n = 1 << 20
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = -1.0 + torch.randn(n, generator=gen, device=cuda)
+    logw = torch.log_softmax(-0.5 * (x + 9.0 * torch.exp(-x)), 0)
+    w = torch.softmax(logw, 0)
+    assert int((w == 0).sum()) > 1000
+    for _ in range(5):
+        a = get_resampler(name)(gen, logw).long()
+        assert bool((w[a] > 0).all()), int((w[a] == 0).sum())
