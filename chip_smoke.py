@@ -44,7 +44,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    takes their runtime-width "thread" template (``launch<0, 0>``): the
    Metropolis step MVN and MVT df=5, the CDF step systematic and
    stratified in both; each held to its plain version as above and timed
-   beside its bound.
+   beside its bound. Then the cumsum over zero weights at N = 2^20, on
+   three families (the stochastic volatility lookahead, a Gaussian
+   likelihood of observation variance 0.001, uniform weights half zero;
+   ``zero_weight_families``): its steps up over a zero weight and the
+   systematic ancestors on zero-weight particles over 32 draws, through
+   ``blocked_cumsum`` + ``inverse_cdf_apply`` and through the fused CDF
+   step on that cdf, all 0; with ``--against``, the same counts with each
+   other tree's cumsum beside them. Every cumsum case of the phase is
+   also held bitwise flat over its zero weights.
 3b. Statistics of the fused kernels (benchmarks/validate_fused_tpu.py
    checks 1-5d with their thresholds): zero-noise consistency, offspring
    against the indexed Metropolis resampler, noise moments, the inverse-CDF
@@ -116,13 +124,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    to 0 first: the headline model (MVT df=5, N=2^20, T=200, d=2, B=10)
    through ``bootstrap_filter`` with ``debug_checks=True`` for metropolis
    (the roll kernel), systematic (the cumsum and the search-and-apply) and
-   residual (each twice a step), with a custom registry key (the indexed
+   residual (the cumsum three times a step, the search-and-apply twice),
+   with a custom registry key (the indexed
    Metropolis resampler, then take-columns), in the batch layout and as a
    ``CustomSSM`` (no kernel), and a bfloat16 model at d=32 (T=100) with
    the custom key (take-columns' bfloat16 gather); each one warm-up and
    the best of 2, particle-steps/s, and kernels a step and the busy share
    from a profiled run of 20 steps; each run launches exactly its kernels,
-   T-1 times (twice that for residual). Then the share of ancestors equal
+   T-1 times (more for residual). Then the share of ancestors equal
    between the fast and the generic metropolis runs on one seed, and the
    Kalman logZ (MVN, N=2^17, the 1001-step trace, 2% of |loglik|) of six
    generic runs.
@@ -176,6 +185,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the smoothed means against RTS as tests/test_ffbs.py holds them),
    particle Gibbs (N=512, 20 sweeps, seconds a sweep) and ``forecast``
    (h=20 from the APF's cloud, predictive means against Kalman's).
+4h. The rest of the sharded family and MCMC part 1, with every launch
+   count set to 0 first. On a one-rank NCCL group: the sharded filter on
+   a bfloat16 state (MVT df=5, N=2^20; the headline, d=2, T=200, and the
+   full width, d=32, T=100) for systematic, residual and metropolis, each
+   bitwise the run of the same ops and streams without collectives (and,
+   for metropolis, the single-device run), its exact bfloat16 launches
+   (the local-block search-and-apply, take-columns, the roll apply), and
+   its rate beside the float32 sharded row's in turns; the
+   ensemble-sharded EnKF (d=64, N=65536, T=200) bitwise the
+   single-device EnKF and within 5% of Kalman; replicated filters on a
+   (1, 1) grid (R=4, N=2^20, the 101-step trace, MVN, metropolis and
+   systematic), each replicate within 8% of Kalman's logZ, all distinct.
+   Then MCMC at benchmarks/bench_mh.py's configuration (1024 chains,
+   d=128, MVT df=8): MH and adaptive MH (2000 sweeps, bfloat16 noise,
+   ``chol_every=50``), MALA (2000), HMC (200 of L=10), chain-steps/s and
+   gradient evaluations/s; and kept runs whose marginal variance, split
+   R-hat and acceptance must sit in bands sized on the CPU
+   (``mcmc_rows``), then the drift of MH's bfloat16 noise, shown.
 5. The block-window kernels on the main paths' own inputs, kept at steps
    0, 99 and 198 of the warm-up runs of phases 4 (the search-and-apply of
    the composed systematic headline, d = 2), 4b (the fused CDF step of the
@@ -412,14 +439,137 @@ def _cumsum_case(w, name):
     err64 = float((cdf.double() - ref).abs().max())
     err_plain = float((cdf - plain).abs().max())
     assert bool(torch.all(cdf[1:] >= cdf[:-1])), f"{name}: cdf not monotone"
+    steps = zero_steps(w, cdf)
+    assert steps == 0, f"{name}: the cdf steps up over {steps} zero weights"
     assert err64 <= bound_, f"{name}: |cdf - f64| = {err64} > {bound_}"
     assert torch.equal(cdf128, cdf[FOLD - 1::FOLD])
     again, _ = blocked_cumsum(w)
     assert torch.equal(again, cdf), f"{name}: a second call differs"
     print(f"  cumsum {name}: N={n} max|kernel-f64|={err64:.3e} "
           f"max|kernel-plain|={err_plain:.3e} bound={bound_:.3e} monotone, "
-          f"the same on a second call")
+          f"flat over zero weights, the same on a second call")
     return err_plain
+
+
+# -- the cumsum over zero weights ------------------------------------------
+
+# Systematic offsets each weight family is resampled with when ancestors on
+# zero-weight particles are counted.
+ZERO_FAMILY_DRAWS = 32
+
+
+def zero_weight_families(n, dev, seed=0) -> dict:
+    """name -> exp-space weights [n] (max-normalised, as the filter carries
+    them) with many zeros, the three families of the cumsum's flatness
+    check: the stochastic volatility lookahead at y = 3 (x ~ N(-1, 1),
+    log w = -(x + 9 exp(-x)) / 2; phase 4g's registry_cdf_fault), a
+    Gaussian likelihood with observation variance 0.001 (x ~ N(0, 1),
+    y = 0.7), and uniform weights of which a random half are zero."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = -1.0 + torch.randn(n, generator=gen, device=dev)
+    lw_sv = -0.5 * (x + 9.0 * torch.exp(-x))
+    z = torch.randn(n, generator=gen, device=dev)
+    lw_gauss = -0.5 * (z - 0.7) ** 2 / 0.001
+    unif = torch.rand(n, generator=gen, device=dev)
+    unif[torch.rand(n, generator=gen, device=dev) < 0.5] = 0.0
+    return {"sv-lookahead": torch.exp(lw_sv - lw_sv.max()),
+            "gaussian-0.001": torch.exp(lw_gauss - lw_gauss.max()),
+            "uniform-half-zero": unif}
+
+
+def zero_steps(w, cdf) -> int:
+    """The places where ``cdf`` moves over a zero weight: cdf[j] !=
+    cdf[j-1] where w[j] = 0, and cdf[0] != 0 where w[0] = 0."""
+    zero = w == 0
+    steps = int(((cdf[1:] != cdf[:-1]) & zero[1:]).sum())
+    return steps + int(bool(zero[0]) and float(cdf[0]) != 0.0)
+
+
+def zero_ancestors(w, cdf, u, a) -> tuple:
+    """(ancestors on zero-weight particles, positions at or above the
+    total) of a systematic draw with offset ``u`` through ``cdf``:
+    positions (i + u) / N * cdf[N-1], as the filter makes them. A position
+    at the total (u near 1) is clipped to N - 1, the reference's own law,
+    whatever that particle's weight: it is counted apart."""
+    import torch
+
+    from cusmc_tpu_torch.resampling.classic import systematic_from_uniforms
+
+    pos = systematic_from_uniforms(u, cdf.numel()) * cdf[-1]
+    inside = pos < cdf[-1]
+    on_zero = (w[a.long()] == 0) & inside
+    return int(on_zero.sum()), int((~inside).sum())
+
+
+def check_zero_steps(others) -> int:
+    """Phase 3: the kernel path's cdf over zero weights, on the three
+    families of ``zero_weight_families`` at N = 2^20: the cumsum's steps
+    over zeros, and the systematic ancestors on zero-weight particles
+    through ``blocked_cumsum`` + ``inverse_cdf_apply`` and through the
+    fused CDF step (d = 2, MVT df=5) on that cdf, over ZERO_FAMILY_DRAWS
+    offsets; beside them the same counts with the cumsum (and searches)
+    of each tree in ``others`` (``other_tree``). This tree's counts must
+    be 0. Returns this tree's steps over zeros (0)."""
+    import torch
+
+    from cusmc_tpu_torch.ops.cumsum import blocked_cumsum
+    from cusmc_tpu_torch.ops.fused_cdf_step import cdf_auto_tile, \
+        fused_cdf_filter_step, fused_cdf_filter_step_draws
+    from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply
+    from cusmc_tpu_torch.resampling.classic import systematic_from_uniforms
+
+    dev = torch.device("cuda")
+    n = N_BIG
+    gen = torch.Generator(device=dev).manual_seed(77)
+    m, (G, Q, F, Li) = _fused_model(D, "mvt", dev)
+    X, _, y = _state(gen, D, n, dev)
+    draws = [fused_cdf_filter_step_draws(gen, dev)
+             for _ in range(ZERO_FAMILY_DRAWS)]
+    kw = dict(noise="mvt", mode="systematic", tile=cdf_auto_tile(n, D),
+              df_int=m.df_int)
+
+    def rest(cdf, u, seed):
+        return (cdf, X, y, G, Q, F, Li, m.df_value, float(m.log_norm),
+                (u, seed))
+
+    def counts(w, cdf, apply, fused):
+        c = [0, 0, 0]
+        for u, seed in draws:
+            pos = systematic_from_uniforms(u, n) * cdf[-1]
+            on_a, clip = zero_ancestors(w, cdf, u, apply(cdf, pos))
+            on_f, _ = zero_ancestors(w, cdf, u, fused(rest(cdf, u, seed)))
+            c[0] += on_a
+            c[1] += on_f
+            c[2] += clip
+        return zero_steps(w, cdf), c
+
+    total = 0
+    for name, w in zero_weight_families(n, dev).items():
+        cdf, _ = blocked_cumsum(w)
+        steps, (on_a, on_f, clip) = counts(
+            w, cdf, lambda c, p: inverse_cdf_apply(c, p, X)[1],
+            lambda args: fused_cdf_filter_step(*args, **kw)[2])
+        line = (f"  cumsum over zeros, {name} (N=2^20, {int((w == 0).sum())}"
+                f" zero weights, {ZERO_FAMILY_DRAWS} systematic draws): this "
+                f"tree: steps up over a zero {steps}, ancestors on zero "
+                f"weights {on_a} (cumsum + search-and-apply), {on_f} (fused "
+                f"CDF step); positions at the total {clip}")
+        for root, fns in others:
+            cdf_o = fns["blocked_cumsum"](w)
+            steps_o, (oa, of, _) = counts(
+                w, cdf_o,
+                lambda c, p: fns["inverse_cdf_apply"]((c, p, X), {}),
+                lambda args: fns["fused_cdf_filter_step"](args, kw))
+            line += (f"; {root}: steps {steps_o}, ancestors on zero weights "
+                     f"{oa} / {of}")
+        print(line)
+        assert steps == 0 and on_a == 0 and on_f == 0, \
+            f"{name}: the kernel path gives zero weights mass"
+        total += steps
+    torch.cuda.synchronize()
+    return total
 
 
 def _adversarial_weights(gen, n, dev):
@@ -1781,30 +1931,34 @@ def check_tile_oracle() -> None:
 GATHER_CU = "cusmc_tpu_torch/csrc/monotone_gather.cu"
 KERNELS = (
     ("blocked_cumsum", "cusmc_tpu_torch/csrc/cumsum.cu",
-     "cusmc_tpu/ops/cumsum.py:45", ("main", "streaming", "models")),
+     "cusmc_tpu/ops/cumsum.py:45", ("main", "streaming", "models",
+                                    "family")),
     ("inverse_cdf_apply", GATHER_CU,
      "cusmc_tpu/ops/monotone_gather.py:277", ("main", "streaming",
                                               "models")),
     ("roll_metropolis_sweeps_expspace", "cusmc_tpu_torch/csrc/rolls.cu",
-     "cusmc_tpu/resampling/rolls.py:109", ("main", "streaming", "models")),
+     "cusmc_tpu/resampling/rolls.py:109", ("main", "streaming", "models",
+                                           "family")),
     ("fused_filter_step", "cusmc_tpu_torch/csrc/fused_step.cu",
      "cusmc_tpu/ops/fused_step.py:127", ("pallas", "models")),
     ("fused_cdf_filter_step", "cusmc_tpu_torch/csrc/fused_cdf_step.cu",
      "cusmc_tpu/ops/fused_cdf_step.py:104", ("pallas", "models")),
     ("inverse_cdf_search", GATHER_CU,
-     "cusmc_tpu/ops/monotone_gather.py:422", "sharded"),
+     "cusmc_tpu/ops/monotone_gather.py:422", ("sharded", "family")),
     ("take_columns", GATHER_CU,
-     "cusmc_tpu/ops/monotone_gather.py:204", ("sharded", "generic")),
+     "cusmc_tpu/ops/monotone_gather.py:204", ("sharded", "generic",
+                                              "family")),
     ("inverse_cdf_apply[local_base]", GATHER_CU,
-     "cusmc_tpu/ops/monotone_gather.py:401", ("sharded", "streaming")),
+     "cusmc_tpu/ops/monotone_gather.py:401", ("sharded", "streaming",
+                                              "family")),
     ("fused_filter_step[bf16]", "cusmc_tpu_torch/csrc/fused_step.cu",
      "cusmc_tpu/ops/fused_step.py:127", "bf16"),
     ("roll_metropolis_sweeps_expspace[bf16]", "cusmc_tpu_torch/csrc/rolls.cu",
-     "cusmc_tpu/resampling/rolls.py:109", "bf16"),
+     "cusmc_tpu/resampling/rolls.py:109", ("bf16", "family")),
     ("inverse_cdf_apply[bf16]", GATHER_CU,
      "cusmc_tpu/ops/monotone_gather.py:277", "bf16"),
     ("take_columns[bf16]", GATHER_CU,
-     "cusmc_tpu/ops/monotone_gather.py:204", "generic"),
+     "cusmc_tpu/ops/monotone_gather.py:204", ("generic", "family")),
 )
 
 
@@ -2193,7 +2347,7 @@ GENERIC_ROWS = {
         {"blocked_cumsum": 1, "inverse_cdf_apply": 1}),
     "debug_checks residual": (
         dict(resampler="residual", debug_checks=True),
-        {"blocked_cumsum": 2, "inverse_cdf_apply": 2}),
+        {"blocked_cumsum": 3, "inverse_cdf_apply": 2}),
     "custom key": (
         dict(resampler=GENERIC_KEY, resampler_kwargs={"num_steps": 10}),
         {"take_columns": 1}),
@@ -2366,12 +2520,12 @@ def sharded_path(card: str) -> None:
                        ("inverse_cdf_apply", "inverse_cdf_search",
                         "take_columns")),
         "residual": ((("inverse_cdf_search", 2), ("take_columns", 1),
-                      ("blocked_cumsum", 2)),
+                      ("blocked_cumsum", 3)),
                      ("inverse_cdf_apply", "inverse_cdf_apply[local_base]")),
         "metropolis": ((("roll_metropolis_sweeps_expspace", 1),),
                        CDF_KERNELS + SHARD_KERNELS),
         "single residual": ((("inverse_cdf_apply", 2),
-                             ("blocked_cumsum", 2)), SHARD_KERNELS)}
+                             ("blocked_cumsum", 3)), SHARD_KERNELS)}
 
     def launched(label, before, steps):
         after = _counts()
@@ -3270,6 +3424,299 @@ def models_path(card: str) -> None:
         print(f"    | {name} | {config} | {rate:.6g} {unit} |")
 
 
+# -- the sharded family and MCMC (phase 4h) --------------------------------
+
+# Rows of the bfloat16 sharded filter: (label, width, steps), MVT df=5,
+# N = 2^20 (the headline; the full width at phase 4d's 100 steps).
+FAMILY_ROWS = (("headline", D, 200), ("full width", D_WIDE, 100))
+# Kernels a step of a sharded run on a one-rank group, by resampler and
+# state type: name -> launches a step; every other kernel launches none.
+FAMILY_LAUNCHES = {
+    ("systematic", "bf16"): {"blocked_cumsum": 1,
+                             "inverse_cdf_apply[bf16 local_base]": 1},
+    ("residual", "bf16"): {"blocked_cumsum": 3, "inverse_cdf_search": 2,
+                           "take_columns[bf16]": 1},
+    ("metropolis", "bf16"): {"roll_metropolis_sweeps_expspace[bf16]": 1},
+    ("systematic", "f32"): {"blocked_cumsum": 1,
+                            "inverse_cdf_apply[local_base]": 1},
+    ("residual", "f32"): {"blocked_cumsum": 3, "inverse_cdf_search": 2,
+                          "take_columns": 1},
+    ("metropolis", "f32"): {"roll_metropolis_sweeps_expspace": 1},
+}
+ENKF_D, ENKF_N = 64, 65536        # benchmarks/bench_subsystems.py's sizes
+REPLICATES, REPLICATE_T = 4, 101  # tests/test_replicated.py's, N = 2^20
+# benchmarks/bench_mh.py's configuration: 1024 chains on a d = 128 MVT
+# target (df = 8, identity scale), pooled adaptation.
+MCMC_CHAINS, MCMC_D, MCMC_DF = 1024, 128, 8.0
+MCMC_SWEEPS, HMC_SWEEPS, HMC_LEAPFROG = 2000, 200, 10
+# The kept-sample runs: (sweeps, thin). The random walks need about 3 d
+# sweeps an autocorrelation time at d = 128, so 2000 sweeps leave their
+# chains short of the target (on the CPU: variance 1.17 and 1.06 against
+# 4/3, split R-hat 1.46 and 1.47; 20000 sweeps: MH's R-hat 1.0513); they
+# keep every 20th of 40000. Their kept runs draw float32 noise: the
+# bfloat16 normal law of jax.random.normal (ops/random.bf16_normal_table)
+# has mean -0.012, so the proposal is not symmetric and the walk drifts
+# (MH on the CPU, 20000 sweeps: coordinate mean -0.253, variance 3.21);
+# ``bf16_noise_bias`` shows it on the card.
+MCMC_KEEP = {"mh": (40000, 20), "adaptive": (40000, 20),
+             "mala": (MCMC_SWEEPS, 1), "hmc": (HMC_SWEEPS, 1)}
+# Bands of the kept-sample checks (the second half of each kept run, after
+# its adaptation), sized on the CPU with ``mcmc_rows("cpu", timed=False)``
+# at these sizes before any card run read them (PERF.md section 6, PR
+# 11): the pooled marginal variance within MCMC_VAR_RTOL of df / (df - 2),
+# the largest split R-hat over the d coordinates below MCMC_RHAT, and the
+# pooled acceptance within each sampler's band around its target.
+# One CPU run each (seed 7) read variance 1.3257 / 1.3261 / 1.3530 /
+# 1.3354 (MH, adaptive, MALA, HMC; -0.6% to +1.5%), R-hat 1.0246 / 1.0248
+# / 1.0205 / 1.0061 and acceptance 0.2358 / 0.2357 / 0.5893 / 0.8880 (HMC
+# counts its adaptation from a short step); the bands are about three
+# times those distances.
+MCMC_VAR_RTOL = 0.05
+MCMC_RHAT = 1.05
+MCMC_ACCEPT = {"mh": (0.234, 0.20, 0.27), "adaptive": (0.234, 0.20, 0.27),
+               "mala": (0.574, 0.50, 0.65), "hmc": (0.8, 0.75, 0.95)}
+
+
+def mcmc_rows(dev, card="", timed=True) -> dict:
+    """MH and adaptive MH (``chol_every=50``) with bfloat16 proposal noise,
+    MALA, HMC (L leapfrog steps) at benchmarks/bench_mh.py's configuration
+    on ``dev``: with ``timed``, one warm-up and the best of 2 of each
+    without samples (chain-steps/s; for MALA and HMC gradient evaluations
+    per second, L a trajectory for HMC); then one run of each with
+    ``keep_samples`` (MCMC_KEEP; float32 noise) whose second half gives
+    the pooled marginal variance (target df / (df - 2)) and the largest
+    split R-hat over the coordinates; then MH's kept run with bfloat16
+    noise, whose drift is printed. Returns name -> (variance, R-hat,
+    acceptance) of the kept runs, each printed beside its band. Runs on
+    the CPU too, where the bands were sized (no rate is printed there)."""
+    import torch
+
+    from cusmc_tpu_torch.diagnostics.mcmc import split_rhat
+    from cusmc_tpu_torch.distributions import make_mvt_logprob
+    from cusmc_tpu_torch.mcmc import adaptive_mh_sampler, hmc_sampler, \
+        mala_sampler, metropolis_hastings_sampler
+    from cusmc_tpu_torch.ops.random import bf16_normal_table
+
+    dev = torch.device(dev)
+    c, d, df = MCMC_CHAINS, MCMC_D, MCMC_DF
+    logp = make_mvt_logprob(torch.zeros(d, device=dev),
+                            torch.eye(d, device=dev), df)
+    init = torch.randn((c, d), generator=torch.Generator(dev).manual_seed(1),
+                       device=dev)
+    bf16 = torch.bfloat16
+    samplers = {
+        "mh": (lambda s, t, keep, thin: metropolis_hastings_sampler(
+            s, logp, init, t, step_size=2.38 / math.sqrt(d),
+            adapt_rate=0.05, keep_samples=keep, thin=thin,
+            noise_dtype=None if keep else bf16), MCMC_SWEEPS, 0),
+        "adaptive": (lambda s, t, keep, thin: adaptive_mh_sampler(
+            s, logp, init, t, adapt_rate=0.05, keep_samples=keep, thin=thin,
+            chol_every=50, noise_dtype=None if keep else bf16),
+            MCMC_SWEEPS, 0),
+        "mala": (lambda s, t, keep, thin: mala_sampler(
+            s, logp, init, t, step_size=0.3, adapt_rate=0.05,
+            keep_samples=keep, thin=thin), MCMC_SWEEPS, 1),
+        "hmc": (lambda s, t, keep, thin: hmc_sampler(
+            s, logp, init, t, num_leapfrog=HMC_LEAPFROG, step_size=0.2,
+            adapt_rate=0.05, keep_samples=keep, thin=thin),
+            HMC_SWEEPS, HMC_LEAPFROG),
+    }
+    out = {}
+    for name, (run, sweeps, grads) in samplers.items():
+        line = f"  MCMC {name} C={c} d={d} MVT df={df:g}"
+        if timed:
+            best, res = math.inf, None
+            for rep in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = run(rep, sweeps, False, 1)
+                acc = float(res.accept_rate)  # the host read ends the run
+                secs = time.perf_counter() - t0
+                if rep:
+                    best = min(best, secs)
+            line += (f", {sweeps} sweeps: {c * sweeps / best:.6g} "
+                     f"chain-steps/s"
+                     + (f", {c * sweeps * grads / best:.6g} grad-evals/s"
+                        if grads else "")
+                     + f", best {best:.4f} s of 2, pooled acceptance "
+                     f"{acc:.4f}, step size {float(res.step_size):.4f} "
+                     f"[{card}]")
+        keep_sweeps, thin = MCMC_KEEP[name]
+        res = run(7, keep_sweeps, True, thin)
+        kept = res.samples[res.samples.shape[0] // 2:]
+        var = float(kept.reshape(-1, d).var(0).mean())
+        rhat = float(split_rhat(kept).max())
+        acc = float(res.accept_rate)
+        target, lo, hi = MCMC_ACCEPT[name]
+        want = df / (df - 2.0)
+        print(f"{line}; kept run of {keep_sweeps} sweeps (every {thin}): "
+              f"marginal variance {var:.4f} (target "
+              f"{want:.4f}, rtol {MCMC_VAR_RTOL}), max split R-hat "
+              f"{rhat:.4f} (< {MCMC_RHAT}), acceptance {acc:.4f} (target "
+              f"{target}, band [{lo}, {hi}])")
+        out[name] = (var, rhat, acc)
+        assert abs(var - want) <= MCMC_VAR_RTOL * want, \
+            f"MCMC {name}: marginal variance {var}"
+        assert rhat < MCMC_RHAT, f"MCMC {name}: split R-hat {rhat}"
+        assert lo <= acc <= hi, f"MCMC {name}: acceptance {acc}"
+    # The bfloat16 proposal law's drift (MCMC_KEEP's comment): MH's kept
+    # run again with the bfloat16 noise of the rate rows; shown, not held.
+    sweeps, thin = MCMC_KEEP["mh"]
+    res = metropolis_hastings_sampler(
+        7, logp, init, sweeps, step_size=2.38 / math.sqrt(d),
+        adapt_rate=0.05, thin=thin, noise_dtype=bf16)
+    kept = res.samples[res.samples.shape[0] // 2:]
+    print(f"  MCMC mh with bfloat16 noise, kept run of {sweeps} sweeps: "
+          f"coordinate mean {float(kept.mean()):.4f} (float32 noise: 0 "
+          f"within its error), marginal variance "
+          f"{float(kept.reshape(-1, d).var(0).mean()):.4f}, max split R-hat "
+          f"{float(split_rhat(kept).max()):.4f}: the bfloat16 normal law "
+          f"has mean {float(bf16_normal_table().double().mean()):.5f}")
+    return out
+
+
+def family_path(card: str) -> None:
+    """Phase 4h: the rest of the sharded family on a one-rank NCCL group
+    (the bfloat16 sharded filter beside the float32 one, the
+    ensemble-sharded EnKF, replicated filters on a (1, 1) grid) and MCMC
+    part 1 (the module docstring, 4h)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cusmc_tpu_torch.io.data import demo_model_params, load_y_sim
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.parallel import Mesh, ParticleAxis, \
+        initialize_distributed, replicated_sharded_filters, \
+        sharded_bootstrap_filter, sharded_ensemble_kalman_filter
+    from cusmc_tpu_torch.parallel.mesh import rank_seed
+    from cusmc_tpu_torch.smc.enkf import ensemble_kalman_filter
+    from cusmc_tpu_torch.smc.kalman import kalman_filter
+    from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+
+    dev = torch.device("cuda")
+    n = N_BIG
+    oracle_keys = ("F", "G", "V", "W", "m0", "C0")
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/store", 1, 0)
+        try:
+            axis = ParticleAxis()
+            for label, d, steps in FAMILY_ROWS:
+                p = demo_model_params(d)
+                models = {k: DLM.create(noise="mvt", df=5.0, device=dev,
+                                        state_dtype=dt, **p)
+                          for k, dt in (("bf16", torch.bfloat16),
+                                        ("f32", None))}
+                _, ys = models["f32"].simulate(
+                    torch.Generator(dev).manual_seed(0), steps)
+                for r in ("systematic", "residual", "metropolis"):
+                    def sharded(kind, seed=1, ax=axis, r=r):
+                        return sharded_bootstrap_filter(
+                            seed, models[kind], ys, n, ax, resampler=r)
+                    tag = f"{label} d={d} {r}"
+                    _, got = _counted_best(
+                        f"bf16 sharded {tag}", lambda _: sharded("bf16"),
+                        FAMILY_LAUNCHES[r, "bf16"], steps, reps=0)
+                    assert got.final_particles.dtype == torch.bfloat16
+                    assert bool(torch.isfinite(
+                        got.final_particles.float()).all())
+                    # The same ops and streams without an axis: the
+                    # one-rank group's collectives are the identity.
+                    _same_result(f"bf16 sharded {tag}", got,
+                                 sharded("bf16", ax=None))
+                    same = "the run without collectives"
+                    if r == "metropolis":
+                        gen = torch.Generator(dev).manual_seed(
+                            rank_seed(1, 0))
+                        _same_result(f"bf16 sharded {tag}", got,
+                                     bootstrap_filter(
+                                         gen, models["bf16"], ys, n,
+                                         resampler=r, return_history=False))
+                        same += " and the single-device run"
+                    _counted_best(f"f32 sharded {tag}",
+                                  lambda _: sharded("f32"),
+                                  FAMILY_LAUNCHES[r, "f32"], steps, reps=0)
+                    best = _best_of({
+                        "f32": lambda: sharded("f32", 2),
+                        "bf16": lambda: sharded("bf16", 2)})
+                    rates = {k: n * (steps - 1) / v for k, v in best.items()}
+                    print(f"  sharded {tag} MVT df=5 N=2^20 T={steps}: bf16 "
+                          f"{rates['bf16']:.6g} particle-steps/s beside f32 "
+                          f"{rates['f32']:.6g} (bf16 / f32 "
+                          f"{rates['bf16'] / rates['f32']:.3f}; best of 2 "
+                          f"in turns), logZ bf16 "
+                          f"{float(got.log_evidence):.3f}; bitwise "
+                          f"{same}; launches "
+                          + ", ".join(f"{k} {v * (steps - 1)}" for k, v in
+                                      FAMILY_LAUNCHES[r, "bf16"].items())
+                          + f" [{card}]")
+
+            # The ensemble-sharded EnKF at P = 1 against the single-device
+            # EnKF seeded with the rank stream's seed: bitwise.
+            p = demo_model_params(ENKF_D)
+            m = DLM.create(noise="mvn", device=dev, **p)
+            steps = 200
+            _, ys = m.simulate(torch.Generator(dev).manual_seed(3), steps)
+            km, _, _ = kalman_filter(ys.cpu(), **{k: p[k] for k in
+                                                  oracle_keys})
+            runs = {"sharded": lambda: sharded_ensemble_kalman_filter(
+                        3, m, ys, ENKF_N, axis),
+                    "single": lambda: ensemble_kalman_filter(
+                        torch.Generator(dev).manual_seed(rank_seed(3, 0)),
+                        m, ys, ENKF_N)}
+            _, got = _counted_best("sharded EnKF",
+                                   lambda _: runs["sharded"](), {}, steps,
+                                   reps=0)
+            want = runs["single"]()
+            for f in ("final_ensemble", "means", "spread"):
+                assert torch.equal(getattr(got, f), getattr(want, f)), \
+                    f"sharded EnKF: {f} differs from the single-device run"
+            rel = float(np.abs(got.means.cpu().numpy()[5:] - km[5:]).mean()
+                        / (np.abs(km[5:]).mean() + 1.0))
+            assert rel < 0.05, f"sharded EnKF: means off Kalman ({rel})"
+            best = _best_of(runs)
+            print(f"  sharded EnKF d={ENKF_D} N={ENKF_N} T={steps} (one-rank "
+                  f"group): {ENKF_N * (steps - 1) / best['sharded']:.6g} "
+                  f"particle-steps/s beside the single-device "
+                  f"{ENKF_N * (steps - 1) / best['single']:.6g}; bitwise "
+                  f"the single-device run; mean error / scale against "
+                  f"Kalman {rel:.5f} (limit 0.05) [{card}]")
+
+            # Replicated sharded filters on a (1, 1) grid of ranks.
+            p = demo_model_params()
+            mvn = DLM.create(noise="mvn", device=dev, **p)
+            ys = load_y_sim()[:REPLICATE_T]
+            _, _, kll = kalman_filter(ys, **{k: p[k] for k in oracle_keys})
+            mesh = Mesh({"chains": 1, "particles": 1})
+            for r, used in (("metropolis",
+                             {"roll_metropolis_sweeps_expspace": 4}),
+                            ("systematic", {"blocked_cumsum": 4,
+                                            "inverse_cdf_search": 4})):
+                secs, res = _counted_best(
+                    f"replicated {r}", lambda s: replicated_sharded_filters(
+                        s, mvn, ys, n, REPLICATES, mesh, resampler=r),
+                    used, REPLICATE_T, reps=1)
+                lz = res.log_evidence.cpu().numpy()
+                assert lz.shape == (REPLICATES,)
+                assert tuple(res.final_particles.shape) == (REPLICATES, n, 2)
+                assert (np.abs(lz - kll) < 0.08 * abs(kll)).all(), \
+                    f"replicated {r}: logZ {lz} off Kalman {kll}"
+                assert np.unique(lz).size == REPLICATES, \
+                    f"replicated {r}: replicates not distinct"
+                print(f"  replicated {r} R={REPLICATES} N=2^20 "
+                      f"T={REPLICATE_T} MVN on a (1, 1) grid: logZ "
+                      + ", ".join(f"{v:.3f}" for v in lz)
+                      + f" (Kalman {kll:.3f}, band "
+                      f"{0.08 * abs(kll):.3f}), distinct; "
+                      f"{REPLICATES * n * (REPLICATE_T - 1) / secs:.6g} "
+                      f"particle-steps/s after one warm-up [{card}]")
+        finally:
+            dist.destroy_process_group()
+    mcmc_rows(dev, card)
+
+
 # -- the main paths' own traffic ------------------------------------------
 
 # Steps of a T = 200 run whose inputs to the block-window kernels are kept
@@ -3320,7 +3767,9 @@ def other_tree(root):
     ``root`` (its ``cusmc_tpu_torch/ops/kernels.py``, loaded under another
     name, builds them from its own sources into its own ``build/``):
     wrapper name -> ``fn(args, kwargs)`` returning the ancestors, called
-    with the arguments that this tree's wrapper takes. The C entries keep
+    with the arguments that this tree's wrapper takes, and
+    "blocked_cumsum" -> ``fn(w)`` returning the cdf (phase 3's counts over
+    zero weights). The C entries keep
     their signatures across trees (but for the fused CDF step's ``tiled``
     argument, added with the "tile" design)."""
     import importlib.util
@@ -3345,6 +3794,16 @@ def other_tree(root):
     has_bf16 = len(mod.SIGNATURES["cusmc_inverse_cdf_apply"]) == 12
 
     stream = torch.cuda.current_stream().cuda_stream
+
+    def cumsum(w):
+        n = w.numel()
+        state = torch.zeros(2 + n // 8192, dtype=torch.int64,
+                            device=w.device)
+        cdf = torch.empty_like(w)
+        mod.check(lib.cusmc_blocked_cumsum(
+            w.data_ptr(), cdf.data_ptr(), state.data_ptr(), state.numel(), n,
+            0, 1, stream), root)
+        return cdf
 
     def search(args, kw):
         cdf, q = args
@@ -3382,19 +3841,19 @@ def other_tree(root):
         return a
 
     return {"inverse_cdf_search": search, "inverse_cdf_apply": apply,
-            "fused_cdf_filter_step": cdf_step}
+            "fused_cdf_filter_step": cdf_step, "blocked_cumsum": cumsum}
 
 
-def check_traffic(against) -> None:
+def check_traffic(others) -> None:
     """Phase 5: the three block-window kernels on the inputs that the main
     paths gave them (TRAFFIC): for each kept step, the spans of the cdf
     that its blocks search and the share of blocks that fits the window
     (and would fit a window of another size), the kernel against its plain
     version (ancestors equal, a mismatch only at a shown cdf tie; gathered
     values exactly, states and ll at 1e-4) and its device time; beside it
-    the device time of the same kernel of each tree in ``against``, on the
-    same inputs, in the order other, this, this, other, with its ancestors
-    equal to this tree's."""
+    the device time of the same kernel of each tree in ``others``
+    (``other_tree``), on the same inputs, in the order other, this, this,
+    other, with its ancestors equal to this tree's."""
     import torch
 
     from cusmc_tpu_torch.ops.fused_cdf_step import fused_cdf_filter_step, \
@@ -3405,7 +3864,6 @@ def check_traffic(against) -> None:
         inverse_cdf_apply, inverse_cdf_apply_plain, inverse_cdf_search, \
         inverse_cdf_search_plain, window_fit_share
 
-    others = [(root, other_tree(root)) for root in against]
     kept_on_paths = [k for k, v in TRAFFIC.items() if v[0][0] is not None]
     assert len(kept_on_paths) == 9, f"kept on the main paths: {kept_on_paths}"
     for (fn, label), kept in sorted(TRAFFIC.items()):
@@ -3508,8 +3966,10 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}")
     build_kernels()
     build_native()
+    others = [(root, other_tree(root)) for root in args.against]
     with phase("kernels against their plain versions"):
         rec = check_kernels()
+        rec["blocked_cumsum"]["zero_steps"] = check_zero_steps(others)
         rec.update(check_shard_kernels())
         rec.update(check_fused_kernels())
     with phase("the kernels at the other models' widths (d = 1; d = 13, "
@@ -3534,13 +3994,16 @@ def main(argv=None) -> int:
             ("streaming", "the headless runner and the streaming filter",
              streaming_path),
             ("models", "the other models and the auxiliary family",
-             models_path)):
+             models_path),
+            ("family", "the sharded family and MCMC", family_path)):
         with phase(title):
             _zero_counts()
             drive(card)
             launches[path] = _counts()
+            print(f"  launches on the {path} path: " + ", ".join(
+                f"{k} {v}" for k, v in launches[path].items() if v))
     with phase("the block-window kernels on the main paths' own inputs"):
-        check_traffic(args.against)
+        check_traffic(others)
 
     records = []
     for name, source, replaces, paths in KERNELS:

@@ -24,7 +24,10 @@ headless runner, ``python -m cusmc_tpu_torch demo|run`` (``config.py``);
 the other model families (``models/{stochvol,ungm,structural,clgssm}.py``)
 and the auxiliary filters and smoothers (``smc/{apf,liu_west,rbpf,csmc,
 enkf,ffbs,smoothing,forecast}.py``, ``kalman.rts_smoother``), which run the
-existing kernels or plain torch, as their JAX counterparts run XLA.
+existing kernels or plain torch, as their JAX counterparts run XLA; and
+multi-chain MCMC (``mcmc/``: random-walk and adaptive Metropolis, MALA,
+HMC) with its convergence diagnostics (``diagnostics/mcmc.py``), plain
+torch as well.
 On a CUDA tensor each kernel wrapper launches its kernel or raises; only a
 CPU tensor takes the plain PyTorch version.
 
@@ -46,6 +49,9 @@ from cusmc_tpu_torch.api import (  # noqa: E402
     run,
 )
 from cusmc_tpu_torch.device import resolve_device  # noqa: E402
+from cusmc_tpu_torch.mcmc.metropolis import (  # noqa: E402
+    metropolis_hastings_sampler,
+)
 from cusmc_tpu_torch.models.base import CustomSSM  # noqa: E402
 from cusmc_tpu_torch.models.clgssm import CLGSSM  # noqa: E402
 from cusmc_tpu_torch.models.dlm import DLM  # noqa: E402
@@ -75,5 +81,5 @@ __all__ = ["CLGSSM", "CustomSSM", "DLM", "EnKFResult", "FilterResult",
            "LiuWestResult", "MVN", "MVNPDF", "MVT", "MVTPDF", "RBPFResult",
            "bootstrap_filter", "ensemble_kalman_filter", "get_resampler",
            "kalman_filter", "liu_west_filter", "metropolis_hastings",
-           "rao_blackwell_filter", "register_resampler", "resolve_device",
+           "metropolis_hastings_sampler", "rao_blackwell_filter", "register_resampler", "resolve_device",
            "run"]

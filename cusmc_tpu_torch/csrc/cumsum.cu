@@ -34,6 +34,10 @@
 //
 // Monotone output, which the inverse-CDF search relies on: within a tile,
 // excl + local is non-decreasing since local is and rounding is monotone.
+// Flat over zero weights, which keeps a zero-weight particle out of every
+// inverse-CDF draw: in a thread a zero weight adds nothing to the sequential
+// sum; at a thread's leading zeros the value is the floor of the max-scan,
+// bitwise the previous thread's last value (step 2 above).
 // Across tiles, tile b's last value is excl(b) + agg(b) = I(b) bitwise (the
 // same expression), and tile b+1's excl is S(b+1) = I(b) bitwise, so every
 // value tile b+1 writes is fl(I(b) + local) >= I(b). The floor that tile
@@ -158,29 +162,36 @@ __device__ float tile_scan(const float* stage, float (&vals)[kItems],
   }
   __syncthreads();
   const float p = warp_part[warp] + excl;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) vals[k] = p + vals[k];
   __syncthreads();  // warp_part is reused below
 
   // Exact max-scan: every value is raised to the largest value before it.
-  const float mine = vals[kItems - 1];
+  // The scan runs over 0 (no value is below it) and a thread whose items
+  // are all zero enters 0, so that it cannot raise the next thread's floor
+  // above the value it writes itself.
+  const float mine = acc == 0.f ? 0.f : p + acc;
   const float mi = cusmc::warp_inclusive_max(mine, lane);
   float me = __shfl_up_sync(cusmc::kFullMask, mi, 1);
-  if (lane == 0) me = -INFINITY;
+  if (lane == 0) me = 0.f;
   if (lane == 31) warp_part[warp] = mi;
   __syncthreads();
   if (warp == 0) {
-    const float s = (lane < kWarps) ? warp_part[lane] : -INFINITY;
+    const float s = (lane < kWarps) ? warp_part[lane] : 0.f;
     const float si = cusmc::warp_inclusive_max(s, lane);
     float se = __shfl_up_sync(cusmc::kFullMask, si, 1);
-    if (lane == 0) se = -INFINITY;
+    if (lane == 0) se = 0.f;
     if (lane < kWarps) warp_part[lane] = se;
     if (lane == kWarps - 1) warp_part[kWarps] = si;
   }
   __syncthreads();
+  // The floor is bitwise the last value of the thread before (0 in thread
+  // 0). A leading item whose local prefix is exactly zero has zero weight
+  // and everything before it in the thread too: it takes the floor, not
+  // p, which can sit an ulp above it (flat over zeros).
   const float floor_v = fmaxf(warp_part[warp], me);
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) vals[k] = fmaxf(vals[k], floor_v);
+  for (int k = 0; k < kItems; ++k) {
+    vals[k] = vals[k] == 0.f ? floor_v : fmaxf(p + vals[k], floor_v);
+  }
   return warp_part[kWarps];
 }
 

@@ -1,6 +1,12 @@
-"""Diagnostics of the PyTorch port (see ``cusmc_tpu.diagnostics``; the MCMC
-diagnostics are not ported yet)."""
+"""Diagnostics of the PyTorch port (see ``cusmc_tpu.diagnostics``)."""
 
+from cusmc_tpu_torch.diagnostics.mcmc import (
+    effective_sample_size_chains,
+    ess_tail,
+    mcmc_summary,
+    rank_normalized_rhat,
+    split_rhat,
+)
 from cusmc_tpu_torch.diagnostics.metrics import (
     effective_sample_size,
     filter_diagnostics,
@@ -9,6 +15,11 @@ from cusmc_tpu_torch.diagnostics.metrics import (
 )
 
 __all__ = [
+    "effective_sample_size_chains",
+    "ess_tail",
+    "rank_normalized_rhat",
+    "mcmc_summary",
+    "split_rhat",
     "effective_sample_size",
     "filter_diagnostics",
     "log_normalize",

@@ -16,8 +16,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
 from cusmc_tpu_torch.models.base import supports_packed
 from cusmc_tpu_torch.parallel.mesh import axis_size
 from cusmc_tpu_torch.parallel.resampling import (
@@ -35,12 +33,8 @@ def sharded_filter_args(model, num_particles: int, axis=None,
     ``particle_filter.filter_setup``) run this rank's block of the sharded
     filter: the block size, the layout, the axis, the global N and the
     injected op with its weight form. A mixed-precision model (a bfloat16
-    state) is refused: the ring and roll exchanges are float32 only
-    (ROADMAP queue 1, "the sharded filter in bfloat16")."""
-    if getattr(model, "state_dtype", torch.float32) != torch.float32:
-        raise NotImplementedError(
-            "the sharded filter with a bfloat16 state is not ported yet "
-            "(ROADMAP queue 1, the sharded filter in bfloat16)")
+    state) runs as it does on one device: the exchanges carry the state in
+    its own type, the weights in float32."""
     n_shards = axis_size(axis)
     if num_particles % n_shards:
         raise ValueError(f"num_particles={num_particles} is not divisible "
@@ -82,8 +76,7 @@ def sharded_bootstrap_filter(key, model, ys, num_particles: int, axis=None,
     rank's ``FilterResult``: the particles and weights of its block,
     ancestors in global indices, and the ESS and log-evidence, the same on
     every rank. Default ``return_history=False``: at the scales that need
-    sharding the [T, L, d] history dominates device memory. A bfloat16
-    state is refused (``sharded_filter_args``)."""
+    sharding the [T, L, d] history dominates device memory."""
     return particle_filter.bootstrap_filter(
         key, model, ys, ess_threshold=ess_threshold,
         return_history=return_history, device=device,

@@ -8,6 +8,11 @@ of ``L = N / P`` particles; rank p holds the global columns [p L, (p+1) L).
 Every rank must issue the same collectives in the same order, as every
 shard of a ``shard_map`` program does.
 
+A ``Mesh`` lays the ranks out on a grid of named axes (``"chains"`` x
+``"particles"`` for the replicated filters) with one group per line of the
+grid; a ``ParticleAxis`` then spans this rank's line, and its collectives
+stay inside it.
+
 ``None`` in place of an axis means one shard: index 0, size 1, and every
 reduction the identity (``axis_index``, ``axis_size``, ``psum``, ...).
 
@@ -29,12 +34,14 @@ seeded with ``rank_seed(seed, 0)``.
 
 from __future__ import annotations
 
+import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 PARTICLE_AXIS = "particles"
+CHAIN_AXIS = "chains"
 
 _SEED_MASK = (1 << 63) - 1
 _GOLDEN = 0x9E3779B97F4A7C15
@@ -67,19 +74,21 @@ def make_streams(seed: Optional[int], axis, device) -> Streams:
 
 
 class ParticleAxis:
-    """The particle axis over the default process group.
+    """An axis over a process group: the default group, or ``group`` (a
+    ``dist.new_group``, one line of a ``Mesh``).
 
-    ``index`` is this process's rank, ``size`` the number of ranks. The
-    collectives take and return tensors on this rank's device; NCCL on
-    the card, gloo on the CPU."""
+    ``index`` is this process's rank within the group, ``size`` the
+    group's number of ranks. The collectives take and return tensors on
+    this rank's device; NCCL on the card, gloo on the CPU."""
 
-    def __init__(self, name: str = PARTICLE_AXIS):
+    def __init__(self, name: str = PARTICLE_AXIS, group=None):
         if not dist.is_initialized():
             raise RuntimeError("torch.distributed is not initialised; call "
                                "parallel.multihost.initialize_distributed")
         self.name = name
-        self.index = dist.get_rank()
-        self.size = dist.get_world_size()
+        self.group = group
+        self.index = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
 
     def __repr__(self) -> str:
         return f"ParticleAxis({self.name!r}, index={self.index}, " \
@@ -90,12 +99,12 @@ class ParticleAxis:
         stacked on a new axis 0, in rank order."""
         parts: List[torch.Tensor] = [torch.empty_like(x)
                                      for _ in range(self.size)]
-        dist.all_gather(parts, x.contiguous())
+        dist.all_gather(parts, x.contiguous(), group=self.group)
         return torch.cat(parts, 0) if tiled else torch.stack(parts, 0)
 
     def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
         out = x.detach().reshape(-1).clone()  # 0-dim tensors as [1]
-        dist.all_reduce(out, op=op)
+        dist.all_reduce(out, op=op, group=self.group)
         return out.reshape(x.shape)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
@@ -108,7 +117,7 @@ class ParticleAxis:
 
     def barrier(self) -> None:
         """Wait until every rank has reached this call."""
-        dist.barrier()
+        dist.barrier(group=self.group)
 
     def ppermute(self, x: torch.Tensor,
                  perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
@@ -123,12 +132,57 @@ class ParticleAxis:
             return x
         x = x.contiguous()
         out = torch.zeros_like(x)
-        ops = [dist.P2POp(dist.isend, x, d) for d in dst]
-        ops += [dist.P2POp(dist.irecv, out, s) for s in src]
+        peer = self._global_rank
+        ops = [dist.P2POp(dist.isend, x, peer(d), self.group) for d in dst]
+        ops += [dist.P2POp(dist.irecv, out, peer(s), self.group)
+                for s in src]
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         return out
+
+
+    def _global_rank(self, r: int) -> int:
+        """The default group's rank of this group's rank ``r``."""
+        return r if self.group is None else dist.get_global_rank(
+            self.group, r)
+
+
+class Mesh:
+    """A grid of the default group's ranks (``cusmc_tpu/parallel/mesh.py``
+    ``make_mesh``): ``axis_sizes`` maps axis name -> size in order, e.g.
+    ``{"chains": 2, "particles": 4}``; the product must be the world size.
+    The ranks fill the grid in row-major order, as ``make_mesh`` reshapes
+    its devices, so rank r sits at ``np.unravel_index(r, sizes)``.
+
+    Each line of the grid along an axis is a ``dist.new_group``; ``axes``
+    maps each name to a ``ParticleAxis`` over this rank's line, and
+    ``shape`` each name to its size. torch.distributed needs every rank to
+    create every group in the same order, which the constructor does:
+    every rank calls it with the same sizes."""
+
+    def __init__(self, axis_sizes: Optional[dict] = None):
+        world = dist.get_world_size()
+        if axis_sizes is None:
+            axis_sizes = {PARTICLE_AXIS: world}
+        names = tuple(axis_sizes)
+        sizes = tuple(int(axis_sizes[n]) for n in names)
+        if math.prod(sizes) != world:
+            raise ValueError(f"axis sizes {axis_sizes} != world size "
+                             f"{world}")
+        self.shape = dict(zip(names, sizes))
+        self.axes = {}
+        me = dist.get_rank()
+        grid = torch.arange(world).reshape(sizes)
+        for i, name in enumerate(names):
+            for line in torch.movedim(grid, i, -1).reshape(-1, sizes[i]):
+                ranks = line.tolist()
+                group = dist.new_group(ranks)
+                if me in ranks:
+                    self.axes[name] = ParticleAxis(name, group)
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape})"
 
 
 def axis_index(axis) -> int:
@@ -141,6 +195,11 @@ def axis_size(axis) -> int:
 
 def psum(x: torch.Tensor, axis) -> torch.Tensor:
     return x if axis is None else axis.psum(x)
+
+
+def pmean(x: torch.Tensor, axis) -> torch.Tensor:
+    """``lax.pmean``: the elementwise mean over the ranks."""
+    return x if axis is None else axis.psum(x) / axis.size
 
 
 def pmax(x: torch.Tensor, axis) -> torch.Tensor:

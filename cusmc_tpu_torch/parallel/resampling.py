@@ -13,7 +13,8 @@ Weights are all-gathered (O(N) scalars); each rank derives the global
 ancestors of its own L slots from them, through the kernels of
 ``ops/cumsum`` and ``ops/monotone_gather``; the states move only in [d, L]
 blocks between ranks (``ParticleAxis.ppermute``), never as a global [d, N]
-array. Every op returns global ancestor indices.
+array. Every op returns global ancestor indices. A bfloat16 state moves
+and is gathered in bfloat16; weights, cdfs and positions stay float32.
 
 Each op is an object with ``draw(streams, w) -> draws`` (the layout of
 ``parallel.mesh``: ``streams.common`` is the same on every rank,
@@ -70,6 +71,27 @@ def _div(x: torch.Tensor, n: int) -> torch.Tensor:
     """``x / n`` as a true division (a tensor divisor: PyTorch divides a
     CUDA tensor by a Python scalar as a reciprocal multiply)."""
     return x / torch.full((), float(n), dtype=x.dtype, device=x.device)
+
+
+def _pack(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """States [d, L] and float32 weights [L] as one block for one
+    collective: [d+1, L] float32 for a float32 state; for a bfloat16
+    state, its rows and the weights' 32 bits as two bfloat16 rows, [d+2,
+    L], so that the state moves in its own type (JAX's concatenate
+    promotes it to float32). The block is only moved and selected, never
+    computed on, so ``_unpack`` gives the weights back bitwise."""
+    if X.dtype == w.dtype:
+        return torch.cat([X, w[None, :]], 0)
+    halves = w.contiguous().view(X.dtype).reshape(-1, 2).T
+    return torch.cat([X, halves], 0)
+
+
+def _unpack(both: torch.Tensor, d: int):
+    """``_pack``'s block [*, L] -> (states [d, L], weights [L])."""
+    if both.shape[0] == d + 1:
+        return both[:d], both[d]
+    w = both[d:].T.contiguous().view(torch.float32).reshape(-1)
+    return both[:d], w
 
 
 def _fill(n_local: int, exp_in: bool, like: torch.Tensor,
@@ -452,7 +474,8 @@ class RollMetropolisShardedOp:
                                                        u, X)
             return x_anc, w_out, a
         p = axis_index(self.axis)
-        both = torch.cat([X, w[None, :]], 0)  # [d+1, L]
+        d = X.shape[0]
+        both = _pack(X, w)  # [d+1, L] (a bfloat16 state: [d+2, L])
         iota = torch.arange(L, device=dev)
         if self.exchange == "windowed":
             q, r, (shifts, u) = draws
@@ -460,10 +483,10 @@ class RollMetropolisShardedOp:
             window = torch.cat([ppermute(both, self.axis, self._perm(qh)),
                                 ppermute(both, self.axis,
                                          self._perm((qh + 1) % P))], 1)
-            rotated = window[:, r.long() + iota]
+            x_rot, w_rot = _unpack(window[:, r.long() + iota], d)
             x_anc, a_loc = roll_metropolis_sweeps_expspace(
-                self._wexp(rotated[-1].contiguous()), shifts, u,
-                rotated[:-1].contiguous())
+                self._wexp(w_rot.contiguous()), shifts, u,
+                x_rot.contiguous())
             a = torch.remainder((p + qh) * L + a_loc.long() + r.long(), N)
             return x_anc, w_out, a.to(torch.int32)
 
@@ -481,13 +504,13 @@ class RollMetropolisShardedOp:
             cand = (stack[b] if self.exchange == "binary"
                     else ppermute(both, self.axis, self._perm(q)))
             idx = torch.remainder(iota + ss[b].long(), L)
-            cand = cand[:, idx]  # slot i <- (i + s) % L
+            x_c, w_c = _unpack(cand[:, idx], d)  # slot i <- (i + s) % L
             if self.exp_in:
-                acc = u[b] * w_cur < cand[-1]
+                acc = u[b] * w_cur < w_c
             else:
-                acc = torch.log(u[b]) < cand[-1] - w_cur
-            w_cur = torch.where(acc, cand[-1], w_cur)
-            x_cur = torch.where(acc[None, :], cand[:-1], x_cur)
+                acc = torch.log(u[b]) < w_c - w_cur
+            w_cur = torch.where(acc, w_c, w_cur)
+            x_cur = torch.where(acc[None, :], x_c, x_cur)
             j_new = (((p + q) % P) * L + idx).to(torch.int32)
             a_cur = torch.where(acc, j_new, a_cur)
         return x_cur, w_out, a_cur

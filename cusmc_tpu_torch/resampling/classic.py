@@ -37,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from cusmc_tpu_torch.ops.cumsum import blocked_cumsum
 from cusmc_tpu_torch.ops.random import tiny_uniform
 
 
@@ -156,9 +157,12 @@ def residual_positions_from_uniforms(u: torch.Tensor,
     R = n - n_det entries are exactly R uniform order statistics
     (S_k / S_{R+1} over exponential-spacing partial sums S); entries past
     R exceed 1 and are masked by the callers. ``n_det`` is a 0-dim integer
-    tensor: S_{R+1} is gathered on the device, with no host read."""
+    tensor: S_{R+1} is gathered on the device, with no host read. The
+    partial sums are ``blocked_cumsum``'s: on the card, ``torch.cumsum``
+    is a parallel scan whose float32 sums change from run to run, so a
+    residual step would not repeat itself bit for bit."""
     n = u.shape[0] - 1
-    s = torch.cumsum(-torch.log(u), dim=0)
+    s, _ = blocked_cumsum(-torch.log(u))
     s_r1 = s.index_select(0, (n - n_det.long()).reshape(1))
     return s[:n] / s_r1
 

@@ -16,8 +16,9 @@ and can be given.
 ``num_ensemble`` of ``num_ensemble_global`` members: the means and the
 moment products are summed over the axis (the module's own ``pmean`` and
 ``psum``, ``enkf.py:40-43,83-131``), and each rank draws from its rank
-stream (``parallel.mesh.make_streams``; ``key`` an int seed). The
-``shard_map`` wrapper ``parallel/enkf.py`` is not ported yet.
+stream (``parallel.mesh.make_streams``; ``key`` an int seed).
+``parallel/enkf.sharded_ensemble_kalman_filter`` is the entry point that
+sizes the block.
 
 ``draws`` replays given numbers (the JAX key schedule: ``k_init, k_scan =
 split(key)``; per step ``k_prop, k_obs = split(fold_in(k_scan, t))``):
@@ -35,7 +36,7 @@ import torch
 from cusmc_tpu_torch.device import KeyLike, as_tensor, make_generator
 from cusmc_tpu_torch.models.base import draw
 from cusmc_tpu_torch.ops.random import normal
-from cusmc_tpu_torch.parallel.mesh import axis_size, make_streams, psum
+from cusmc_tpu_torch.parallel.mesh import make_streams, pmean, psum
 from cusmc_tpu_torch.smc.particle_filter import model_device
 
 
@@ -51,8 +52,7 @@ class EnKFResult:
 
 def _gmean(x: torch.Tensor, axis, dim=0) -> torch.Tensor:
     """The mean over ``dim``, and over the particle axis when sharded."""
-    m = torch.mean(x, dim=dim)
-    return m if axis is None else psum(m, axis) / axis_size(axis)
+    return pmean(torch.mean(x, dim=dim), axis)
 
 
 def ensemble_kalman_filter(

@@ -49,7 +49,9 @@ continues the run bit for bit. A resume on another group size (or a
 single-device snapshot resumed sharded, and the other way round) is a
 valid run that is not comparable bit for bit: its streams are seeded anew
 from ``utils.rng.resume_seed(seed, t)`` as ``parallel.mesh.make_streams``
-seeds them from a run's seed. ``spill_path`` takes a group of one rank.
+seeds them from a run's seed. With ``spill_path`` on a group of more than
+one rank, rank 0 writes the gathered history and the other ranks, which
+take part in the gathers, write nothing and return no store.
 """
 
 from __future__ import annotations
@@ -201,9 +203,6 @@ def streaming_bootstrap_filter(
         if layout != "packed":
             raise ValueError("sharded streaming requires the packed "
                              "layout (a model with packed methods)")
-        if spill_path is not None and axis_size(axis) > 1:
-            raise ValueError("spill_path takes a group of one rank: every "
-                             "rank would write the same file")
         setup = filter_setup(key, model, ess_threshold=ess_threshold,
                              device=device,
                              **sharded_filter_args(model, num_particles,
@@ -292,15 +291,17 @@ def streaming_bootstrap_filter(
     if store_particles:
         d = setup.x0.shape[0] if packed else setup.x0.shape[-1]
         shape = (n_local * axis_size(axis), d)
-        if spill_path is not None:
+        if spill_path is None:
+            store = TrajectoryStore(shape, num_steps, np.float32,
+                                    force_numpy=force_numpy_store)
+        elif axis_index(axis) == 0:
             from cusmc_tpu_torch.io.disk_store import DiskTrajectoryStore
 
             store = DiskTrajectoryStore(spill_path, shape, np.float32)
-        else:
-            store = TrajectoryStore(shape, num_steps, np.float32,
-                                    force_numpy=force_numpy_store)
-        store.start_step = t - 1
-        store.append(host_rows(x)[None])
+        rows0 = host_rows(x)[None]  # gathered on every rank
+        if store is not None:
+            store.start_step = t - 1
+            store.append(rows0)
 
     next_ckpt = None
     if checkpoint is not None:
@@ -313,7 +314,7 @@ def streaming_bootstrap_filter(
         esss = torch.empty((k,), dtype=wdtype, device=dev)
         lzs = torch.empty((k,), dtype=wdtype, device=dev)
         xs = (torch.empty((k,) + tuple(x.shape), dtype=x.dtype, device=dev)
-              if store is not None else None)
+              if store_particles else None)
         prev_x, prev_w, prev_t = x, w, t
         prev_states = _local_states(streams) if keep_states else None
         x, w = scan_steps(step, x, w, ys[t:t + k], t, streams, esss, lzs,
@@ -329,11 +330,12 @@ def streaming_bootstrap_filter(
                 f"last good step {prev_t - 1}"
                 + (f", snapshot saved to {snap}" if snap else ""),
                 last_good_step=prev_t - 1, snapshot=snap)
-        if store is not None:
+        if store_particles:
             rows = xs.transpose(1, 2) if packed else xs
             if axis is not None:
                 rows = _gather_rows(rows.transpose(0, 1), axis).transpose(0, 1)
-            store.append(_host_fetch(rows.float().contiguous()))
+            if store is not None:
+                store.append(_host_fetch(rows.float().contiguous()))
         ess_parts.append(esss)
         lz_parts.append(lzs)
         t += k

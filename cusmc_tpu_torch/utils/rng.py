@@ -22,6 +22,9 @@ index in. The port draws from ``torch.Generator``s instead:
   state (5056 bytes), a CUDA generator's its Philox seed and offset (16
   bytes, read without a device sync). A state restores only into a
   generator of the same device type.
+- ``replicate_seed(seed, r)`` is the seed of replicate r of
+  ``parallel/replicated.py``, the counterpart of JAX's ``fold_in(key,
+  r)`` there.
 - ``resume_seed(seed, t)`` seeds streams anew where a snapshot's streams
   cannot be restored as they were (a sharded run resumed on another group
   size): ``make_streams(resume_seed(seed, t), axis, device)``.
@@ -36,7 +39,8 @@ from cusmc_tpu_torch.device import make_generator
 from cusmc_tpu_torch.parallel.mesh import make_streams, rank_seed
 
 __all__ = ["generator_state", "make_generator", "make_streams",
-           "rank_seed", "resume_seed", "set_generator_state"]
+           "rank_seed", "replicate_seed", "resume_seed",
+           "set_generator_state"]
 
 
 def generator_state(gen: torch.Generator) -> np.ndarray:
@@ -62,3 +66,11 @@ def resume_seed(seed: int, t: int) -> int:
     ``seed``: ``rank_seed``'s splitmix64 step at the rank -(t + 1), which
     no rank stream takes."""
     return rank_seed(seed, -(int(t) + 1))
+
+
+def replicate_seed(seed: int, r: int) -> int:
+    """The seed of replicate ``r`` of a run seeded with ``seed``:
+    ``rank_seed``'s splitmix64 step of the seed mixed first with the
+    rank -(2^31), which no rank or resume stream takes, so a replicate's
+    streams are none of the run's own."""
+    return rank_seed(rank_seed(seed, -(1 << 31)), int(r))

@@ -25,6 +25,23 @@ block):
 - ``"single"``: the single-device filter of the same model seeded with
   the rank stream's seed, beside a ``"filter"`` case for the P = 1
   equality.
+- ``"enkf"``: ``parallel.enkf.sharded_ensemble_kalman_filter`` on the
+  demo DLM (``draws``: one entry per rank, or None). Outputs the block's
+  final ensemble, the means and the spread.
+- ``"replicated"``: ``parallel.replicated.replicated_sharded_filters`` on
+  a ``parallel.mesh.Mesh`` of ``mesh`` (axis sizes). Outputs this rank's
+  block (log-evidence, ESS, final particles and log weights) and its
+  (chain, particle) indices on the grid.
+
+``bf16=True`` gives the model (``"filter"``, ``"single"``, ``"stream"``)
+or the op's ``X`` (``"op"``) a bfloat16 state; the rank asserts that the
+state stays bfloat16 and outputs it as float32. ``one_shard=True`` runs a
+``"filter"`` case with no axis (the same streams and ops, no
+collectives). An ``"op"`` case with ``count=True`` also outputs the
+number of ``ParticleAxis.ppermute`` calls the op made. A ``"stream"``
+case with ``spill`` (a path) spills the history there from rank 0 and
+outputs the file's bytes on rank 0 (None elsewhere, where no store may
+be returned).
 - ``"stream"``: ``smc/streaming.streaming_bootstrap_filter`` over the
   group (``sharded=False``: on one device, every rank alike), with
   ``chunk`` steps a chunk and an optional snapshot directory
@@ -56,6 +73,8 @@ def _tensors(x):
         return torch.from_numpy(x)
     if isinstance(x, (tuple, list)):
         return type(x)(_tensors(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _tensors(v) for k, v in x.items()}
     if isinstance(x, np.generic):
         return torch.tensor(x)
     return x
@@ -65,6 +84,8 @@ def _numpy(x):
     import torch
 
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
         return x.detach().cpu().numpy()
     if isinstance(x, (tuple, list)):
         return type(x)(_numpy(v) for v in x)
@@ -78,8 +99,11 @@ def _model(case):
     params = demo_model_params()
     params.update(case.get("params", {}))
     noise = case.get("noise", "mvn")
+    import torch
+
     model = DLM.create(noise=noise, df=case.get("df"), device="cpu",
-                       **params)
+                       state_dtype=torch.bfloat16 if case.get("bf16")
+                       else None, **params)
     if case.get("custom"):
         from cusmc_tpu_torch.models.base import CustomSSM
 
@@ -129,9 +153,19 @@ def stream_case(case, axis):
         finally:
             streaming._host_fetch, streaming._host_flag = fetch, flag
         return reads, shapes, _numpy(res.log_evidence)
+    if case.get("spill"):
+        res, store = streaming.streaming_bootstrap_filter(
+            case["seed"], model, ys, case["N"], spill_path=case["spill"],
+            **kw)
+        if axis.index != 0:
+            assert store is None
+            return None
+        store.finish()
+        return np.fromfile(case["spill"], np.uint8)
     res, store = streaming.streaming_bootstrap_filter(
         case["seed"], model, ys, case["N"], resume=case.get("resume", False),
         store_particles=case.get("store", False), **kw)
+    assert res.final_particles.dtype == model.state_dtype
     hist = None if store is None else (np.array(store.view()),
                                        store.start_step)
     return _numpy((res.log_evidence, res.ess, res.final_particles,
@@ -149,14 +183,40 @@ def run_case(case, axis):
     p = axis.index
     if case["kind"] == "stream":
         return stream_case(case, axis)
+    if case["kind"] == "enkf":
+        from cusmc_tpu_torch.parallel.enkf import \
+            sharded_ensemble_kalman_filter
+
+        model, ys = _model(case)
+        draws = case.get("draws")
+        res = sharded_ensemble_kalman_filter(
+            case["seed"], model, ys, case["N"], axis, device="cpu",
+            draws=None if draws is None else _tensors(draws[p]))
+        return _numpy((res.final_ensemble, res.means, res.spread))
+    if case["kind"] == "replicated":
+        from cusmc_tpu_torch.parallel.mesh import Mesh
+        from cusmc_tpu_torch.parallel.replicated import \
+            replicated_sharded_filters
+
+        model, ys = _model(case)
+        mesh = Mesh(case["mesh"])
+        res = replicated_sharded_filters(
+            case["seed"], model, ys, case["N"], case["R"], mesh,
+            resampler=case["resampler"], device="cpu")
+        return _numpy((res.log_evidence, res.ess, res.final_particles,
+                       res.final_log_weights)) + (
+            mesh.axes["chains"].index, mesh.axes["particles"].index)
     if case["kind"] == "filter":
         model, ys = _model(case)
         res = sharded_bootstrap_filter(
-            case["seed"], model, ys, case["N"], axis,
+            case["seed"], model, ys, case["N"],
+            None if case.get("one_shard") else axis,
             resampler=case["resampler"],
             resampler_kwargs=case.get("kwargs"),
             ess_threshold=case.get("ess_threshold"),
             return_history=case.get("history", False), device="cpu")
+        assert res.final_particles.dtype == getattr(model, "state_dtype",
+                                                    torch.float32)
         return _numpy((res.log_evidence, res.ess, res.final_particles,
                        res.final_log_weights, res.ancestors, res.particles))
     if case["kind"] == "single":
@@ -181,16 +241,29 @@ def run_case(case, axis):
     X = case["X"]
     X = X[p * L:(p + 1) * L] if case.get("batch") else X[:, p * L:(p + 1) * L]
     X = torch.from_numpy(np.ascontiguousarray(X))
+    if case.get("bf16"):
+        X = X.to(torch.bfloat16)
     if case.get("draws") is not None:
         draws = _tensors(case["draws"][p])
     else:
         draws = op.draw(make_streams(case["seed"], axis, "cpu"), w)
     kw = {} if case.get("pred", "absent") == "absent" else \
         {"pred": case["pred"]}
-    out = op(X, w, draws, **kw)
+    calls = []
+    ppermute = type(axis).ppermute
+    if case.get("count"):
+        def spy(self, x, perm):
+            calls.append(len(perm))
+            return ppermute(self, x, perm)
+        type(axis).ppermute = spy
+    try:
+        out = op(X, w, draws, **kw)
+    finally:
+        type(axis).ppermute = ppermute
+    assert out[0].dtype == X.dtype
     if case.get("batch"):  # [L, d] -> [d, L], as the packed ops return
         out = (out[0].T,) + tuple(out[1:])
-    return _numpy(out)
+    return _numpy(out) + ((len(calls),) if case.get("count") else ())
 
 
 def main():

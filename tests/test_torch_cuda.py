@@ -11,8 +11,9 @@ Tolerances: the cumsum within a worst-case float32 bound of a float64
 cumsum, gamma(26 + tiles) * total with u = 2^-24 (each element passes
 through at most 15 in-thread, 5 shuffle, 4 warp-offset and 2 applying
 additions, one per earlier 8192-element tile and a final one), monotone,
-and the same on every call; the search and the roll walk exactly, since kernel
-and plain version make the same float32 comparisons on the same numbers.
+bitwise flat over zero weights, and the same on every call; the search
+and the roll walk exactly, since kernel and plain version make the same
+float32 comparisons on the same numbers.
 The search-only kernel, the take-columns kernel (float32 and bfloat16)
 and the local-block mode exactly (the same float32 comparisons, pure
 gathers). The fused steps:
@@ -71,6 +72,12 @@ def _check_cumsum(w):
     assert float((cdf.double() - ref).abs().max()) <= bound
     assert float((cdf - plain).abs().max()) <= 2 * bound
     assert bool(torch.all(cdf[1:] >= cdf[:-1]))
+    # Flat over zero weights, bitwise: no inverse-CDF position falls in a
+    # zero-weight particle's bin.
+    zero = w == 0
+    assert torch.equal(cdf[1:][zero[1:]], cdf[:-1][zero[1:]])
+    if bool(zero[0]):
+        assert float(cdf[0]) == 0.0
     assert torch.equal(cdf128, cdf[FOLD - 1::FOLD])
     assert torch.equal(blocked_cumsum(w)[0], cdf)  # the same every call
 
@@ -98,6 +105,28 @@ def test_cuda_cumsum_kernel_adversarial(cuda, n):
     w[:3] = 1.0
     _check_cumsum(w[:n])
     _check_cumsum(w[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["sv-lookahead", "gaussian-0.001",
+                                    "uniform-half-zero"])
+def test_cuda_cumsum_kernel_flat_over_zero_weights(cuda, family):
+    # The three families of chip_smoke.zero_weight_families at N = 2^20;
+    # then no systematic ancestor through the kernel's cdf on a particle
+    # of zero weight (a position clipped at the total is the reference's
+    # own law and is not counted).
+    import chip_smoke
+
+    w = chip_smoke.zero_weight_families(1 << 20, cuda)[family]
+    _check_cumsum(w)
+    cdf, _ = blocked_cumsum(w)
+    X = torch.zeros((2, w.shape[0]), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for _ in range(8):
+        u = torch.rand((), generator=gen, device=cuda)
+        pos = (torch.arange(w.shape[0], device=cuda) + u) / w.shape[0]
+        _, a = inverse_cdf_apply(cdf, pos * cdf[-1], X)
+        assert chip_smoke.zero_ancestors(w, cdf, u, a)[0] == 0
 
 
 @pytest.mark.cuda
@@ -360,9 +389,10 @@ def test_cuda_residual_run_through_the_kernels(cuda):
                               p["G"], p["V"], p["W"], resampler="residual",
                               key=0, device=cuda)
     assert bool(torch.isfinite(out["log_evidence"]))
-    # Two cumsums and two searches a step: the floor grid and remainders.
+    # Three cumsums a step (the floor grid, the remainders and the
+    # remainder draws' exponential spacings) and two searches.
     assert [f.launches - b for f, b in zip(
-        (blocked_cumsum, inverse_cdf_apply), before)] == [98, 98]
+        (blocked_cumsum, inverse_cdf_apply), before)] == [147, 98]
 
 
 @pytest.mark.cuda

@@ -249,6 +249,10 @@ def test_port_runs_without_jax():
         import cusmc_tpu_torch.smc.streaming
         import cusmc_tpu_torch.utils.rng
         import cusmc_tpu_torch.utils.timing
+        import cusmc_tpu_torch.mcmc
+        import cusmc_tpu_torch.diagnostics.mcmc
+        import cusmc_tpu_torch.parallel.enkf
+        import cusmc_tpu_torch.parallel.replicated
         from cusmc_tpu_torch.io.data import demo_model_params, load_y_sim
         p = demo_model_params()
         out = cusmc_tpu_torch.run(256, 2, 5, load_y_sim()[:5], p["m0"],

@@ -430,12 +430,28 @@ def test_bf16_engines_refuse_as_jax_does():
 
 
 def test_sharded_filter_refuses_a_bf16_model():
+    # The sharded filter refused a bfloat16 model until its exchanges
+    # carried the state in bfloat16; now it takes one, as the JAX sharded
+    # filter does: the state stays bfloat16, the weights float32, and one
+    # shard of metropolis equals the single-device filter seeded with the
+    # rank stream's seed, bitwise (tests/test_torch_parallel_family.py
+    # holds the exchanges to JAX's).
+    from cusmc_tpu_torch.parallel.mesh import rank_seed
+
     ys = torch.from_numpy(load_y_sim()[:4].astype(np.float32))
     model = DLM.create(device="cpu", state_dtype=torch.bfloat16,
                        **demo_model_params())
     for resampler in ("systematic", "metropolis"):
-        with pytest.raises(NotImplementedError, match="bfloat16"):
-            sharded_bootstrap_filter(0, model, ys, 4096, resampler=resampler)
+        res = sharded_bootstrap_filter(0, model, ys, 4096,
+                                       resampler=resampler)
+        assert res.final_particles.dtype == torch.bfloat16
+        assert res.final_log_weights.dtype == torch.float32
+        assert bool(torch.isfinite(res.log_evidence))
+    one = tpf.bootstrap_filter(torch.Generator().manual_seed(rank_seed(0, 0)),
+                               model, ys, 4096, resampler="metropolis",
+                               return_history=False)
+    assert torch.equal(one.final_particles, res.final_particles)
+    assert torch.equal(one.log_evidence, res.log_evidence)
 
 
 def _tie_check(t, diff, pos_t, w, ours_a, ref_a):
