@@ -38,9 +38,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the plain version's; take-columns on a bfloat16 state at d = 2 and 32,
    on sorted and on shuffled ancestors, bitwise the plain version's; each
    timed beside its bound at 2-byte states. Then the kernels at the other
-   models' widths (phase 4g): the search-and-apply and the roll walk at
-   d = 1 and d = 13 (N = 2^20, exp-space and concentrated weights), and
-   both fused kernels on the monthly structural DLM, d = 13, k = 1, which
+   models' widths (phases 4g and 4i): the search-and-apply and the roll
+   walk at d = 1 and d = 13 (N = 2^20, exp-space and concentrated
+   weights), the cumsum and the search-and-apply at PMMH's N = 2^16, d = 1
+   (the weight kinds above; each record's error is the largest of all its
+   cases), and both fused kernels on the monthly structural DLM, d = 13, k = 1, which
    takes their runtime-width "thread" template (``launch<0, 0>``): the
    Metropolis step MVN and MVT df=5, the CDF step systematic and
    stratified in both; each held to its plain version as above and timed
@@ -203,6 +205,33 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    gradient evaluations/s; and kept runs whose marginal variance, split
    R-hat and acceptance must sit in bands sized on the CPU
    (``mcmc_rows``), then the drift of MH's bfloat16 noise, shown.
+4i. MCMC part 2, the SMC samplers, PMMH and the chain-sharded samplers,
+   with every launch count set to 0 first: (a) at bench_mh.py's
+   configuration, ChEES (200 sweeps; chain-steps/s, grad-evals/s = C sum
+   n_leap / s and mean_leapfrog), parallel tempering (8 rungs of 128
+   chains, beta_min 0.05, bfloat16 noise, 2000 sweeps; replica-steps/s)
+   and the stretch move (1024 walkers, 2000 sweeps; walker-steps/s), one
+   warm-up and the best of 2, then kept runs (float32 noise) whose
+   marginal variance, split R-hat, acceptance (PT: and swap rates) sit in
+   bands sized on the CPU (``mcmc2_rows``); (b) ``sample_to_convergence``
+   with ChEES on that target (blocks of 100, at most 10) and with PT on
+   the bimodal target of tests/test_driver.py, both converged, PT's share
+   of x0 > 0 in (0.2, 0.8); (c) the SMC sampler at N = 2^16 on the
+   shifted Gaussian at d = 3 and 32 (rwm, mala, hmc, waste-free rwm),
+   stages, particle-moves/s, log-evidence and weighted mean in bands
+   sized on the CPU (``smc_sampler_rows``; the d = 32 random-walk rows,
+   whose values spread widely from seed to seed, on 16 seeds, each seed
+   in a band and the seeds' mean in a band sized from the CPU's spread,
+   ``smc_seed_spread``); (d) SMC^2 on the AR(1) model
+   (150 observations, 256 x 256), its posterior mean within 3 sd + 0.03
+   of the grid oracle, the share of its time its rejuvenations take; (e)
+   PMMH on the 1-d DLM (T = 101, N = 2^16, 150 steps, systematic), its
+   posterior median and acceptance in the JAX test's bands, the cumsum
+   and the search-and-apply launched exactly 151 x 100 times each and no
+   other kernel in the whole phase, their inputs kept at four steps for
+   phase 5; (f) the chain-sharded MH, PT, ChEES
+   and stretch samplers on a one-rank NCCL group, each bitwise the
+   unsharded sampler with rank 0's seed, rates side by side.
 5. The block-window kernels on the main paths' own inputs, kept at steps
    0, 99 and 198 of the warm-up runs of phases 4 (the search-and-apply of
    the composed systematic headline, d = 2), 4b (the fused CDF step of the
@@ -210,7 +239,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    composed systematic run at d = 32) and 4c (the search-only kernel's two
    calls a step of the sharded residual run; the search-and-apply's two
    calls a step of the single-device residual run and its local-block
-   mode in the sharded systematic run): the spans of the cdf that their
+   mode in the sharded systematic run), and of phase 4i's PMMH at calls
+   1, 7501, 7579 and 15001 of its 15100 (the search-and-apply at d = 1
+   and the cumsum; ``PMMH_TRAFFIC_STEPS``): the spans of the cdf that their
    blocks search, the share of blocks that fits the window (and would fit
    one a quarter, half or twice as large), each kernel against its plain
    version, and its device time; the same for the search-only kernel's
@@ -1160,14 +1191,17 @@ def fused_bound(d, k, n):
     return (8 * d + 12) * n, 2.0 * (2 * d * d + k * d + k * k) * n
 
 
-def check_model_kernels() -> None:
-    """Phase 3 at the widths phase 4g gives the existing kernels: the
-    search-and-apply and the roll walk at d = 1 and d = 13 (N = 2^20, on
-    exp-space and concentrated weights), and both fused kernels on the
-    monthly structural DLM (d = 13, k = 1; the Metropolis step MVN and MVT
-    df=5, the CDF step systematic and stratified, MVN and MVT df=5), each
+def check_model_kernels() -> dict:
+    """Phase 3 at the widths phases 4g and 4i give the existing kernels:
+    the search-and-apply and the roll walk at d = 1 and d = 13 (N = 2^20,
+    on exp-space and concentrated weights); the cumsum and the
+    search-and-apply at PMMH's N = 2^16, d = 1 (phase 4i), on the weight
+    kinds of ``check_kernels``; and both fused kernels on the monthly
+    structural DLM (d = 13, k = 1; the Metropolis step MVN and MVT df=5,
+    the CDF step systematic and stratified, MVN and MVT df=5), each
     against its plain version as the rest of phase 3 holds them, then
-    timed beside its bound."""
+    timed beside its bound. Returns the cumsum's and the
+    search-and-apply's largest |kernel - plain| at PMMH's width."""
     import torch
 
     from cusmc_tpu_torch.ops.cumsum import blocked_cumsum
@@ -1211,6 +1245,7 @@ def check_model_kernels() -> None:
                         w_exp, shifts, u, X),
                     None, f"N=2^20 d={d} B={b}", (8 + 4 * b + 8 * d) * n,
                     b * n)
+    errs = pmmh_width_kernels(gen, dev)
     d, k = D_MONTHLY, 1
     cases = {}
     for noise in ("mvn", "mvt"):
@@ -1238,6 +1273,51 @@ def check_model_kernels() -> None:
                     f"tile={kw['tile']} path=thread (launch<0, 0>)", nbytes,
                     flops, PLAIN_FUSED_REPS)
     torch.cuda.synchronize()
+    return errs
+
+
+def pmmh_width_kernels(gen, dev) -> dict:
+    """The cumsum and the search-and-apply at PMMH's N = PMMH_N, d = 1
+    (phase 4i), on the weight kinds of ``check_kernels`` (exp-space,
+    uniform, concentrated, zero runs; the cumsum also on adversarial
+    weights), each held to its plain version as ``_cumsum_case`` and
+    ``_search_case`` hold them, then timed beside its bound on exp-space
+    weights. Returns name -> the largest |kernel - plain|."""
+    import torch
+
+    from cusmc_tpu_torch.ops.cumsum import blocked_cumsum, \
+        blocked_cumsum_plain
+    from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
+        inverse_cdf_apply_plain
+
+    n, d = PMMH_N, D_ONE
+    ll = -0.5 * torch.randn(n, generator=gen, device=dev) ** 2 * 50.0
+    w_exp = torch.exp(ll - ll.max())
+    w_conc = torch.full((n,), 1e-12, device=dev)
+    w_conc[n // 3] = 1.0
+    sharp = torch.softmax(3.0 * torch.randn(n, generator=gen, device=dev), 0)
+    kinds = (("exp", w_exp), ("uniform", torch.rand(n, generator=gen,
+                                                    device=dev)),
+             ("concentrated", w_conc), ("zero-runs", torch.floor(n * sharp)))
+    X = torch.randn((d, n), generator=gen, device=dev)
+    errs = [_cumsum_case(w, f"2^16/{name}") for name, w in
+            kinds + (("adversarial", _adversarial_weights(gen, n, dev)),)]
+    serrs = [_search_case(blocked_cumsum(w)[0], X, f"2^16/{name}")
+             for name, w in kinds]
+    cdf, _ = blocked_cumsum(w_exp)
+    pos = (torch.arange(n, device=dev, dtype=torch.float32) + 0.5) / n \
+        * cdf[-1]
+    label = f"N=2^16 d={d} (PMMH's width)"
+    time_kernel("blocked_cumsum", lambda: blocked_cumsum(w_exp),
+                lambda: blocked_cumsum_plain(w_exp),
+                lambda: torch.cumsum(w_exp, 0), label, 8 * n, n)
+    time_kernel("inverse_cdf_apply", lambda: inverse_cdf_apply(cdf, pos, X),
+                lambda: inverse_cdf_apply_plain(cdf, pos, X),
+                lambda: X.index_select(1, torch.searchsorted(
+                    cdf, pos, right=True)),
+                label + " (library: searchsorted + index_select)",
+                (12 + 8 * d) * n, 0)
+    return {"blocked_cumsum": max(errs), "inverse_cdf_apply": max(serrs)}
 
 
 # -- the bfloat16 (mixed-precision) state ---------------------------------
@@ -1932,10 +2012,10 @@ GATHER_CU = "cusmc_tpu_torch/csrc/monotone_gather.cu"
 KERNELS = (
     ("blocked_cumsum", "cusmc_tpu_torch/csrc/cumsum.cu",
      "cusmc_tpu/ops/cumsum.py:45", ("main", "streaming", "models",
-                                    "family")),
+                                    "family", "pmmh")),
     ("inverse_cdf_apply", GATHER_CU,
      "cusmc_tpu/ops/monotone_gather.py:277", ("main", "streaming",
-                                              "models")),
+                                              "models", "pmmh")),
     ("roll_metropolis_sweeps_expspace", "cusmc_tpu_torch/csrc/rolls.cu",
      "cusmc_tpu/resampling/rolls.py:109", ("main", "streaming", "models",
                                            "family")),
@@ -2680,20 +2760,29 @@ def build_native() -> None:
     print(f"native: {native.lib_path()}")
 
 
-def _best_of(fns, reps=2) -> dict:
-    """label -> best wall seconds (ending in a synchronize) of each
-    function, one warm-up round first, the functions in turns."""
+def _best_of(fns, reps=2, results=None) -> dict:
+    """label -> best wall seconds (ending in a synchronize where there is
+    a card) of each function, one warm-up round first, the functions in
+    turns; with ``results`` (a dict), each one's best run's output is
+    kept there under its label."""
     import torch
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
 
     best = {k: math.inf for k in fns}
     for rep in range(reps + 1):
         for label, fn in fns.items():
-            torch.cuda.synchronize()
+            sync()
             t0 = time.perf_counter()
             out = fn()
-            torch.cuda.synchronize()
-            if rep:
-                best[label] = min(best[label], time.perf_counter() - t0)
+            sync()
+            secs = time.perf_counter() - t0
+            if rep and secs < best[label]:
+                best[label] = secs
+                if results is not None:
+                    results[label] = out
             del out
     return best
 
@@ -3717,6 +3806,617 @@ def family_path(card: str) -> None:
     mcmc_rows(dev, card)
 
 
+# -- MCMC part 2, the SMC samplers, PMMH, the chain-sharded samplers -------
+# -- (phase 4i) ------------------------------------------------------------
+
+# (a) At bench_mh.py's configuration (MCMC_CHAINS chains, d = MCMC_D, MVT
+# df = MCMC_DF): ChEES (step 0.2, init_traj 2.0), PT (8 rungs of 128
+# chains, beta_min 0.05, step 2.38 / sqrt(d), bfloat16 noise in the rate
+# rows) and the stretch move (1024 walkers).
+CHEES_SWEEPS, PT_SWEEPS, STRETCH_SWEEPS = 200, 2000, 2000
+PT_RUNGS, PT_CHAINS, PT_BETA_MIN = 8, 128, 0.05
+# The kept runs (float32 noise): (sweeps, thin); the second half is read.
+MCMC2_KEEP = {"chees": (CHEES_SWEEPS, 1), "pt": (20000, 10),
+              "stretch": (STRETCH_SWEEPS, 1)}
+# Bands of the kept runs, sized on the CPU with ``mcmc2_rows("cpu",
+# timed=False, seed=s)`` for s = 7, 8, 9, 10 before any card run read
+# them (PERF.md section 6): about three times the largest distance
+# of those four runs from the target variance 4/3 and from 1 (R-hat),
+# and from the runs' mean (acceptance, swap rates, leapfrog counts;
+# wider where the four runs' spread is tiny). The CPU read variance
+# 1.2943-1.3520 / 1.2626-1.3538 / 1.3280-1.3380 (ChEES, PT, stretch),
+# R-hat 1.0019-1.0046 / 1.0555-1.0632 / 1.8906-1.9010 (the stretch move's
+# walkers barely move at d = 128: its ensemble holds the target's spread,
+# each walker does not mix), acceptance 0.7598-0.7666 (ChEES adapts
+# toward 0.651 on the pooled acceptance and settles above it) /
+# 0.2306-0.2411 / 0.1964-0.1971, PT swap rates 0.0047-0.0059 (the
+# coldest pair) to 0.889-0.901, ChEES mean_leapfrog 5.71-6.435.
+MCMC2_BANDS = {
+    "chees": {"variance": (1.215, 1.452), "rhat": (1.0, 1.015),
+              "accept": (0.73, 0.80), "mean_leapfrog": (4.5, 8.0)},
+    "pt": {"variance": (1.12, 1.55), "rhat": (1.0, 1.10),
+           "accept": (0.213, 0.255), "swap_min": (0.001, 0.02),
+           "swap_max": (0.85, 0.94)},
+    "stretch": {"variance": (1.317, 1.350), "rhat": (1.8, 2.0),
+                "accept": (0.19, 0.205)},
+}
+# (b) The driver: ChEES on (a)'s target in blocks of 100 sweeps (at most
+# 10), PT on tests/test_driver.py:60-79's bimodal target.
+DRIVER_BLOCK, DRIVER_MAX_BLOCKS = 100, 10
+# (c) The SMC sampler at N = 2^16 on tests/test_smc_sampler.py:13-33's
+# shifted Gaussian (prior N(0, 4 I), target N(mu, I), mu the pattern
+# [2, -1, 0.5] repeated) at d = 3 and 32; bands of the log-evidence
+# (exactly 0) and of the weighted mean's largest error against mu, sized
+# on the CPU with ``smc_sampler_rows("cpu", timed=False)`` and seeds 2
+# and 3 before any card run read them: about three times the largest of
+# the three runs' distances. At d = 3 every kernel read |log Z| <= 0.0195
+# and an error <= 0.0306; at d = 32 MALA (|log Z| <= 0.29, error <=
+# 0.012) and HMC (<= 0.031, <= 0.011) hold.
+SMC_N, SMC_DIMS = 1 << 16, (3, 32)
+SMC_KERNELS = (("rwm", {}), ("mala", dict(step_size=0.3)),
+               ("hmc", dict(step_size=0.25)),
+               ("waste-free rwm", dict(waste_free=True,
+                                       rejuvenation_steps=8,
+                                       step_size=0.3)))
+SMC_BANDS = {
+    **{f"{k} d=3": {"log_evidence": (-0.06, 0.06), "mean_err": (0.0, 0.1)}
+       for k in ("rwm", "mala", "hmc", "waste-free rwm")},
+    "mala d=32": {"log_evidence": (-0.9, 0.9), "mean_err": (0.0, 0.04)},
+    "hmc d=32": {"log_evidence": (-0.1, 0.1), "mean_err": (0.0, 0.035)},
+}
+# At d = 32 random-walk moves (5 a stage; waste-free 7) do not equilibrate,
+# and one run's values spread widely from seed to seed, so the card runs
+# SMC_SPREAD_SEEDS seeds of these rows: stat -> (each seed's band, the
+# band of the seeds' mean). Sized on the CPU with ``smc_seed_spread("cpu",
+# name, seeds)`` before any card run read them, on seeds 1-64 (rwm) and
+# 1-24 (waste-free): each seed within the CPU mean +- 5 sd, the mean within
+# the CPU mean +- 4 sd sqrt(1/16 + 1/n), n the CPU's seeds, rounded
+# outward. The CPU read rwm log Z mean -0.3647, sd 0.5165 (-1.6228 to
+# 1.3630), error 0.3044, sd 0.1056 (0.1653 to 0.6605); waste-free log Z
+# -0.9158, sd 0.8758 (-2.5187 to 0.6948), error 0.7617, sd 0.2008 (0.4482
+# to 1.0910). Rejuvenations that barely move fall far outside the mean
+# bands: on the CPU, 16 seeds of rwm with a tenth of the proposal step
+# read a mean log Z -3.68 and error 1.84, one move a stage -2.23 and
+# 1.37, no move accepted -4.62 and 2.27.
+SMC_SPREAD_SEEDS = 16
+SMC_SPREAD_BANDS = {
+    "rwm d=32": {"log_evidence": ((-3.0, 2.25), (-0.95, 0.22)),
+                 "mean_err": ((0.0, 0.84), (0.18, 0.43))},
+    "waste-free rwm d=32": {"log_evidence": ((-5.3, 3.5), (-2.05, 0.22)),
+                            "mean_err": ((0.0, 1.77), (0.50, 1.03))},
+}
+# (d) SMC^2 on tests/test_smc2.py's AR(1) model, 150 observations.
+SMC2_THETA, SMC2_X, SMC2_T = 256, 256, 150
+AR_G, AR_W, AR_V = 0.8, 0.3, 0.5
+# (e) PMMH on tests/test_models_smoothing_pmmh.py:118-140's 1-d DLM.
+PMMH_T, PMMH_N, PMMH_STEPS, PMMH_V = 101, 1 << 16, 150, 0.04
+# (f) The chain-sharded samplers: sweeps of each (ChEES fewer).
+SHARDED_SWEEPS = {"mh": 200, "pt": 200, "chees": 20, "stretch": 200}
+
+
+def mcmc2_target(dev):
+    """bench_mh.py's target (MVT df = 8, identity scale, d = 128) and the
+    first positions [MCMC_CHAINS, d]."""
+    import torch
+
+    from cusmc_tpu_torch.distributions import make_mvt_logprob
+
+    d = MCMC_D
+    logp = make_mvt_logprob(torch.zeros(d, device=dev),
+                            torch.eye(d, device=dev), MCMC_DF)
+    init = torch.randn((MCMC_CHAINS, d),
+                       generator=torch.Generator(dev).manual_seed(1),
+                       device=dev)
+    return logp, init
+
+
+def _in_band(label, value, band):
+    lo, hi = band
+    assert lo <= value <= hi, f"{label}: {value} outside [{lo}, {hi}]"
+
+
+def mcmc2_rows(dev, card="", timed=True, seed=7) -> dict:
+    """(a): ChEES, PT and the stretch move at bench_mh.py's configuration
+    on ``dev``: with ``timed``, one warm-up and the best of 2 without
+    samples (chain-steps/s, and for ChEES grad-evals/s = C sum(n_leap) /
+    s beside mean_leapfrog; PT replica-steps/s; the stretch move
+    walker-steps/s); then each one's kept run (MCMC2_KEEP, float32 noise)
+    whose second half gives the pooled marginal variance (target df / (df
+    - 2)), the largest split R-hat over the coordinates and the
+    acceptance (PT: the cold rung's; and the swap rates), each held to
+    MCMC2_BANDS when they are set; the kept runs draw from ``seed``.
+    Returns name -> those numbers."""
+    import torch
+
+    from cusmc_tpu_torch.diagnostics.mcmc import split_rhat
+    from cusmc_tpu_torch.mcmc import chees_hmc_sampler, \
+        parallel_tempering_sampler, stretch_move_sampler
+
+    dev = torch.device(dev)
+    logp, init = mcmc2_target(dev)
+    c, d = init.shape
+    bf16 = torch.bfloat16
+    pt_init = init[:PT_CHAINS]
+    samplers = {
+        "chees": (lambda s, t, keep, thin: chees_hmc_sampler(
+            s, logp, init, t, step_size=0.2, init_traj=2.0,
+            keep_samples=keep, thin=thin), CHEES_SWEEPS, c),
+        "pt": (lambda s, t, keep, thin: parallel_tempering_sampler(
+            s, logp, pt_init, t, num_rungs=PT_RUNGS, beta_min=PT_BETA_MIN,
+            step_size=2.38 / math.sqrt(d), keep_samples=keep, thin=thin,
+            noise_dtype=None if keep else bf16), PT_SWEEPS,
+            PT_RUNGS * PT_CHAINS),
+        "stretch": (lambda s, t, keep, thin: stretch_move_sampler(
+            s, logp, init, t, keep_samples=keep, thin=thin),
+            STRETCH_SWEEPS, c),
+    }
+    out = {}
+    for name, (run, sweeps, points) in samplers.items():
+        line = f"  MCMC {name} d={d} MVT df={MCMC_DF:g}"
+        if timed:
+            res = {}
+            secs = _best_of({name: lambda: run(1, sweeps, False, 1)},
+                            results=res)[name]
+            res = res[name]
+            unit = {"chees": "chain", "pt": "replica",
+                    "stretch": "walker"}[name]
+            line += (f", {sweeps} sweeps of {points} {unit}s: "
+                     f"{points * sweeps / secs:.6g} {unit}-steps/s")
+            if name == "chees":
+                leap = float(res.mean_leapfrog)
+                line += (f", {c * leap * sweeps / secs:.6g} grad-evals/s "
+                         f"(mean_leapfrog {leap:.3f})")
+            line += f", best {secs:.4f} s of 2 [{card}]"
+        keep_sweeps, thin = MCMC2_KEEP[name]
+        res = run(seed, keep_sweeps, True, thin)
+        kept = res.samples[res.samples.shape[0] // 2:]
+        got = {"variance": float(kept.reshape(-1, d).var(0).mean()),
+               "rhat": float(split_rhat(kept).max()),
+               "accept": float(res.accept_rate[0] if name == "pt"
+                               else res.accept_rate)}
+        if name == "pt":
+            got["swap_min"] = float(res.swap_rate.min())
+            got["swap_max"] = float(res.swap_rate.max())
+        if name == "chees":
+            got["mean_leapfrog"] = float(res.mean_leapfrog)
+        bands = MCMC2_BANDS.get(name, {})
+        print(f"{line}; kept run of {keep_sweeps} sweeps (every {thin}): "
+              + ", ".join(f"{k} {v:.4f}" + (f" (band {bands[k]})"
+                                             if k in bands else "")
+                          for k, v in got.items()))
+        for k, band in bands.items():
+            _in_band(f"MCMC {name} {k}", got[k], band)
+        out[name] = got
+    return out
+
+
+def bimodal(x):
+    """tests/test_driver.py:60-79's target: log(N(-4 1, I) + N(+4 1, I)),
+    unnormalised."""
+    import torch
+
+    a = -0.5 * torch.sum((x + 4.0) ** 2, dim=-1)
+    b = -0.5 * torch.sum((x - 4.0) ** 2, dim=-1)
+    return torch.logaddexp(a, b)
+
+
+def driver_rows(dev, card="") -> dict:
+    """(b): ``sample_to_convergence`` with "chees" on (a)'s target
+    (DRIVER_BLOCK sweeps a block, at most DRIVER_MAX_BLOCKS) and with
+    "pt" on the bimodal target (32 chains, blocks of 800, 6 rungs,
+    beta_min 0.02, an adapted ladder). Both must converge, and PT must
+    find both modes (a share of x0 > 0 in (0.2, 0.8))."""
+    import torch
+
+    from cusmc_tpu_torch.mcmc import sample_to_convergence
+
+    dev = torch.device(dev)
+    logp, init = mcmc2_target(dev)
+    t0 = time.perf_counter()
+    run = sample_to_convergence(3, logp, init, sampler="chees",
+                                block_steps=DRIVER_BLOCK,
+                                max_blocks=DRIVER_MAX_BLOCKS, step_size=0.2,
+                                init_traj=2.0)
+    secs = time.perf_counter() - t0
+    print(f"  driver chees C={MCMC_CHAINS} d={MCMC_D} MVT: converged "
+          f"{run.converged} in {run.blocks} blocks of {DRIVER_BLOCK}, "
+          f"{secs:.3f} s; max R-hat {run.rhat.max():.4f}, min bulk ESS "
+          f"{run.ess.min():.1f} [{card}]")
+    assert run.converged, "driver chees did not converge"
+    init2 = -4.0 + 0.5 * torch.randn(
+        (32, 2), generator=torch.Generator(dev).manual_seed(4), device=dev)
+    t0 = time.perf_counter()
+    pt = sample_to_convergence(4, bimodal, init2, sampler="pt",
+                               block_steps=800, max_blocks=8, min_ess=300.0,
+                               step_size=0.6, num_rungs=6, beta_min=0.02,
+                               adapt_ladder=True)
+    secs = time.perf_counter() - t0
+    frac = float((pt.samples[..., 0] > 0).mean())
+    print(f"  driver pt bimodal C=32 d=2: converged {pt.converged} in "
+          f"{pt.blocks} blocks of 800, {secs:.3f} s; max R-hat "
+          f"{pt.rhat.max():.4f}, share of x0 > 0 {frac:.4f} (band (0.2, "
+          f"0.8)) [{card}]")
+    assert pt.converged, "driver pt did not converge"
+    assert 0.2 < frac < 0.8, f"driver pt: share of x0 > 0 {frac}"
+    return {"chees_blocks": run.blocks, "pt_blocks": pt.blocks,
+            "pt_share": frac}
+
+
+def shifted_gaussian(d, dev):
+    """tests/test_smc_sampler.py:13-33's prior N(0, 4 I) and target N(mu,
+    I), mu the pattern [2, -1, 0.5] repeated to d: (log_prior,
+    log_target, prior_sample, mu), the log-densities with their factors
+    computed once."""
+    import torch
+
+    from cusmc_tpu_torch.distributions import make_mvn_logprob, \
+        mvn_sample_cov
+
+    mu = torch.tensor([2.0, -1.0, 0.5] * (d // 3 + 1), device=dev)[:d]
+    zero = torch.zeros(d, device=dev)
+    pcov = 4.0 * torch.eye(d, device=dev)
+    return (make_mvn_logprob(zero, pcov),
+            make_mvn_logprob(mu, torch.eye(d, device=dev)),
+            lambda g, s: mvn_sample_cov(g, zero, pcov, s), mu)
+
+
+def smc_stats(res, mu) -> tuple:
+    """An SMC sampler run's log-evidence and its weighted mean's largest
+    error against ``mu``."""
+    import torch
+
+    w = torch.exp(res.log_weights.double())
+    err = float(((w[:, None] * res.particles.double()).sum(0)
+                 - mu.double()).abs().max())
+    return float(res.log_evidence), err
+
+
+def smc_seed_spread(dev, name, seeds, d=32) -> dict:
+    """The SMC sampler of SMC_KERNELS' row ``name`` at N = SMC_N on the
+    shifted Gaussian at ``d``, run once on each of ``seeds``: "log_evidence"
+    and "mean_err" -> the runs' values, in seed order. Prints their mean,
+    sd, least and largest. On the CPU this sizes SMC_SPREAD_BANDS, e.g.
+    ``smc_seed_spread("cpu", "rwm", range(1, 65))``."""
+    import numpy as np
+    import torch
+
+    from cusmc_tpu_torch.smc.smc_sampler import smc_sampler
+
+    dev = torch.device(dev)
+    lp, lt, ps, mu = shifted_gaussian(d, dev)
+    kw = dict(SMC_KERNELS)[name]
+    vals = {"log_evidence": [], "mean_err": []}
+    for seed in seeds:
+        lz, err = smc_stats(smc_sampler(seed, lp, lt, ps, SMC_N, d,
+                                        rejuvenation=name.split()[-1],
+                                        device=dev, **kw), mu)
+        vals["log_evidence"].append(lz)
+        vals["mean_err"].append(err)
+    for k, v in vals.items():
+        v = np.asarray(v)
+        print(f"  SMC sampler {name} d={d} over {v.size} seeds: {k} mean "
+              f"{v.mean():.4f}, sd {v.std(ddof=1):.4f}, least "
+              f"{v.min():.4f}, largest {v.max():.4f}")
+    return vals
+
+
+def smc_sampler_rows(dev, card="", timed=True) -> dict:
+    """(c): the SMC sampler at N = SMC_N on the shifted Gaussian at each
+    of SMC_DIMS, with each of SMC_KERNELS: stages, particle-moves/s (N x
+    moves a stage x stages / s; with ``timed``, after one warm-up), the
+    log-evidence and the weighted mean's largest error against mu, held
+    to SMC_BANDS when they are set. With ``timed``, each row of
+    SMC_SPREAD_BANDS also runs SMC_SPREAD_SEEDS seeds (``smc_seed_spread``),
+    each held to its per-seed band and their mean to its mean band."""
+    import numpy as np
+    import torch
+
+    from cusmc_tpu_torch.smc.smc_sampler import smc_sampler
+
+    dev = torch.device(dev)
+    out = {}
+    for d in SMC_DIMS:
+        lp, lt, ps, mu = shifted_gaussian(d, dev)
+        for name, kw in SMC_KERNELS:
+            kernel = name.split()[-1]
+
+            def run(seed=1, kw=kw, kernel=kernel):
+                return smc_sampler(seed, lp, lt, ps, SMC_N, d,
+                                   rejuvenation=kernel, device=dev, **kw)
+            if timed:
+                res = {}
+                secs = _best_of({name: run}, reps=1, results=res)[name]
+                res = res[name]
+            else:
+                t0 = time.perf_counter()
+                res = run()
+                secs = time.perf_counter() - t0
+            lz, err = smc_stats(res, mu)
+            moves = kw.get("rejuvenation_steps", 5)
+            moves -= 1 if kw.get("waste_free") else 0
+            rate = SMC_N * moves * res.num_stages / secs
+            key = f"{name} d={d}"
+            bands = SMC_BANDS.get(key) or {
+                k: v[0] for k, v in SMC_SPREAD_BANDS.get(key, {}).items()}
+            print(f"  SMC sampler {key} N={SMC_N}: {res.num_stages} stages, "
+                  f"{rate:.6g} particle-moves/s ({secs:.3f} s"
+                  + (", after one warm-up" if timed else ", CPU")
+                  + f"), log-evidence {lz:.4f}"
+                  + (f" (band {bands['log_evidence']})" if bands else "")
+                  + f", weighted mean's largest error {err:.4f}"
+                  + (f" (band {bands['mean_err']})" if bands else "")
+                  + f", acceptance {float(res.accept_rate):.4f} [{card}]")
+            for k, v in (("log_evidence", lz), ("mean_err", err)):
+                if k in bands:
+                    _in_band(f"SMC sampler {key} {k}", v, bands[k])
+            out[key] = {"stages": res.num_stages, "log_evidence": lz,
+                        "mean_err": err}
+            if timed and key in SMC_SPREAD_BANDS:
+                vals = smc_seed_spread(dev, name,
+                                       range(1, SMC_SPREAD_SEEDS + 1), d)
+                for k, (seed_band, mean_band) in \
+                        SMC_SPREAD_BANDS[key].items():
+                    for seed, v in enumerate(vals[k], 1):
+                        _in_band(f"SMC sampler {key} seed {seed} {k}", v,
+                                 seed_band)
+                    m = float(np.mean(vals[k]))
+                    print(f"    {k}: the {len(vals[k])} seeds' mean {m:.4f} "
+                          f"(band {mean_band}), each seed in {seed_band} "
+                          f"[{card}]")
+                    _in_band(f"SMC sampler {key} mean {k}", m, mean_band)
+                    out[key][f"{k}_seeds"] = vals[k]
+        # Where a stage's time goes: its 30-step bisection for the next
+        # temperature, timed alone on this d's prior cloud.
+        from cusmc_tpu_torch.smc.smc_sampler import _next_delta
+        x = ps(torch.Generator(dev).manual_seed(0), (SMC_N,))
+        ratio = lt(x) - lp(x)
+        logw = torch.zeros(SMC_N, device=dev)
+        secs = _best_of({"bisection": lambda: _next_delta(
+            logw, ratio, 0.5, SMC_N)}, reps=5)["bisection"]
+        print(f"  SMC sampler d={d}: one stage's bisection (30 steps) "
+              f"{secs * 1e3:.3f} ms [{card}]")
+    return out
+
+
+def ar1_data(steps, seed=3):
+    """tests/test_liu_west.py:23-30's AR(1) data (g = 0.8, W = 0.3, V =
+    0.5), [steps, 1] float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x, ys = 0.0, np.zeros((steps, 1), np.float32)
+    for t in range(1, steps):
+        x = AR_G * x + rng.normal(0, np.sqrt(AR_W))
+        ys[t, 0] = x + rng.normal(0, np.sqrt(AR_V))
+    return ys
+
+
+def ar1_grid_posterior(ys):
+    """tests/test_liu_west.py:60-74: the exact posterior mean and sd of g
+    on a grid, from the Kalman likelihood times the N(0.5, 0.2^2)
+    prior."""
+    import numpy as np
+
+    from cusmc_tpu_torch.smc.kalman import kalman_filter
+
+    gs = np.linspace(0.3, 1.1, 161)
+    logp = np.array([float(kalman_filter(
+        np.asarray(ys, np.float64), np.eye(1), [[g]], [[AR_V]], [[AR_W]],
+        np.zeros(1), np.eye(1))[2]) - 0.5 * ((g - 0.5) / 0.2) ** 2
+        for g in gs])
+    w = np.exp(logp - logp.max())
+    w /= w.sum()
+    mean = float((w * gs).sum())
+    return mean, float(np.sqrt((w * gs ** 2).sum() - mean ** 2))
+
+
+def smc2_row(dev, card="", nt=SMC2_THETA, nx=SMC2_X) -> dict:
+    """(d): SMC^2 on the AR(1) model's SMC2_T observations with nt theta
+    particles of nx state particles each (the callables vectorised over
+    the theta axis): the posterior mean of g within 3 sd + 0.03 of the
+    grid oracle (tests/test_smc2.py), at least one rejuvenation; the
+    seconds, the rejuvenations, and the share of the time they take (the
+    run against the same run with ``ess_threshold=0``, which never
+    rejuvenates)."""
+    import torch
+
+    from cusmc_tpu_torch.smc.smc2 import smc2
+
+    dev = torch.device(dev)
+    ys = ar1_data(200)[:SMC2_T]
+    sw, lv = math.sqrt(AR_W), math.log(2.0 * math.pi * AR_V)
+    fns = (lambda g, n, th: torch.randn((th.shape[0], n, 1), generator=g,
+                                        device=dev),
+           lambda g, x, th: th[:, None, :1] * x + sw * torch.randn(
+               x.shape, generator=g, device=dev),
+           lambda y, x, th: -0.5 * (y[0] - x[..., 0]) ** 2 / AR_V - 0.5 * lv,
+           lambda g, n: 0.5 + 0.2 * torch.randn((n, 1), generator=g,
+                                                device=dev),
+           lambda th: -0.5 * ((th[:, 0] - 0.5) / 0.2) ** 2)
+    res = {}
+    best = _best_of({
+        "smc2": lambda: smc2(5, *fns, ys, nt, nx, device=dev),
+        "bare": lambda: smc2(5, *fns, ys, nt, nx, ess_threshold=0.0,
+                             device=dev)}, reps=1, results=res)
+    secs, bare, res = best["smc2"], best["bare"], res["smc2"]
+    mean0, sd0 = ar1_grid_posterior(ys)
+    w = torch.softmax(res.log_weights.double(), 0)
+    mean = float(w @ res.thetas.double()[:, 0])
+    print(f"  SMC^2 AR(1) T={SMC2_T} N_theta={nt} N_x={nx}: {secs:.3f} s "
+          f"after one warm-up, {res.num_rejuvenations} rejuvenations taking "
+          f"{max(secs - bare, 0.0) / secs:.3f} of it (the run without them "
+          f"{bare:.3f} s); posterior mean of g {mean:.4f} (grid oracle "
+          f"{mean0:.4f}, band 3 sd + 0.03 = {3 * sd0 + 0.03:.4f}), "
+          f"acceptance of the last pass {float(res.accept_rate):.4f} "
+          f"[{card}]")
+    assert res.num_rejuvenations >= 1, "SMC^2: no rejuvenation"
+    assert abs(mean - mean0) < 3.0 * sd0 + 0.03, \
+        f"SMC^2: posterior mean {mean} off the grid oracle {mean0}"
+    return {"mean": mean, "oracle": mean0, "seconds": secs,
+            "rejuvenations": res.num_rejuvenations}
+
+
+def pmmh_data(steps=PMMH_T, seed=11):
+    """tests/test_models_smoothing_pmmh.py:118-140's 1-d DLM (G = 0.9, W
+    = 0.01, V = 0.04) simulated with numpy, [steps, 1] float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x, ys = rng.normal(), np.zeros((steps, 1), np.float32)
+    for t in range(1, steps):
+        x = 0.9 * x + rng.normal(0, 0.1)
+        ys[t, 0] = x + rng.normal(0, math.sqrt(PMMH_V))
+    return ys
+
+
+def pmmh_row(dev, card="", n=PMMH_N, steps=PMMH_STEPS) -> dict:
+    """(e): PMMH over log V of the 1-d DLM (T = PMMH_T), n particles,
+    ``steps`` steps of size 0.4, systematic, the model built on ``dev``
+    from the chain's theta every step: posterior median of V in (0.3, 3)
+    x the true V, acceptance in (0.02, 0.9); on the card, the cumsum and
+    the search-and-apply launched exactly (steps + 1) (T - 1) times each
+    and no other kernel. Prints PMMH steps/s and particle-steps/s."""
+    import numpy as np
+    import torch
+
+    from cusmc_tpu_torch.mcmc import pmmh
+    from cusmc_tpu_torch.models.dlm import DLM
+
+    dev = torch.device(dev)
+    i1 = torch.eye(1, device=dev)
+    f, g, m0, w = i1, 0.9 * i1, torch.zeros(1, device=dev), 0.01 * i1
+
+    def builder(th):
+        return DLM.create(F=f, G=g, m0=m0, C0=i1, V=torch.exp(th[0]) * i1,
+                          W=w, device=dev)
+
+    ys = torch.from_numpy(pmmh_data()).to(dev)
+    # Where a step's time goes beside its filter run: the model's build.
+    build = _best_of({"build": lambda: builder(
+        torch.full((1,), -3.0, device=dev))}, reps=20)["build"]
+    on_card = dev.type == "cuda"
+    before = _counts() if on_card else None
+    t0 = time.perf_counter()
+    res = pmmh(0, builder, lambda th: -0.5 * torch.sum(th ** 2) / 9.0,
+               torch.zeros(1, device=dev), ys, n, steps, step_size=0.4)
+    acc = float(res.accept_rate)  # the host read ends the chain
+    secs = time.perf_counter() - t0
+    post = np.exp(res.thetas.cpu().numpy()[steps // 2:, 0])
+    med = float(np.median(post))
+    runs = steps + 1
+    print(f"  PMMH 1-d DLM T={PMMH_T} N={n}, {steps} steps: "
+          f"{steps / secs:.6g} PMMH steps/s, "
+          f"{n * (PMMH_T - 1) * runs / secs:.6g} particle-steps/s "
+          f"({secs:.3f} s, {runs} filter runs, a model build "
+          f"{build * 1e3:.3f} ms of each); acceptance {acc:.4f} (band "
+          f"(0.02, 0.9)), posterior median of V {med:.5f} (band "
+          f"({0.3 * PMMH_V:.3f}, {3 * PMMH_V:.3f})) [{card}]")
+    assert 0.02 < acc < 0.9, f"PMMH: acceptance {acc}"
+    assert 0.3 * PMMH_V < med < 3.0 * PMMH_V, f"PMMH: median V {med}"
+    out = {"acceptance": acc, "median_V": med}
+    if on_card:
+        after = _counts()
+        want = {k: runs * (PMMH_T - 1) for k in CDF_KERNELS}
+        for name in after:
+            grown = after[name] - before[name]
+            assert grown == want.get(name, 0), \
+                f"PMMH: {name} launched {grown} times, expected " \
+                f"{want.get(name, 0)}"
+        print("  PMMH launches: " + ", ".join(
+            f"{k} {v}" for k, v in want.items())
+            + f" (= {runs} filter runs x {PMMH_T - 1} steps), no other "
+            "kernel")
+    return out
+
+
+def sharded_mcmc_rows(card: str) -> None:
+    """(f): the chain-sharded samplers on a one-rank NCCL group (a
+    ``Mesh({"chains": 1})``) at (a)'s configuration, SHARDED_SWEEPS
+    sweeps each: each bitwise the unsharded sampler seeded with rank 0's
+    seed, its rate beside the unsharded rate (best of 2 in turns)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from cusmc_tpu_torch.mcmc import chees_hmc_sampler, \
+        metropolis_hastings_sampler, parallel_tempering_sampler, \
+        stretch_move_sampler
+    from cusmc_tpu_torch.parallel import Mesh, initialize_distributed, \
+        sharded_chees_sampler, sharded_mh_sampler, sharded_pt_sampler, \
+        sharded_stretch_sampler
+    from cusmc_tpu_torch.parallel.mesh import rank_seed
+
+    dev = torch.device("cuda")
+    logp, init = mcmc2_target(dev)
+    d = init.shape[1]
+    step = 2.38 / math.sqrt(d)
+    rows = {
+        "mh": (sharded_mh_sampler, metropolis_hastings_sampler, init,
+               dict(step_size=step, noise_dtype=torch.bfloat16)),
+        "pt": (sharded_pt_sampler, parallel_tempering_sampler,
+               init[:PT_CHAINS], dict(num_rungs=PT_RUNGS,
+                                      beta_min=PT_BETA_MIN, step_size=step,
+                                      noise_dtype=torch.bfloat16)),
+        "chees": (sharded_chees_sampler, chees_hmc_sampler, init,
+                  dict(step_size=0.2, init_traj=2.0)),
+        "stretch": (sharded_stretch_sampler, stretch_move_sampler, init, {}),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/store", 1, 0)
+        try:
+            mesh = Mesh({"chains": 1})
+            for name, (sharded, plain, x, kw) in rows.items():
+                sweeps = SHARDED_SWEEPS[name]
+                runs = {"sharded": lambda: sharded(
+                            9, logp, x, sweeps, mesh, keep_samples=True,
+                            **kw),
+                        "unsharded": lambda: plain(
+                            rank_seed(9, 0), logp, x, sweeps,
+                            keep_samples=True, **kw)}
+                got, want = runs["sharded"](), runs["unsharded"]()
+                for f in ("samples", "accept_rate"):
+                    assert torch.equal(getattr(got, f), getattr(want, f)), \
+                        f"sharded {name}: {f} differs from the unsharded run"
+                best = _best_of(runs)
+                pts = x.shape[0] * (PT_RUNGS if name == "pt" else 1)
+                print(f"  sharded {name} (one-rank group, {sweeps} sweeps of "
+                      f"{pts}): {pts * sweeps / best['sharded']:.6g} "
+                      f"chain-steps/s beside the unsharded "
+                      f"{pts * sweeps / best['unsharded']:.6g}; bitwise the "
+                      f"unsharded run with rank 0's seed [{card}]")
+        finally:
+            dist.destroy_process_group()
+
+
+def samplers_path(card: str) -> None:
+    """Phase 4i (the module docstring): (a) MCMC part 2, (b) the driver,
+    (c) the SMC sampler, (d) SMC^2, (e) PMMH, (f) the chain-sharded
+    samplers; every part but PMMH launches no kernel."""
+    import torch
+
+    from cusmc_tpu_torch.smc import particle_filter
+
+    dev = torch.device("cuda")
+    mcmc2_rows(dev, card)
+    driver_rows(dev, card)
+    smc_sampler_rows(dev, card)
+    smc2_row(dev, card)
+    # Phase 5 holds the kernels to their plain versions on PMMH's own
+    # inputs, kept at PMMH_TRAFFIC_STEPS.
+    with capture(particle_filter, "blocked_cumsum", ("pmmh d=1",),
+                 PMMH_TRAFFIC_STEPS), \
+            capture(particle_filter, "inverse_cdf_apply", ("pmmh d=1",),
+                    PMMH_TRAFFIC_STEPS):
+        pmmh_row(dev, card)
+    sharded_mcmc_rows(card)
+    runs = PMMH_STEPS + 1
+    for name, count in _counts().items():
+        want = runs * (PMMH_T - 1) if name in CDF_KERNELS else 0
+        assert count == want, f"phase 4i: {name} launched {count} times, " \
+            f"expected {want} (PMMH's alone)"
+
+
 # -- the main paths' own traffic ------------------------------------------
 
 # Steps of a T = 200 run whose inputs to the block-window kernels are kept
@@ -3726,6 +4426,17 @@ TRAFFIC_STEPS = (0, 99, 198)
 # (and, with step None, by phase 3 for the search-only kernel's shuffled
 # queries).
 TRAFFIC: dict = {}
+# (wrapper name, label) -> the steps ``capture`` was asked to keep.
+TRAFFIC_WANT: dict = {}
+# PMMH's calls of the cumsum and the search-and-apply (phase 4i), one a
+# step of each of its 151 filter runs of 100 steps (call 100 r + s is
+# run r's step s): step 1 of the first run (V = 1, the chain's start), of
+# the middle run and of the last, and step 79 of the middle run. A run's
+# step 0 resamples uniform weights; steps 1 (the prior's sd of 1 against
+# an observation sd near 0.2) and 79 (an outlying observation) carry its
+# most concentrated ones: on the CPU a median of 22200 and 22157 distinct
+# ancestors of 65536 over the 151 runs, against 54271 over all steps.
+PMMH_TRAFFIC_STEPS = (1, 7501, 7579, 15001)
 
 
 def _clone(v):
@@ -3739,18 +4450,19 @@ def _clone(v):
 
 
 @contextlib.contextmanager
-def capture(module, name, labels):
+def capture(module, name, labels, steps=TRAFFIC_STEPS):
     """While open, the calls that ``module`` makes to its function ``name``
     (a kernel's wrapper, imported there by name) run unchanged, and the
-    arguments of the steps in TRAFFIC_STEPS are kept, cloned, in
-    TRAFFIC[name, label]: each step makes one call for each of ``labels``,
-    in that order."""
+    arguments of the ``steps`` are kept, cloned, in TRAFFIC[name, label]:
+    each step makes one call for each of ``labels``, in that order."""
     fn = getattr(module, name)
     calls = itertools.count()
+    for label in labels:
+        TRAFFIC_WANT[name, label] = tuple(steps)
 
     def recorder(*args, **kwargs):
         step, which = divmod(next(calls), len(labels))
-        if step in TRAFFIC_STEPS:
+        if step in steps:
             TRAFFIC.setdefault((name, labels[which]), []).append(
                 (step, _clone(args), dict(kwargs)))
         return fn(*args, **kwargs)
@@ -3865,12 +4577,16 @@ def check_traffic(others) -> None:
         inverse_cdf_search_plain, window_fit_share
 
     kept_on_paths = [k for k, v in TRAFFIC.items() if v[0][0] is not None]
-    assert len(kept_on_paths) == 9, f"kept on the main paths: {kept_on_paths}"
+    assert len(kept_on_paths) == 11, \
+        f"kept on the main paths: {kept_on_paths}"
     for (fn, label), kept in sorted(TRAFFIC.items()):
         assert kept[0][0] is None or \
-            [s for s, _, _ in kept] == list(TRAFFIC_STEPS), label
+            tuple(s for s, _, _ in kept) == TRAFFIC_WANT[fn, label], label
         for step, args, kw in kept:
             name = label if step is None else f"{label}, step {step}"
+            if fn == "blocked_cumsum":
+                check_cumsum_traffic(name, args[0], others)
+                continue
             if fn == "fused_cdf_filter_step":
                 cdf, X, _, _, _, _, _, _, _, (u, _) = args
                 n = cdf.numel()
@@ -3939,6 +4655,30 @@ def check_traffic(others) -> None:
     torch.cuda.synchronize()
 
 
+def check_cumsum_traffic(name, w, others) -> None:
+    """Phase 5 for the cumsum on a main path's weights ``w``: held to its
+    plain version and to float64 as ``_cumsum_case`` holds it, and its
+    device time; beside it the device time of the cumsum of each tree in
+    ``others``, in the order other, this, this, other, with its largest
+    distance from this tree's cdf."""
+    from cusmc_tpu_torch.ops.cumsum import blocked_cumsum
+
+    _cumsum_case(w, name)
+
+    def ours(w=w):
+        return blocked_cumsum(w)[0]
+    line = f"    device time: this tree {device_ms(ours):.4f} ms"
+    for root, fns in others:
+        gap = float((fns["blocked_cumsum"](w) - ours()).abs().max())
+        t = [device_ms(lambda: fns["blocked_cumsum"](w))]
+        t += [device_ms(ours), device_ms(ours)]
+        t.append(device_ms(lambda: fns["blocked_cumsum"](w)))
+        line += (f"; {root} {t[0]:.4f}/{t[3]:.4f} ms (max |cdf - this "
+                 f"tree's| {gap:.3e}), this tree {t[1]:.4f}/{t[2]:.4f} ms "
+                 "beside it")
+    print(line)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch port on one CUDA card.")
@@ -3973,8 +4713,9 @@ def main(argv=None) -> int:
         rec.update(check_shard_kernels())
         rec.update(check_fused_kernels())
     with phase("the kernels at the other models' widths (d = 1; d = 13, "
-               "k = 1)"):
-        check_model_kernels()
+               "k = 1; PMMH's N = 2^16, d = 1)"):
+        for name, err in check_model_kernels().items():
+            rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
     with phase("the kernels on a bfloat16 state (mixed precision)"):
         rec.update(check_bf16_kernels())
     with phase("statistics of the fused kernels"):
@@ -3995,7 +4736,9 @@ def main(argv=None) -> int:
              streaming_path),
             ("models", "the other models and the auxiliary family",
              models_path),
-            ("family", "the sharded family and MCMC", family_path)):
+            ("family", "the sharded family and MCMC", family_path),
+            ("pmmh", "MCMC part 2, the SMC samplers, PMMH and the "
+             "chain-sharded samplers", samplers_path)):
         with phase(title):
             _zero_counts()
             drive(card)

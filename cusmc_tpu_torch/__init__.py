@@ -26,8 +26,12 @@ and the auxiliary filters and smoothers (``smc/{apf,liu_west,rbpf,csmc,
 enkf,ffbs,smoothing,forecast}.py``, ``kalman.rts_smoother``), which run the
 existing kernels or plain torch, as their JAX counterparts run XLA; and
 multi-chain MCMC (``mcmc/``: random-walk and adaptive Metropolis, MALA,
-HMC) with its convergence diagnostics (``diagnostics/mcmc.py``), plain
-torch as well.
+HMC, ChEES-HMC, the stretch move, parallel tempering, the convergence
+driver and PMMH) with its convergence diagnostics
+(``diagnostics/mcmc.py``), the chain-sharded samplers
+(``parallel/mcmc.py``), the tempered SMC sampler and SMC^2
+(``smc/{smc_sampler,smc2}.py``): plain torch as well, but for PMMH's
+filter runs, which launch the filter's kernels.
 On a CUDA tensor each kernel wrapper launches its kernel or raises; only a
 CPU tensor takes the plain PyTorch version.
 
@@ -76,10 +80,13 @@ from cusmc_tpu_torch.smc.rbpf import (  # noqa: E402
     RBPFResult,
     rao_blackwell_filter,
 )
+from cusmc_tpu_torch.smc.smc2 import SMC2Result, smc2  # noqa: E402
+from cusmc_tpu_torch.smc.smc_sampler import smc_sampler  # noqa: E402
 
 __all__ = ["CLGSSM", "CustomSSM", "DLM", "EnKFResult", "FilterResult",
            "LiuWestResult", "MVN", "MVNPDF", "MVT", "MVTPDF", "RBPFResult",
-           "bootstrap_filter", "ensemble_kalman_filter", "get_resampler",
-           "kalman_filter", "liu_west_filter", "metropolis_hastings",
-           "metropolis_hastings_sampler", "rao_blackwell_filter", "register_resampler", "resolve_device",
-           "run"]
+           "SMC2Result", "bootstrap_filter", "ensemble_kalman_filter",
+           "get_resampler", "kalman_filter", "liu_west_filter",
+           "metropolis_hastings", "metropolis_hastings_sampler",
+           "rao_blackwell_filter", "register_resampler", "resolve_device",
+           "run", "smc2", "smc_sampler"]

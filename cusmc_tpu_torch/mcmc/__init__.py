@@ -1,10 +1,20 @@
 """Multi-chain MCMC of the PyTorch port (see ``cusmc_tpu.mcmc``): random-walk
-Metropolis-Hastings, adaptive Metropolis, MALA and HMC over [C, d] chains.
-ChEES, the ensemble and tempering samplers, the convergence driver and
-PMMH are not ported yet (ROADMAP queue 1)."""
+Metropolis-Hastings, adaptive Metropolis, MALA and HMC over [C, d] chains;
+ChEES-HMC, the affine-invariant stretch move and parallel tempering; the
+convergence driver (``sample_to_convergence``); and PMMH, parameter
+inference through the bootstrap filter. The chain-sharded samplers are in
+``cusmc_tpu_torch.parallel``."""
 
 from cusmc_tpu_torch.mcmc.adaptive import AMResult, AMState, \
     adaptive_mh_sampler
+from cusmc_tpu_torch.mcmc.chees import (
+    ChEESResult,
+    ChEESState,
+    chees_hmc_sampler,
+)
+from cusmc_tpu_torch.mcmc.driver import ConvergenceRun, sample_to_convergence
+from cusmc_tpu_torch.mcmc.ensemble import EnsembleResult, \
+    stretch_move_sampler
 from cusmc_tpu_torch.mcmc.hmc import (
     HMCResult,
     HMCState,
@@ -26,8 +36,26 @@ from cusmc_tpu_torch.mcmc.metropolis import (
     mh_init,
     mh_step,
 )
+from cusmc_tpu_torch.mcmc.pmmh import PMMHResult, pmmh
+from cusmc_tpu_torch.mcmc.tempering import (
+    PTResult,
+    PTState,
+    geometric_ladder,
+    parallel_tempering_sampler,
+)
 
 __all__ = [
+    "EnsembleResult",
+    "stretch_move_sampler",
+    "ConvergenceRun",
+    "sample_to_convergence",
+    "ChEESResult",
+    "ChEESState",
+    "chees_hmc_sampler",
+    "PTResult",
+    "PTState",
+    "geometric_ladder",
+    "parallel_tempering_sampler",
     "AMResult",
     "AMState",
     "HMCResult",
@@ -36,6 +64,7 @@ __all__ = [
     "MALAState",
     "MHResult",
     "MHState",
+    "PMMHResult",
     "adaptive_mh_sampler",
     "hmc_init",
     "hmc_sampler",
@@ -46,4 +75,5 @@ __all__ = [
     "metropolis_hastings_sampler",
     "mh_init",
     "mh_step",
+    "pmmh",
 ]

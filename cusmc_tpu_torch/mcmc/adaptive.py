@@ -14,8 +14,9 @@ choice is a Python branch on the sweep index.
 ``chol_every=k`` refreshes the factor L once per block of k sweeps (the
 moments still absorb every sweep) and raises on a ``num_steps`` that k
 does not divide, as the JAX function's nested scan does. The factor is
-``utils/linalg.chol_sqrt`` with ``reg_eps`` as its jitter; its error
-check reads the device once a refresh. ``noise_dtype=torch.bfloat16``
+``utils/linalg.chol_sqrt`` with ``reg_eps`` as its jitter: on the card
+it reads nothing back and a failed factor is NaN, as in JAX; on the CPU
+it raises. ``noise_dtype=torch.bfloat16``
 draws the proposal normals with JAX's bfloat16 law, whose mean is not 0
 (``mcmc/metropolis.py``).
 

@@ -39,16 +39,19 @@ def accept_uniforms(gen, c: int, like: torch.Tensor) -> torch.Tensor:
 
 def run_sweeps(sweep: Callable, state, num_steps: int, num_adapt: int,
                adapt_rate: float, keep_samples: bool, thin: int,
-               draws: Optional[Sequence] = None):
+               draws: Optional[Sequence] = None,
+               sample: Callable = lambda state: state.x):
     """``num_steps`` sweeps ``state = sweep(state, t, adapt, draws_t)[0]``,
     with ``adapt`` = ``adapt_rate`` for the first ``num_adapt`` and 0
     after, and ``draws_t`` = ``draws[t]`` (None: the sweep draws). Returns
-    ``(state, samples)``, samples [ceil(T / thin), C, d] or None."""
+    ``(state, samples)``, samples [ceil(T / thin), ...] of
+    ``sample(state)`` (the chains' positions [C, d]; PT's cold rung) or
+    None."""
     if thin < 1:
         raise ValueError(f"thin={thin} must be >= 1")
     if draws is not None and len(draws) < num_steps:
         raise ValueError(f"draws for {len(draws)} sweeps, {num_steps} run")
-    x = state.x
+    x = sample(state)
     kept = None
     if keep_samples:
         kept = torch.empty((len(range(0, num_steps, thin)),) + tuple(x.shape),
@@ -58,5 +61,5 @@ def run_sweeps(sweep: Callable, state, num_steps: int, num_adapt: int,
         state, _ = sweep(state, t, adapt,
                          None if draws is None else draws[t])
         if kept is not None and t % thin == 0:
-            kept[t // thin] = state.x
+            kept[t // thin] = sample(state)
     return state, kept

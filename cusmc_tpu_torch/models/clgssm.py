@@ -35,14 +35,16 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from cusmc_tpu_torch.device import resolve_device
+from cusmc_tpu_torch.device import as_tensor, resolve_device
 
 
 def params_from_numpy(params: Optional[dict], device=None) -> dict:
     """A dict of arrays (a JAX model's ``params``, say) as tensors on
-    ``device`` (None: the card), each keeping its dtype."""
+    ``device`` (None: the card), each keeping its dtype. A tensor is
+    moved where it lies, never routed through numpy."""
     dev = resolve_device(device)
-    return {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
+    return {k: v.to(dev) if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.array(v, copy=True)).to(dev)
             for k, v in (params or {}).items()}
 
 
@@ -87,11 +89,8 @@ class CLGSSM:
                 return torch.zeros((obs_dim,), dtype=u.dtype,
                                    device=u.device)
 
-        def t(a):
-            return torch.as_tensor(np.asarray(a.cpu() if isinstance(
-                a, torch.Tensor) else a), dtype=dtype).to(dev)
-
-        return cls(params=params or {}, m0=t(m0), C0=t(C0), nl_dim=nl_dim,
+        return cls(params=params or {}, m0=as_tensor(m0, dtype, dev),
+                   C0=as_tensor(C0, dtype, dev), nl_dim=nl_dim,
                    lin_dim=lin_dim, obs_dim=obs_dim,
                    mats_constant=mats_constant,
                    _sample_initial_nl=sample_initial_nl,

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from cusmc_tpu_torch.device import resolve_device
+from cusmc_tpu_torch.device import as_tensor, resolve_device
 from cusmc_tpu_torch.distributions.mvn import mvn_logpdf, mvn_sample
 from cusmc_tpu_torch.distributions.mvt import mvt_logpdf, mvt_sample
 from cusmc_tpu_torch.ops.packed import matvec, quadform
@@ -108,27 +108,44 @@ class DLM(nn.Module):
                sqrt_method: str = "cholesky", dtype=torch.float32,
                per_dim_chi: bool = False, state_dtype=None,
                device=None) -> "DLM":
-        """Factor the covariances (in ``dtype``, on the CPU) and build the
-        model on ``device`` (None: the card, raising without one; the CPU
-        only when asked for, ``device="cpu"``). ``state_dtype`` (e.g.
+        """Factor the covariances in ``dtype`` and build the model on
+        ``device`` (None: the card, raising without one; the CPU only when
+        asked for, ``device="cpu"``). ``state_dtype`` (e.g.
         ``torch.bfloat16``) is the dtype of the state and the transition
-        factors (None: ``dtype``)."""
+        factors (None: ``dtype``).
+
+        Each argument may be a tensor on any device, as the JAX function
+        takes traced arrays (a PMMH ``model_builder`` builds the model
+        from the chain's theta on every step): a tensor is never routed
+        through numpy, and its factor is taken where it lives, on the card
+        with ``torch.linalg.cholesky_ex`` (``utils/linalg.chol_sqrt``: no
+        host read of the info flag, and a covariance that is not positive
+        definite gives a NaN factor, as in JAX, so PMMH rejects it).
+        Numpy arrays, lists and scalars are factored on the CPU, and a CPU
+        tensor gives a model bitwise equal to the one built from the same
+        numbers as numpy. A tensor ``df`` is read once to the host (the
+        port's ``df`` is a Python float) and keeps ``df_int`` as
+        ``integer_df`` gives it; the JAX function drops ``df_int`` for a
+        traced df."""
         if noise == "mvt" and df is None:
             raise ValueError("mvt noise requires df")
         sdtype = dtype if state_dtype is None else state_dtype
 
-        def t(a, to=dtype):
-            return torch.as_tensor(np.asarray(a), dtype=to)
+        def t(a, to=dtype):  # a tensor stays where it lies
+            return as_tensor(a, to, None if isinstance(a, torch.Tensor)
+                             else "cpu")
 
         V_chol = chol_sqrt(t(V))
-        eye_k = torch.eye(V_chol.shape[-1], dtype=dtype)
+        eye_k = torch.eye(V_chol.shape[-1], dtype=dtype,
+                          device=V_chol.device)
         V_chol_inv = torch.linalg.solve_triangular(V_chol, eye_k, upper=False)
+        df_f = None if noise != "mvt" else float(df)
         model = cls(F=t(F, sdtype), G=t(G, sdtype), m0=t(m0, sdtype),
                     C0_sqrt=cov_sqrt(t(C0), sqrt_method).to(sdtype),
                     W_sqrt=cov_sqrt(t(W), sqrt_method).to(sdtype),
-                    V_chol=V_chol, V_chol_inv=V_chol_inv,
-                    df=None if noise != "mvt" else float(df), noise=noise,
-                    df_int=integer_df(df) if noise == "mvt" else None,
+                    V_chol=V_chol, V_chol_inv=V_chol_inv, df=df_f,
+                    noise=noise,
+                    df_int=integer_df(df_f) if noise == "mvt" else None,
                     per_dim_chi=per_dim_chi)
         return model.to(resolve_device(device))
 

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from cusmc_tpu_torch.device import resolve_device
+from cusmc_tpu_torch.device import as_tensor, resolve_device
 from cusmc_tpu_torch.ops.random import normal
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -56,9 +56,12 @@ class StochasticVolatility(nn.Module):
     def create(cls, mu=-1.0, phi=0.95, sigma=0.3, beta=1.0,
                dtype=torch.float32, device=None) -> "StochasticVolatility":
         """The model on ``device`` (None: the card, raising without one;
-        the CPU only when asked for, ``device="cpu"``)."""
+        the CPU only when asked for, ``device="cpu"``). A parameter may be
+        a 0-dim (or one-element) tensor on any device, a PMMH
+        ``model_builder``'s theta on the card: it is moved, never read
+        back to the host."""
         dev = resolve_device(device)
-        return cls(*(torch.tensor(float(v), dtype=dtype, device=dev)
+        return cls(*(as_tensor(v, dtype, dev).reshape(())
                      for v in (mu, phi, sigma, beta)))
 
     @classmethod

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from cusmc_tpu_torch.device import resolve_device
+from cusmc_tpu_torch.device import as_tensor, resolve_device
 from cusmc_tpu_torch.models.stochvol import _z
 from cusmc_tpu_torch.ops.random import normal
 
@@ -44,9 +44,11 @@ class UNGM(nn.Module):
     @classmethod
     def create(cls, q: float = 10.0, r: float = 1.0, x0_std: float = 2.0,
                dtype=torch.float32, device=None) -> "UNGM":
-        """The model on ``device`` (None: the card, raising without one)."""
+        """The model on ``device`` (None: the card, raising without one);
+        a parameter may be a tensor on any device, as in
+        ``StochasticVolatility.create``."""
         dev = resolve_device(device)
-        return cls(*(torch.tensor(float(v), dtype=dtype, device=dev)
+        return cls(*(as_tensor(v, dtype, dev).reshape(())
                      for v in (q, r, x0_std)))
 
     @classmethod

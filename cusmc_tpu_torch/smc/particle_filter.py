@@ -681,10 +681,11 @@ def filter_setup(
 def scan_steps(step: Callable, x: torch.Tensor, w: torch.Tensor,
                ys: torch.Tensor, t0: int, streams: Streams,
                esss: torch.Tensor, lzs: torch.Tensor, xs=None, lls=None,
-               ancs=None):
+               ancs=None, draws=None):
     """Run the steps t0, t0 + 1, ... on the observation rows ``ys`` from
     the carry ``(x, w)``; row i of ``esss``, ``lzs`` and of each history
-    buffer given (``xs``, ``lls``, ``ancs``) receives step t0 + i.
+    buffer given (``xs``, ``lls``, ``ancs``) receives step t0 + i, and
+    step i takes ``draws[i]`` when ``draws`` is given (a replay).
     Returns the carry after the last step. Under
     ``utils.debug.debug_mode()`` each step's state, weights and evidence
     increment are checked for NaN (one host read a step), and the first
@@ -692,7 +693,9 @@ def scan_steps(step: Callable, x: torch.Tensor, w: torch.Tensor,
     check = nan_checks_enabled()
     for i in range(ys.shape[0]):
         t = t0 + i
-        x, w, ess, lz_inc, ll, a = step(x, w, ys[i], streams, t=t)
+        x, w, ess, lz_inc, ll, a = step(
+            x, w, ys[i], streams, t=t,
+            draws=None if draws is None else draws[i])
         esss[i] = ess
         lzs[i] = lz_inc
         if xs is not None:
@@ -732,6 +735,7 @@ def bootstrap_filter(
     resample_op_weights: str = "log",
     debug_checks: bool = False,
     device=None,
+    draws: Optional[dict] = None,
 ) -> FilterResult:
     """Run the bootstrap filter on observations ``ys`` [T, k]; row 0 is
     ignored (t=0 is the prior draw).
@@ -772,6 +776,11 @@ def bootstrap_filter(
     ``key`` an int seed for the two streams of ``parallel.mesh``. The
     result holds this rank's particles and weights, global ancestors, and
     the replicated ESS and log-evidence.
+
+    ``draws`` replays a run's numbers (one shard): ``{"x0": the initial
+    cloud in the layout's shape, "steps": [(resample draws, noise), one
+    for each step t = 1 .. T-1]}``, each step's pair as its step's
+    ``draws=`` takes it (``key`` is then unused).
     """
     s = filter_setup(
         key, model, num_particles, resampler=resampler,
@@ -781,6 +790,8 @@ def bootstrap_filter(
         resample_op=resample_op, resample_op_weights=resample_op_weights,
         debug_checks=debug_checks, device=device)
     n, dev, x = num_particles, s.device, s.x0
+    if draws is not None:
+        x = torch.as_tensor(draws["x0"], dtype=x.dtype).to(dev)
     wdtype = s.logw0.dtype
     ys = torch.as_tensor(ys, dtype=wdtype).to(dev).contiguous()
     num_steps = ys.shape[0]
@@ -798,7 +809,7 @@ def bootstrap_filter(
 
     hist = (xs[1:], lls[1:], ancs[1:]) if return_history else ()
     x, w = scan_steps(s.step, x, s.w0, ys[1:], 1, s.streams, esss, lzs,
-                      *hist)
+                      *hist, draws=None if draws is None else draws["steps"])
 
     logw_f = final_log_weights(w, s.log_carry, axis_name)
     ess = torch.cat([effective_sample_size(s.logw0, axis_name)[None], esss])

@@ -14,10 +14,16 @@ import torch
 
 def chol_sqrt(cov: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
     """Lower-triangular Cholesky factor L with L @ L.T == cov (+ jitter I
-    when ``jitter`` is non-zero)."""
+    when ``jitter`` is non-zero). On the card the factor comes from
+    ``torch.linalg.cholesky_ex`` without a host read of its info flag, and
+    a matrix that is not positive definite gives NaN, as JAX's cholesky
+    does; on the CPU it raises."""
     if jitter:
         cov = cov + jitter * torch.eye(cov.shape[-1], dtype=cov.dtype,
                                        device=cov.device)
+    if cov.device.type == "cuda":
+        L, info = torch.linalg.cholesky_ex(cov)
+        return torch.where(info[..., None, None] == 0, L, torch.nan)
     return torch.linalg.cholesky(cov)
 
 

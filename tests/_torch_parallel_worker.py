@@ -55,6 +55,14 @@ be returned).
 A case with ``custom=True`` wraps the demo DLM in a ``CustomSSM`` (batch
 methods only): the sharded filter then runs the batch layout with the
 all-gather op, and a ``"single"`` case injects that op for one shard.
+
+- ``"mcmc"``: ``parallel/mcmc.sharded_{sampler}_sampler`` on a
+  ``parallel.Mesh({"chains": P})`` over the global first positions
+  ``init`` [C, d], on the Gaussian of standard deviations ``stds``, with
+  ``kwargs`` and this rank's ``draws`` (one entry per rank, or None: the
+  rank's own seed). Outputs a dict of the result's fields (the rank's
+  block of chains, the pooled scalars). ``refuse=True`` passes a [1, C,
+  d] ``init`` and outputs the raised error's message.
 """
 
 import os
@@ -172,6 +180,38 @@ def stream_case(case, axis):
                    res.final_log_weights)) + (hist,)
 
 
+def mcmc_case(case):
+    import torch
+
+    from cusmc_tpu_torch.parallel import mcmc
+    from cusmc_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh({"chains": case["P"]})
+    stds = torch.from_numpy(np.asarray(case["stds"], np.float32))
+
+    def logp(x):
+        return -0.5 * torch.sum((x / stds) ** 2, dim=-1)
+
+    fn = getattr(mcmc, f"sharded_{case['sampler']}_sampler")
+    init = torch.from_numpy(case["init"])
+    if case.get("refuse"):
+        try:
+            fn(case["seed"], logp, init[None], case["steps"], mesh)
+        except ValueError as e:
+            return str(e)
+        raise AssertionError("the sharded sampler took a 3-D init")
+    draws = case.get("draws")
+    kw = dict(case.get("kwargs", {}))
+    if draws is not None:
+        kw["draws"] = _tensors(draws[mesh.axes["chains"].index])
+    res = fn(case["seed"], logp, init, case["steps"], mesh,
+             keep_samples=case.get("keep", False), **kw)
+    out = {k: v for k, v in vars(res).items() if k != "state"}
+    if hasattr(res, "state"):
+        out.update({f"state.{k}": v for k, v in vars(res.state).items()})
+    return {k: _numpy(v) for k, v in out.items() if v is not None}
+
+
 def run_case(case, axis):
     import torch
 
@@ -181,6 +221,8 @@ def run_case(case, axis):
     from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
 
     p = axis.index
+    if case["kind"] == "mcmc":
+        return mcmc_case(case)
     if case["kind"] == "stream":
         return stream_case(case, axis)
     if case["kind"] == "enkf":

@@ -805,3 +805,56 @@ def test_cuda_registry_resamplers_skip_zero_weights(cuda, name):
     for _ in range(5):
         a = get_resampler(name)(gen, logw).long()
         assert bool((w[a] > 0).all()), int((w[a] == 0).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise,df", [("mvn", None), ("mvt", 5.0)])
+def test_cuda_dlm_create_from_card_tensors(cuda, noise, df):
+    # DLM.create from tensors on the card (a PMMH builder's theta) factors
+    # them there with cholesky_ex, equal to the model built from the host
+    # copy at float32 rtol 1e-6 (the two Cholesky routines may differ by
+    # an ulp), with no tensor through numpy.
+    from cusmc_tpu_torch.models.dlm import DLM
+
+    p = {k: np.asarray(v, np.float32) for k, v in demo_model_params().items()}
+    want = DLM.create(device="cpu", noise=noise, df=df, **p)
+    got = DLM.create(noise=noise, df=df,
+                     **{k: torch.from_numpy(v).to(cuda)
+                        for k, v in p.items()})
+    assert got.device.type == "cuda"
+    for name in ("F", "G", "m0", "C0_sqrt", "W_sqrt", "V_chol",
+                 "V_chol_inv", "log_norm"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(want, name), rtol=1e-6,
+                                   atol=1e-7)
+    assert got.df_int == want.df_int
+
+
+@pytest.mark.cuda
+def test_cuda_dlm_create_non_pd_covariance_gives_nan(cuda):
+    # On the card DLM.create factors without a host read: a V that is not
+    # positive definite gives a NaN factor, as JAX's cholesky does (the
+    # CPU raises), so PMMH scores such a proposal NaN and rejects it.
+    from cusmc_tpu_torch.mcmc import pmmh
+    from cusmc_tpu_torch.models.dlm import DLM
+
+    i1 = torch.eye(1, device=cuda)
+
+    def builder(th):
+        return DLM.create(F=i1, G=0.9 * i1, m0=torch.zeros(1, device=cuda),
+                          C0=i1, V=th[0] * i1, W=0.01 * i1)
+    bad = builder(torch.tensor([-0.04], device=cuda))
+    assert bool(torch.isnan(bad.V_chol).all())
+    assert bool(torch.isnan(bad.log_norm))
+    good = builder(torch.tensor([0.04], device=cuda))
+    assert float(good.V_chol) == pytest.approx(0.2, rel=1e-6)
+    rng = np.random.default_rng(0)
+    ys = torch.from_numpy(rng.normal(0.0, 0.3, (30, 1)).astype(np.float32))
+    # Proposals of step 0.1 around V = 0.04 fall below zero about a third
+    # of the time.
+    res = pmmh(0, builder, lambda th: torch.zeros((), device=cuda),
+               torch.tensor([0.04], device=cuda), ys, 256, 40,
+               step_size=0.1)
+    assert bool((res.thetas[:, 0] > 0).all())
+    assert bool(torch.isfinite(res.log_evidences).all())
+    assert float(res.accept_rate) < 1.0

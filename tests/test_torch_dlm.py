@@ -6,6 +6,12 @@ df=4.5 (the fixed-round gamma path).
 Tolerance: rtol 1e-5 on float32 states and log-densities (the same
 arithmetic, with matmuls summed in another order); atol 1e-6 for values
 near zero.
+
+``DLM.create`` from tensors (a PMMH builder's theta): bitwise the model
+built from the same numbers as numpy, no tensor routed through
+``np.asarray`` (a spy), and a tensor that requires grad accepted; the
+other builders (stochastic volatility, UNGM, the CLGSSM's parameters and
+prior) likewise.
 """
 
 import _torch_threads  # noqa: F401
@@ -67,6 +73,101 @@ def test_df_int_dispatch_and_unported_options():
     noise = chi.packed_noise(torch.Generator().manual_seed(0), 16)
     assert tuple(noise[1][0].shape) == (2, 2, 16)   # (df // 2, d, n)
     assert tuple(noise[1][1].shape) == (2, 16)
+
+
+MODEL_BUFFERS = FIELDS + ("F_f32", "G_f32", "W_sqrt_f32", "log_norm")
+
+
+@pytest.mark.parametrize("noise,df,state_dtype",
+                         [("mvn", None, None), ("mvt", 5.0, None),
+                          ("mvt", 4.5, torch.bfloat16)])
+def test_create_from_tensors_is_bitwise_the_numpy_model(monkeypatch, noise,
+                                                        df, state_dtype):
+    # A tensor argument (a PMMH builder's theta on the card, here on the
+    # CPU) is factored where it lies, never through numpy, and the model
+    # is bitwise the one built from the same numbers as numpy.
+    p = {k: np.asarray(v, np.float32) for k, v in demo_model_params().items()}
+    want = DLM.create(device="cpu", noise=noise, df=df,
+                      state_dtype=state_dtype, **p)
+    seen = []
+    orig = np.asarray
+
+    def spy(a, *args, **kw):
+        if isinstance(a, torch.Tensor):
+            seen.append(tuple(a.shape))
+        return orig(a, *args, **kw)
+    monkeypatch.setattr(np, "asarray", spy)
+    got = DLM.create(device="cpu", noise=noise,
+                     df=None if df is None else torch.tensor(df),
+                     state_dtype=state_dtype,
+                     **{k: torch.from_numpy(v) for k, v in p.items()})
+    monkeypatch.undo()
+    assert seen == []
+    for name in MODEL_BUFFERS:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert (got.df_int, got.df_value) == (want.df_int, want.df_value)
+    if df is not None:
+        assert torch.equal(got.df, want.df)
+
+
+def test_create_takes_tensors_that_numpy_refuses():
+    # Before the repair these raised ("Can't call numpy() on Tensor that
+    # requires grad"); the model keeps the graph back to the parameter.
+    p = demo_model_params()
+    log_v = torch.zeros((), requires_grad=True)
+    m = DLM.create(device="cpu", F=p["F"], G=p["G"], m0=p["m0"], C0=p["C0"],
+                   V=torch.exp(log_v) * torch.from_numpy(
+                       np.asarray(p["V"], np.float32)), W=p["W"])
+    want = DLM.create(device="cpu", **p)
+    for name in MODEL_BUFFERS:
+        torch.testing.assert_close(getattr(m, name).detach(),
+                                   getattr(want, name), rtol=0, atol=0)
+    (g,) = torch.autograd.grad(m.log_norm, log_v)
+    assert float(g) == pytest.approx(-1.0, rel=1e-6)  # -k/2, k = 2
+
+
+def test_create_non_pd_covariance_raises_on_the_cpu():
+    # On the CPU the factor checks its info flag and raises; on the card
+    # it gives NaN instead (tests/test_torch_cuda.py).
+    p = demo_model_params()
+    with pytest.raises(torch.linalg.LinAlgError):
+        DLM.create(device="cpu", **{**p, "V": -np.eye(2)})
+
+
+def test_other_builders_take_tensors(monkeypatch):
+    from cusmc_tpu_torch.models.clgssm import CLGSSM, params_from_numpy
+    from cusmc_tpu_torch.models.stochvol import StochasticVolatility
+    from cusmc_tpu_torch.models.ungm import UNGM
+
+    calls = []
+    orig = np.asarray
+
+    def spy(a, *args, **kw):
+        if isinstance(a, torch.Tensor):
+            calls.append(tuple(a.shape))
+        return orig(a, *args, **kw)
+    monkeypatch.setattr(np, "asarray", spy)
+    th = torch.tensor([0.9, 0.25], requires_grad=True)
+    sv = StochasticVolatility.create(mu=-1.0, phi=th[0], sigma=th[1],
+                                     device="cpu")
+    want = StochasticVolatility.create(mu=-1.0, phi=0.9, sigma=0.25,
+                                       device="cpu")
+    for name in ("mu", "phi", "sigma", "beta"):
+        assert torch.equal(getattr(sv, name).detach(), getattr(want, name))
+    assert sv.phi.requires_grad
+    un = UNGM.create(q=torch.tensor(10.0), r=th[1], device="cpu")
+    assert float(un.q) == 10.0
+    assert float(un.r.detach()) == pytest.approx(0.25)
+    params = params_from_numpy({"a": torch.tensor([1.0, 2.0]),
+                                "b": np.ones(2)}, device="cpu")
+    assert params["a"].dtype == torch.float32
+    assert params["b"].dtype == torch.float64
+    model = CLGSSM.create(1, 1, 1, None, None, None, None, None, None,
+                          m0=torch.zeros(1), C0=torch.eye(1),
+                          device="cpu")
+    assert torch.equal(model.C0, torch.eye(1))
+    monkeypatch.undo()
+    assert calls == []
 
 
 @pytest.mark.parametrize("noise,df", CASES)

@@ -253,6 +253,15 @@ def test_port_runs_without_jax():
         import cusmc_tpu_torch.diagnostics.mcmc
         import cusmc_tpu_torch.parallel.enkf
         import cusmc_tpu_torch.parallel.replicated
+        import cusmc_tpu_torch.mcmc.chees
+        import cusmc_tpu_torch.mcmc.driver
+        import cusmc_tpu_torch.mcmc.ensemble
+        import cusmc_tpu_torch.mcmc.pmmh
+        import cusmc_tpu_torch.mcmc.tempering
+        import cusmc_tpu_torch.parallel.mcmc
+        import cusmc_tpu_torch.smc.smc2
+        import cusmc_tpu_torch.smc.smc_sampler
+        from cusmc_tpu_torch import smc2, smc_sampler  # noqa: F401
         from cusmc_tpu_torch.io.data import demo_model_params, load_y_sim
         p = demo_model_params()
         out = cusmc_tpu_torch.run(256, 2, 5, load_y_sim()[:5], p["m0"],
