@@ -54,7 +54,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``blocked_cumsum`` + ``inverse_cdf_apply`` and through the fused CDF
    step on that cdf, all 0; with ``--against``, the same counts with each
    other tree's cumsum beside them. Every cumsum case of the phase is
-   also held bitwise flat over its zero weights.
+   also held bitwise flat over its zero weights. Then the roll walk at
+   the auto schedule's short sweep counts, B = 3 and 5, at N = 8192 and
+   2^20, d = 2 (exp-space, uniform and concentrated weights; ancestors and
+   values exactly the plain version's), timed beside its bound.
 3b. Statistics of the fused kernels (benchmarks/validate_fused_tpu.py
    checks 1-5d with their thresholds): zero-noise consistency, offspring
    against the indexed Metropolis resampler, noise moments, the inverse-CDF
@@ -232,6 +235,18 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    phase 5; (f) the chain-sharded MH, PT, ChEES
    and stretch samplers on a one-rank NCCL group, each bitwise the
    unsharded sampler with rank 0's seed, rates side by side.
+4j. The graft entry, the dry run and the examples, with every launch
+   count set to 0 first: ``graft_entry.entry()``'s step (N=4096, MVT
+   df=5, metropolis; one roll walk launch and no other);
+   ``dryrun_multichip(1)`` on a one-rank NCCL group (the sharded filter
+   for systematic, metropolis and residual, sharded streaming, the
+   chain-sharded samplers, the sharded EnKF; N = 8); the eight examples
+   of ``examples/torch`` in process at their own sizes, each timed and
+   each printed quantity in its band (``EXAMPLE_BANDS``) or finite, the
+   sweep counts of 06's auto schedule in {10, 5, 3}; and example 01 as a
+   script (``python3 examples/torch/01_particle_filter.py``). The kernels'
+   inputs are kept for phase 5 (``EXAMPLE_TRAFFIC``, every call of the
+   dry run).
 5. The block-window kernels on the main paths' own inputs, kept at steps
    0, 99 and 198 of the warm-up runs of phases 4 (the search-and-apply of
    the composed systematic headline, d = 2), 4b (the fused CDF step of the
@@ -241,11 +256,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    calls a step of the single-device residual run and its local-block
    mode in the sharded systematic run), and of phase 4i's PMMH at calls
    1, 7501, 7579 and 15001 of its 15100 (the search-and-apply at d = 1
-   and the cumsum; ``PMMH_TRAFFIC_STEPS``): the spans of the cdf that their
+   and the cumsum; ``PMMH_TRAFFIC_STEPS``), and of phase 4j (the inputs
+   of the examples' and the dry run's cumsum, search-and-apply in both
+   modes, search-only kernel, take-columns and roll walk, N = 8 to 16384):
+   the spans of the cdf that their
    blocks search, the share of blocks that fits the window (and would fit
    one a quarter, half or twice as large), each kernel against its plain
    version, and its device time; the same for the search-only kernel's
-   shuffled queries of phase 3.
+   shuffled queries of phase 3. The roll walk and take-columns are held
+   exactly to their plain versions there and timed.
    ``--against DIR [DIR ...]`` times the same kernels of other checkouts
    of the repo (the parent commit unpacked with ``git archive``, say)
    beside this tree's on those inputs.
@@ -319,13 +338,13 @@ def median_ms(fn, reps: int = TIMING_REPS) -> float:
     return times[len(times) // 2]
 
 
-def _profile_kernels(fn, reps: int, attempts: int = 3) -> dict:
+def _profile_kernels(fn, reps: int, attempts: int = 5) -> dict:
     """kernel name -> (launches, device microseconds) that torch.profiler
-    recorded over ``reps`` calls of ``fn``. torch.profiler has returned
-    no kernel record at all for a whole profiling session, in a process
-    that followed another profiling process: such a session is run
-    again, up to ``attempts`` times (an empty result then fails the
-    caller's check)."""
+    recorded over ``reps`` calls of ``fn``. torch.profiler (2.11, CUDA
+    12.8, on the H100) has returned no kernel record at all for a whole
+    profiling session: rarely in the early phases, and in phase 5 for
+    about every other session. Such a session is run again, up to
+    ``attempts`` times; an empty result is then the caller's to handle."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -344,16 +363,44 @@ def _profile_kernels(fn, reps: int, attempts: int = 3) -> dict:
     return {}
 
 
+def events_ms(fn, reps: int = TIMING_REPS) -> float:
+    """Time per call of ``reps`` calls of ``fn`` launched back to back,
+    between two CUDA events: the device time where the launches keep
+    ahead of the card, else the host's launch time as well."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_ms(fn, reps: int = TIMING_REPS) -> float:
     """Device time per call of ``fn``: each kernel's mean duration over
     ``reps`` calls (torch.profiler) times its launches a call, summed;
     without the host's launch cost that the event timing of a short call
     also holds. The profiler can drop kernel records, so a kernel's
     launches a call are its recorded launches over ``reps``, rounded, and
-    its mean is taken over the records it kept."""
+    its mean is taken over the records it kept. Where no profiling
+    session recorded a kernel, the time is ``events_ms``'s, and a line
+    says so."""
     fn()
+    kernels = _profile_kernels(fn, reps)
+    if not kernels:
+        ms = events_ms(fn, reps)
+        print(f"  (torch.profiler recorded no kernel in any session; "
+              f"{ms:.4f} ms a call from CUDA events over {reps} calls back "
+              f"to back)")
+        assert ms > 0, "CUDA events timed no device time"
+        return ms
     total_us = 0.0
-    for name, (count, us) in _profile_kernels(fn, reps).items():
+    for name, (count, us) in kernels.items():
         per_call = max(1, round(count / reps))
         if count != per_call * reps:
             print(f"  (torch.profiler kept {count} of {per_call * reps} "
@@ -426,6 +473,7 @@ def kernels_per_call(fn, reps: int = TIMING_REPS) -> int:
     rounded."""
     fn()
     kernels = _profile_kernels(fn, reps)
+    assert kernels, "torch.profiler recorded no kernel in any session"
     return round(sum(count for count, _ in kernels.values()) / reps)
 
 
@@ -644,9 +692,9 @@ def _search_case(cdf, X, name, order=None):
     return float((y - y_p).abs().max())
 
 
-def _rolls_case(w, X, gen, name):
+def _rolls_case(w, X, gen, name, num_steps=10):
     """Kernel vs plain (the walk, apply and ancestors of rolls.py) on the
-    same shifts and uniforms: exactly equal."""
+    same ``num_steps`` shifts and uniforms: exactly equal."""
     import torch
 
     from cusmc_tpu_torch.resampling.rolls import roll_metropolis_draws, \
@@ -654,16 +702,64 @@ def _rolls_case(w, X, gen, name):
         roll_metropolis_sweeps_expspace_plain
 
     n = w.shape[0]
-    shifts, u = roll_metropolis_draws(gen, n, 10, w.device)
+    shifts, u = roll_metropolis_draws(gen, n, num_steps, w.device)
     y, a = roll_metropolis_sweeps_expspace(w, shifts, u, X)
     y_p, a_p = roll_metropolis_sweeps_expspace_plain(w, shifts, u, X)
     assert torch.equal(a, a_p), f"{name}: ancestors differ " \
         f"({int((a != a_p).sum())} of {n})"
     assert torch.equal(y, y_p), f"{name}: values differ"
     moved = float((a != torch.arange(n, device=w.device)).float().mean())
-    print(f"  rolls {name}: N={n} B=10 ancestors and values equal "
+    print(f"  rolls {name}: N={n} B={num_steps} ancestors and values equal "
           f"(moved share {moved:.3f})")
     return shifts, u, float((y - y_p).abs().max())
+
+
+# The sweep counts of num_steps="auto" below B = 10 (its ESS bucket over
+# base 10: ceil(10 / 2) and ceil(10 / 4)), and the sizes they run at: the
+# auto-sweep example's N and the headline's.
+AUTO_SWEEPS = (5, 3)
+AUTO_SWEEP_SIZES = (8192, N_BIG)
+
+
+def check_roll_sweeps() -> float:
+    """Phase 3 for the roll walk at the auto schedule's short sweep counts
+    (B = 3 and 5) at N = 8192 and 2^20, d = 2: on exp-space, uniform and
+    concentrated weights against its plain version (ancestors and values
+    exactly equal), then timed beside its bound on exp-space weights.
+    Returns the largest |kernel - plain|."""
+    import torch
+
+    from cusmc_tpu_torch.resampling.rolls import \
+        roll_metropolis_sweeps_expspace, \
+        roll_metropolis_sweeps_expspace_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1357)
+    errs = []
+    for n in AUTO_SWEEP_SIZES:
+        X = torch.randn((D, n), generator=gen, device=dev)
+        ll = -0.5 * torch.randn(n, generator=gen, device=dev) ** 2 * 50.0
+        w_exp = torch.exp(ll - ll.max())
+        w_conc = torch.full((n,), 1e-12, device=dev)
+        w_conc[n // 3] = 1.0
+        for b in AUTO_SWEEPS:
+            for name, w in (("exp", w_exp),
+                            ("uniform", torch.rand(n, generator=gen,
+                                                   device=dev)),
+                            ("concentrated", w_conc)):
+                shifts, u, e = _rolls_case(w, X, gen, f"{n}/{name}", b)
+                errs.append(e)
+            shifts, u, _ = _rolls_case(w_exp, X, gen, f"{n}/exp", b)
+            time_kernel("roll_metropolis_sweeps_expspace",
+                        lambda: roll_metropolis_sweeps_expspace(
+                            w_exp, shifts, u, X),
+                        lambda: roll_metropolis_sweeps_expspace_plain(
+                            w_exp, shifts, u, X),
+                        None, f"N={n} d={D} B={b}", (8 + 4 * b + 8 * D) * n,
+                        b * n)
+    torch.cuda.synchronize()
+    return max(errs)
 
 
 def check_kernels() -> dict:
@@ -2012,25 +2108,26 @@ GATHER_CU = "cusmc_tpu_torch/csrc/monotone_gather.cu"
 KERNELS = (
     ("blocked_cumsum", "cusmc_tpu_torch/csrc/cumsum.cu",
      "cusmc_tpu/ops/cumsum.py:45", ("main", "streaming", "models",
-                                    "family", "pmmh")),
+                                    "family", "pmmh", "graft")),
     ("inverse_cdf_apply", GATHER_CU,
      "cusmc_tpu/ops/monotone_gather.py:277", ("main", "streaming",
-                                              "models", "pmmh")),
+                                              "models", "pmmh", "graft")),
     ("roll_metropolis_sweeps_expspace", "cusmc_tpu_torch/csrc/rolls.cu",
      "cusmc_tpu/resampling/rolls.py:109", ("main", "streaming", "models",
-                                           "family")),
+                                           "family", "graft")),
     ("fused_filter_step", "cusmc_tpu_torch/csrc/fused_step.cu",
      "cusmc_tpu/ops/fused_step.py:127", ("pallas", "models")),
     ("fused_cdf_filter_step", "cusmc_tpu_torch/csrc/fused_cdf_step.cu",
      "cusmc_tpu/ops/fused_cdf_step.py:104", ("pallas", "models")),
     ("inverse_cdf_search", GATHER_CU,
-     "cusmc_tpu/ops/monotone_gather.py:422", ("sharded", "family")),
+     "cusmc_tpu/ops/monotone_gather.py:422", ("sharded", "family",
+                                              "graft")),
     ("take_columns", GATHER_CU,
      "cusmc_tpu/ops/monotone_gather.py:204", ("sharded", "generic",
-                                              "family")),
+                                              "family", "graft")),
     ("inverse_cdf_apply[local_base]", GATHER_CU,
      "cusmc_tpu/ops/monotone_gather.py:401", ("sharded", "streaming",
-                                              "family")),
+                                              "family", "graft")),
     ("fused_filter_step[bf16]", "cusmc_tpu_torch/csrc/fused_step.cu",
      "cusmc_tpu/ops/fused_step.py:127", "bf16"),
     ("roll_metropolis_sweeps_expspace[bf16]", "cusmc_tpu_torch/csrc/rolls.cu",
@@ -4417,6 +4514,212 @@ def samplers_path(card: str) -> None:
             f"expected {want} (PMMH's alone)"
 
 
+# -- the graft entry, the dry run and the examples (phase 4j) -------------
+
+EXAMPLES = ("01_particle_filter", "02_mcmc", "03_pmmh", "04_sharded",
+            "05_rbpf_liu_west", "06_sharded_streaming", "07_advanced_mcmc",
+            "08_nonlinear_ungm")
+# The band of each quantity an example prints, at the example's own sizes:
+# its JAX original's oracle (the MVT variance df/(df-2) = 4/3 within 10%,
+# the true V = 0.04, the Liu-West truth g = 0.8, the PT target share 0.5,
+# R-hat below 1.1), each wider than the spread of 16 seeds at the
+# smaller sizes of tests/test_torch_examples.py; the rest finite.
+MCMC_VAR_BAND = (1.2, 1.47)
+EXAMPLE_BANDS = {
+    "01_particle_filter": {"rmse": (0.0, 0.05)},
+    "02_mcmc": {f"{k}.var": MCMC_VAR_BAND
+                for k in ("mh", "MALA", "HMC", "adaptive-MH")},
+    "03_pmmh": {"median_V": (0.02, 0.08), "acceptance": (0.05, 0.9)},
+    "05_rbpf_liu_west": {"lw_theta_final": (0.6, 0.95)},
+    "07_advanced_mcmc": {"right_share": (0.3, 0.7), "max_rhat": (0.9, 1.1)},
+    "08_nonlinear_ungm": {"straddle": (0.0, 1.0)},
+}
+EXAMPLE_FINITE = {
+    "01_particle_filter": ("log_evidence", "mean_ess"),
+    "04_sharded": ("log_evidence", "final_ess"),
+    "05_rbpf_liu_west": ("rbpf_log_evidence", "rbpf_final_ess"),
+    "06_sharded_streaming": ("streaming_log_evidence", "min_ess",
+                             "auto_log_evidence"),
+    "08_nonlinear_ungm": ("log_evidence", "final_ess", "rmse"),
+}
+# The calls whose inputs phase 5 holds the kernels to: (example, module
+# attribute, wrapper, label, calls). 01's 1000 roll walks; PMMH's 401
+# filter runs of 200 steps (call 200 r + s is run r's step s: step 1 of
+# the first, the middle and step 199 of the last run); 04's 500 roll
+# walks; 06's sharded streaming resamples where the ESS falls under N/2
+# (its first, 11th and 21st) and the first of its 500 auto-sweep roll
+# walks at each sweep count (all are kept while it runs); UNGM's 199
+# resamples.
+AUTO_LABEL = "06 auto sweeps N=8192"
+EXAMPLE_TRAFFIC = (
+    ("01_particle_filter", "particle_filter",
+     "roll_metropolis_sweeps_expspace", "01 N=10000", (0, 499, 999)),
+    ("03_pmmh", "particle_filter", "blocked_cumsum", "03 PMMH N=1024",
+     (1, 40001, 80199)),
+    ("03_pmmh", "particle_filter", "inverse_cdf_apply", "03 PMMH N=1024",
+     (1, 40001, 80199)),
+    ("04_sharded", "presampling", "roll_metropolis_sweeps_expspace",
+     "04 sharded N=16384", (0, 249, 499)),
+    ("06_sharded_streaming", "presampling", "blocked_cumsum",
+     "06 streaming N=4096", (0, 10, 20)),
+    ("06_sharded_streaming", "presampling", "inverse_cdf_apply",
+     "06 streaming N=4096", (0, 10, 20)),
+    ("06_sharded_streaming", "particle_filter",
+     "roll_metropolis_sweeps_expspace", AUTO_LABEL, None),
+    ("08_nonlinear_ungm", "particle_filter", "blocked_cumsum",
+     "08 UNGM N=16384", (0, 99, 198)),
+    ("08_nonlinear_ungm", "particle_filter", "inverse_cdf_apply",
+     "08 UNGM N=16384", (0, 99, 198)),
+)
+# The dry run's kernel calls (N = 8 on one rank: the sharded systematic,
+# metropolis and residual filters and sharded streaming), all kept.
+DRYRUN_TRAFFIC = (("presampling", "blocked_cumsum"),
+                  ("classic", "blocked_cumsum"),
+                  ("presampling", "inverse_cdf_apply"),
+                  ("presampling", "inverse_cdf_search"),
+                  ("presampling", "take_columns"),
+                  ("presampling", "roll_metropolis_sweeps_expspace"))
+EXAMPLE_SUBPROCESS_TIMEOUT = 300
+
+
+def example_module(name):
+    """``examples/torch/<name>.py``, imported by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _flat(out: dict, prefix="") -> dict:
+    flat = {}
+    for k, v in out.items():
+        if isinstance(v, dict):
+            flat.update(_flat(v, f"{prefix}{k}."))
+        else:
+            flat[prefix + k] = v
+    return flat
+
+
+def check_example(name, out) -> None:
+    """An example's printed quantities inside their bands, or finite."""
+    import numpy as np
+
+    out = _flat(out)
+    for key, (lo, hi) in EXAMPLE_BANDS.get(name, {}).items():
+        assert lo < out[key] < hi, \
+            f"example {name}: {key} = {out[key]} outside ({lo}, {hi})"
+        print(f"  example {name}: {key} = {out[key]:.6g} in ({lo}, {hi})")
+    for key in EXAMPLE_FINITE.get(name, ()):
+        assert np.isfinite(out[key]), f"example {name}: {key} = {out[key]}"
+
+
+def graft_path(card: str, dev: str = "cuda") -> None:
+    """Phase 4j: the graft entry's step on the card (one roll walk), the
+    dry run on a one-rank NCCL group, the eight examples in process at
+    their own sizes (each quantity in its band, each timed; the sweep
+    counts of 06's auto schedule in {10, 5, 3}) and example 01 as a
+    script; the kernels' inputs kept for phase 5. ``dev="cpu"`` runs it
+    all on the CPU (gloo; no launch is counted there)."""
+    import torch
+
+    from cusmc_tpu_torch import graft_entry
+    from cusmc_tpu_torch.parallel import joined_group
+    from cusmc_tpu_torch.parallel import resampling as presampling
+    from cusmc_tpu_torch.resampling import classic, rolls
+    from cusmc_tpu_torch.smc import particle_filter
+
+    modules = {"particle_filter": particle_filter,
+               "presampling": presampling, "classic": classic}
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    walk = "roll_metropolis_sweeps_expspace"
+
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry(dev)
+    before = _counts()
+    with capture(rolls, walk, ("entry N=4096",), (0,)):
+        out = fn(*args)
+        sync()
+    after = _counts()
+    assert all(bool(torch.isfinite(t).all()) for t in out), "entry"
+    for name in after:
+        grown = after[name] - before[name]
+        assert grown == (on_card and name == walk), \
+            f"entry: {name} launched {grown} times"
+    print(f"  entry(): one step, N=4096, d=2, MVT df=5, metropolis B=10, "
+          f"ess {float(out[2]):.1f}, lz {float(out[3]):.6g} "
+          f"({time.perf_counter() - t0:.3f} s with the model build)")
+
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(joined_group(dev, 1))
+        for mod, fn_name in DRYRUN_TRAFFIC:
+            stack.enter_context(capture(modules[mod], fn_name,
+                                        (f"dry run N=8 ({mod})",), None))
+        res = graft_entry.dryrun_multichip(1, dev)
+    secs = time.perf_counter() - t0
+    print(f"  dryrun_multichip(1), one-rank group: {secs:.3f} s; "
+          + ", ".join(f"{k} {float(v):.6g}" for k, v in res.items()
+                      if getattr(v, "size", 1) == 1))
+
+    sweeps = []
+    auto = particle_filter.auto_num_steps
+
+    def record(w, num_steps=10):
+        sweeps.append(auto(w, num_steps))
+        return sweeps[-1]
+
+    times = {}
+    for name in EXAMPLES:
+        mod = example_module(name)
+        with contextlib.ExitStack() as stack:
+            for ex, m, fn_name, label, steps in EXAMPLE_TRAFFIC:
+                if ex == name:
+                    stack.enter_context(capture(modules[m], fn_name,
+                                                (label,), steps))
+            if name == "06_sharded_streaming":
+                particle_filter.auto_num_steps = record
+                stack.callback(setattr, particle_filter, "auto_num_steps",
+                               auto)
+            t0 = time.perf_counter()
+            out = mod.main(None if on_card else "cpu")
+            sync()
+            times[name] = time.perf_counter() - t0
+        print(f"  example {name}: {times[name]:.3f} s [{card}]")
+        check_example(name, out)
+    assert sweeps and set(sweeps) <= {10, 5, 3}, sweeps
+    key = (walk, AUTO_LABEL)
+    first = {}
+    for kept in TRAFFIC.pop(key):
+        first.setdefault(kept[1][1].numel(), kept)  # by the shifts' count
+    TRAFFIC[key] = sorted(first.values(), key=lambda kept: kept[0])
+    TRAFFIC_WANT[key] = tuple(kept[0] for kept in TRAFFIC[key])
+    print(f"  06's auto schedule: {len(sweeps)} resamples, sweeps "
+          + ", ".join(f"B={b} x{sweeps.count(b)}" for b in (10, 5, 3)))
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join("examples", "torch",
+                                      "01_particle_filter.py")]
+        + ([] if on_card else ["--device", "cpu"]),
+        cwd=root, capture_output=True, text=True,
+        timeout=EXAMPLE_SUBPROCESS_TIMEOUT)
+    secs = time.perf_counter() - t0
+    assert proc.returncode == 0, f"example 01 as a script:\n{proc.stderr}"
+    lz = [float(line.split(":", 1)[1]) for line in proc.stdout.splitlines()
+          if line.startswith("log evidence:")]
+    assert len(lz) == 1 and math.isfinite(lz[0]), proc.stdout
+    print(f"  python3 examples/torch/01_particle_filter.py: {secs:.3f} s, "
+          f"log evidence {lz[0]:.6g} (in process "
+          f"{times['01_particle_filter']:.3f} s)")
+
+
 # -- the main paths' own traffic ------------------------------------------
 
 # Steps of a T = 200 run whose inputs to the block-window kernels are kept
@@ -4454,19 +4757,23 @@ def capture(module, name, labels, steps=TRAFFIC_STEPS):
     """While open, the calls that ``module`` makes to its function ``name``
     (a kernel's wrapper, imported there by name) run unchanged, and the
     arguments of the ``steps`` are kept, cloned, in TRAFFIC[name, label]:
-    each step makes one call for each of ``labels``, in that order."""
+    each step makes one call for each of ``labels``, in that order.
+    ``steps`` None keeps every call (for runs of few, small calls)."""
     fn = getattr(module, name)
     calls = itertools.count()
     for label in labels:
-        TRAFFIC_WANT[name, label] = tuple(steps)
+        TRAFFIC_WANT[name, label] = None if steps is None else tuple(steps)
 
     def recorder(*args, **kwargs):
         step, which = divmod(next(calls), len(labels))
-        if step in steps:
+        if steps is None or step in steps:
             TRAFFIC.setdefault((name, labels[which]), []).append(
                 (step, _clone(args), dict(kwargs)))
         return fn(*args, **kwargs)
 
+    # A wrapper that counts its launches through its own module-level name
+    # (``rolls.roll_metropolis_sweeps_expspace``) then counts on ``fn``.
+    recorder.__dict__ = fn.__dict__
     setattr(module, name, recorder)
     try:
         yield
@@ -4576,16 +4883,25 @@ def check_traffic(others) -> None:
         inverse_cdf_apply, inverse_cdf_apply_plain, inverse_cdf_search, \
         inverse_cdf_search_plain, window_fit_share
 
-    kept_on_paths = [k for k, v in TRAFFIC.items() if v[0][0] is not None]
-    assert len(kept_on_paths) == 11, \
-        f"kept on the main paths: {kept_on_paths}"
+    kept_on_paths = {k for k, v in TRAFFIC.items() if v[0][0] is not None}
+    assert kept_on_paths == set(TRAFFIC_WANT), \
+        f"kept on the main paths: {sorted(kept_on_paths)}, wanted " \
+        f"{sorted(TRAFFIC_WANT)}"
     for (fn, label), kept in sorted(TRAFFIC.items()):
-        assert kept[0][0] is None or \
-            tuple(s for s, _, _ in kept) == TRAFFIC_WANT[fn, label], label
+        steps = tuple(s for s, _, _ in kept)
+        want = TRAFFIC_WANT.get((fn, label))
+        assert kept[0][0] is None or steps == (
+            tuple(range(len(steps))) if want is None else want), label
         for step, args, kw in kept:
             name = label if step is None else f"{label}, step {step}"
             if fn == "blocked_cumsum":
                 check_cumsum_traffic(name, args[0], others)
+                continue
+            if fn == "roll_metropolis_sweeps_expspace":
+                check_roll_traffic(name, args)
+                continue
+            if fn == "take_columns":
+                check_take_traffic(name, args)
                 continue
             if fn == "fused_cdf_filter_step":
                 cdf, X, _, _, _, _, _, _, _, (u, _) = args
@@ -4655,6 +4971,45 @@ def check_traffic(others) -> None:
     torch.cuda.synchronize()
 
 
+def check_roll_traffic(name, args) -> None:
+    """Phase 5 for the roll walk on a path's ``(w, shifts, u, X)``: held
+    to its plain version (ancestors and values exactly equal), and its
+    device time."""
+    import torch
+
+    from cusmc_tpu_torch.resampling.rolls import \
+        roll_metropolis_sweeps_expspace, \
+        roll_metropolis_sweeps_expspace_plain
+
+    w, shifts, u, X = args
+    y, a = roll_metropolis_sweeps_expspace(*args)
+    y_p, a_p = roll_metropolis_sweeps_expspace_plain(*args)
+    n = w.numel()
+    assert torch.equal(a, a_p), \
+        f"{name}: ancestors differ ({int((a != a_p).sum())} of {n})"
+    assert torch.equal(y, y_p), f"{name}: values differ"
+    mine = device_ms(lambda: roll_metropolis_sweeps_expspace(*args))
+    print(f"  {name}: N={n} d={X.shape[0]} B={shifts.numel()}, "
+          f"{int(torch.unique(a).numel())} distinct ancestors, ancestors and "
+          f"values equal to the plain version; device time {mine:.4f} ms")
+
+
+def check_take_traffic(name, args) -> None:
+    """Phase 5 for take-columns on a path's ``(X, a)``: exactly its plain
+    version, and its device time."""
+    import torch
+
+    from cusmc_tpu_torch.ops.monotone_gather import take_columns, \
+        take_columns_plain
+
+    X, a = args
+    assert torch.equal(take_columns(X, a), take_columns_plain(X, a)), \
+        f"{name}: values differ"
+    mine = device_ms(lambda: take_columns(X, a))
+    print(f"  {name}: X {tuple(X.shape)}, {a.numel()} ancestors, values "
+          f"equal to the plain version; device time {mine:.4f} ms")
+
+
 def check_cumsum_traffic(name, w, others) -> None:
     """Phase 5 for the cumsum on a main path's weights ``w``: held to its
     plain version and to float64 as ``_cumsum_case`` holds it, and its
@@ -4712,6 +5067,8 @@ def main(argv=None) -> int:
         rec["blocked_cumsum"]["zero_steps"] = check_zero_steps(others)
         rec.update(check_shard_kernels())
         rec.update(check_fused_kernels())
+        walk = rec["roll_metropolis_sweeps_expspace"]
+        walk["max_abs_err"] = max(walk["max_abs_err"], check_roll_sweeps())
     with phase("the kernels at the other models' widths (d = 1; d = 13, "
                "k = 1; PMMH's N = 2^16, d = 1)"):
         for name, err in check_model_kernels().items():
@@ -4738,7 +5095,9 @@ def main(argv=None) -> int:
              models_path),
             ("family", "the sharded family and MCMC", family_path),
             ("pmmh", "MCMC part 2, the SMC samplers, PMMH and the "
-             "chain-sharded samplers", samplers_path)):
+             "chain-sharded samplers", samplers_path),
+            ("graft", "the graft entry, the dry run and the examples",
+             graft_path)):
         with phase(title):
             _zero_counts()
             drive(card)

@@ -34,10 +34,9 @@ the JAX runner's keys; everything else goes to stderr.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
-import os
 import sys
-import tempfile
 import time
 
 
@@ -87,34 +86,6 @@ class _Refused(Exception):
     """A request the runner refuses with exit code 2."""
 
 
-def _join_group(size: int, dev):
-    """The particle axis of a ``size``-rank group, and whether this call
-    started the group (and so ends it)."""
-    import torch.distributed as dist
-
-    from cusmc_tpu_torch.parallel import ParticleAxis, initialize_distributed
-
-    backend = "nccl" if dev.type == "cuda" else "gloo"
-    started = None
-    if not dist.is_initialized():
-        if "WORLD_SIZE" in os.environ:
-            initialize_distributed("env://", int(os.environ["WORLD_SIZE"]),
-                                   int(os.environ.get("RANK", 0)), backend)
-        elif size == 1:
-            started = tempfile.TemporaryDirectory()
-            initialize_distributed(f"file://{started.name}/store", 1, 0,
-                                   backend)
-        else:
-            raise _Refused(
-                f"--mesh {size} needs a group of {size} ranks: start the "
-                f"runner with a launcher (torchrun --nproc-per-node {size}); "
-                "without one only --mesh 1 runs")
-    if dist.get_world_size() != size:
-        raise _Refused(f"--mesh {size} in a group of "
-                       f"{dist.get_world_size()} ranks")
-    return ParticleAxis(), started
-
-
 def _cmd_run(args) -> int:
     try:
         return _run(args)
@@ -150,11 +121,17 @@ def _run(args) -> int:
                        f"num_particles={cfg.num_particles}")
 
     dev = resolve_device(args.device)
-    axis = started = None
-    if args.mesh:
-        axis, started = _join_group(args.mesh, dev)
-        dev = resolve_device(args.device)  # the rank's card, once joined
-    try:
+    axis = None
+    with contextlib.ExitStack() as group:
+        if args.mesh:
+            from cusmc_tpu_torch.parallel import ParticleAxis, joined_group
+
+            try:
+                group.enter_context(joined_group(dev, args.mesh))
+            except ValueError as e:
+                raise _Refused(f"--mesh {args.mesh} {e}") from None
+            axis = ParticleAxis()
+            dev = resolve_device(args.device)  # the rank's card, once joined
         dtype = torch_dtype(cfg.dtype)
         ys_t = torch.as_tensor(np.asarray(ys), dtype=dtype)
         t0 = time.perf_counter()
@@ -222,12 +199,6 @@ def _run(args) -> int:
                     cfg.num_particles * (ys.shape[0] - 1) / wall,
             }))
         return 0
-    finally:
-        if started is not None:
-            import torch.distributed as dist
-
-            dist.destroy_process_group()
-            started.cleanup()
 
 
 def main(argv=None) -> int:

@@ -3,13 +3,12 @@
 Port of ``cusmc_tpu/io/data.py`` (``demo_model_params``,
 ``generate_y_sim``, ``load_csv``, ``load_y_sim``, ``write_sim_output``,
 ``write_output``) in plain numpy, the files byte for byte the JAX
-package's given the same arrays. The bundled 1001-step trace is read by
-file path from the JAX package's data directory
-(``cusmc_tpu/io/_data/y_sim.csv``): it is neither copied nor regenerated
-here (a missing file raises), and ``cusmc_tpu`` is not imported. So
-``generate_y_sim`` takes the file to write as a required argument; its
-trace comes from ``DLM.simulate`` on a ``torch.Generator`` (Philox), the
-same law as the bundled one but other numbers. ``load_csv`` parses with
+package's given the same arrays. The bundled 1001-step trace ships with
+this package (``_data/y_sim.csv``, a byte-for-byte copy of the JAX
+package's), so the port reads it wherever it is installed. It is not
+regenerated: ``generate_y_sim`` takes the file to write as a required
+argument; its trace comes from ``DLM.simulate`` on a ``torch.Generator``
+(Philox), the same law as the bundled one but other numbers. ``load_csv`` parses with
 the native C++ parser of ``native/`` (``io/native.py``) when the library
 is built (``make -C native``), as the JAX package does, and with numpy
 otherwise.
@@ -23,8 +22,7 @@ from typing import Optional
 
 import numpy as np
 
-Y_SIM_PATH = (Path(__file__).resolve().parent.parent.parent / "cusmc_tpu"
-              / "io" / "_data" / "y_sim.csv")
+Y_SIM_PATH = Path(__file__).resolve().parent / "_data" / "y_sim.csv"
 
 
 def demo_model_params(d: int = 2, dtype=np.float64) -> dict:
@@ -97,7 +95,7 @@ def load_y_sim(path: Optional[str] = None) -> np.ndarray:
     path = Path(path) if path is not None else Y_SIM_PATH
     if not path.exists():
         raise FileNotFoundError(
-            f"{path}: the bundled trace ships with the cusmc_tpu package")
+            f"{path}: the bundled trace ships with the package")
     return load_csv(path)
 
 

@@ -2,8 +2,8 @@
 
 Port of ``cusmc_tpu/ops/random.py:24-104``: ``fast_gamma`` (a
 Marsaglia-Tsang squeeze sampler with a FIXED number of proposal rounds,
-unresolved lanes fall back to the mean, bias < 1e-5 relative) and
-``chi2_integer_df`` (exact chi-square for small integer df from one log of
+unresolved lanes fall back to the mean, bias < 1e-5 relative),
+``fast_chi2`` (``2 fast_gamma(df / 2)``) and ``chi2_integer_df`` (exact chi-square for small integer df from one log of
 a product of uniforms). ``gumbel`` and ``categorical`` are the law of
 ``jax.random.categorical`` (an argmax of logits plus Gumbel noise
 ``-log(-log u)``, u in [tiny, 1)), which the forecast, FFBS and conditional
@@ -146,6 +146,17 @@ def fast_gamma(gen: Optional[torch.Generator], alpha: float, shape,
     a < 1e-5 mean-fallback tail."""
     return fast_gamma_transform(
         alpha, *fast_gamma_draws(gen, alpha, shape, dtype, device, rounds))
+
+
+def fast_chi2(gen: Optional[torch.Generator], df: float, shape,
+              dtype=torch.float32, device=None,
+              draws: Optional[tuple] = None) -> torch.Tensor:
+    """Chi-square(df) = 2 Gamma(df / 2) draws of ``shape``. ``draws``
+    replaces the draw: those of ``fast_gamma_draws(gen, df / 2, shape)``."""
+    alpha = 0.5 * float(df)
+    if draws is None:
+        draws = fast_gamma_draws(gen, alpha, shape, dtype, device)
+    return 2.0 * fast_gamma_transform(alpha, *draws)
 
 
 def _check_df(df) -> Tuple[int, int]:

@@ -18,6 +18,7 @@ from cusmc_tpu_torch.parallel.mesh import CHAIN_AXIS, PARTICLE_AXIS, Mesh, \
     ParticleAxis
 from cusmc_tpu_torch.parallel.multihost import (
     initialize_distributed,
+    joined_group,
     process_info,
 )
 from cusmc_tpu_torch.parallel.replicated import replicated_sharded_filters
@@ -28,6 +29,7 @@ __all__ = [
     "PARTICLE_AXIS",
     "ParticleAxis",
     "initialize_distributed",
+    "joined_group",
     "process_info",
     "replicated_sharded_filters",
     "sharded_bootstrap_filter",

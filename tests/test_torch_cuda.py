@@ -858,3 +858,24 @@ def test_cuda_dlm_create_non_pd_covariance_gives_nan(cuda):
     assert bool((res.thetas[:, 0] > 0).all())
     assert bool(torch.isfinite(res.log_evidences).all())
     assert float(res.accept_rate) < 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_graft_entry_step_launches_the_roll_walk(cuda):
+    from cusmc_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    before = roll_metropolis_sweeps_expspace.launches
+    out = fn(*args)
+    assert roll_metropolis_sweeps_expspace.launches == before + 1
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+
+
+@pytest.mark.cuda
+def test_cuda_dryrun_refuses_more_ranks_than_cards(cuda):
+    # NCCL takes one card a rank, and the dry run never falls back to gloo.
+    from cusmc_tpu_torch import graft_entry
+
+    count = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"{count} are visible"):
+        graft_entry.dryrun_multichip(count + 1)
