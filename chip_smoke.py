@@ -57,7 +57,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    also held bitwise flat over its zero weights. Then the roll walk at
    the auto schedule's short sweep counts, B = 3 and 5, at N = 8192 and
    2^20, d = 2 (exp-space, uniform and concentrated weights; ancestors and
-   values exactly the plain version's), timed beside its bound.
+   values exactly the plain version's), timed beside its bound. Then the
+   roll walk at every width the paths give it (``check_roll_widths``:
+   d = 1, 2, 13, 16, 32 float32 and 2, 16, 32 bfloat16; N = 2^20,
+   2^20 - 3 and 1000003; B = 1, 3, 5, 10; the "identity", "one front"
+   and "mixed" ancestor patterns), as the card's plan runs it (one pass,
+   or banded: ``resampling/rolls.roll_band_rows``) and at forced band
+   sizes with partial last bands (ROLL_SPLITS), ancestors and values
+   exactly the plain version's, one launch counted a call; then at
+   N = 2^20, B = 10 each width and pattern timed with L2 warm and cold
+   (``queued_ms``: CUDA events around a call queued behind a sleep
+   kernel) beside its bound, the band sizes of ROLL_BAND_SWEEP, one pass
+   against bands about the switch (ROLL_SWITCH_WIDTHS), and the walk
+   alone.
 3b. Statistics of the fused kernels (benchmarks/validate_fused_tpu.py
    checks 1-5d with their thresholds): zero-noise consistency, offspring
    against the indexed Metropolis resampler, noise moments, the inverse-CDF
@@ -264,10 +276,18 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    one a quarter, half or twice as large), each kernel against its plain
    version, and its device time; the same for the search-only kernel's
    shuffled queries of phase 3. The roll walk and take-columns are held
-   exactly to their plain versions there and timed.
+   exactly to their plain versions there and timed; the roll walk also on
+   the composed metropolis rows' inputs at steps 0, 99 and 198 (phase 4's
+   headline, d = 2, and phase 4b's full width, d = 32).
    ``--against DIR [DIR ...]`` times the same kernels of other checkouts
    of the repo (the parent commit unpacked with ``git archive``, say)
-   beside this tree's on those inputs.
+   beside this tree's on those inputs, and their roll walk beside this
+   tree's in phase 3 (held equal to it); a last phase then runs the
+   composed metropolis rows (d = 2 and 32) with each tree's roll walk in
+   turns, their rates, busy shares and the walk's share, each run bitwise
+   this tree's. ``--rolls`` runs only the roll walk's part of phase 3,
+   those rows (keeping their inputs) and phase 5 on them, and prints no
+   result.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -760,6 +780,250 @@ def check_roll_sweeps() -> float:
                         b * n)
     torch.cuda.synchronize()
     return max(errs)
+
+
+# -- the roll walk at every width (phase 3) ---------------------------------
+
+# The widths the roll walk runs at: (state type, d) for the stochastic
+# volatility model and UNGM, the headline, the monthly structural DLM, the
+# bfloat16 rows' middle width and the full width; bfloat16 at the mixed-
+# precision rows' widths.
+ROLL_WIDTHS = (("float32", 1), ("float32", 2), ("float32", 13),
+               ("float32", 16), ("float32", 32), ("bfloat16", 2),
+               ("bfloat16", 16), ("bfloat16", 32))
+ROLL_SIZES = (N_BIG, N_BIG - 3, N_RAGGED)
+ROLL_SWEEPS = (1, 3, 5, 10)
+# Ancestor patterns: "identity" (w constant, u = 1: every proposal rejects,
+# a = i, one aligned front), "one front" (w constant, u = 1/2: every
+# proposal accepts, a = i + s_B) and "mixed" (exp-space weights and the
+# drawn uniforms: the winners spread over the B + 1 fronts).
+ROLL_PATTERNS = ("identity", "one front", "mixed")
+# Band sizes forced beside the card's plan, (state type, d, rows a band):
+# partial last bands, and the banded design where the plan runs one pass.
+ROLL_SPLITS = (("float32", 13, 3), ("float32", 2, 1), ("float32", 32, 5),
+               ("float32", 16, 9), ("bfloat16", 16, 3), ("bfloat16", 2, 1),
+               ("bfloat16", 32, 7))
+# Band sizes timed at N = 2^20, B = 10 on the mixed pattern (d itself: one
+# pass), for the choice of ROLL_BAND_SHARE.
+ROLL_BAND_SWEEP = {("float32", 13): (1, 2, 4, 13),
+                   ("float32", 16): (1, 2, 4, 16),
+                   ("float32", 32): (1, 2, 4, 8, 32),
+                   ("bfloat16", 16): (2, 4, 8, 16),
+                   ("bfloat16", 32): (2, 4, 8, 32)}
+# Widths about the switch from one pass to bands at N = 2^20, each timed
+# both ways on the mixed pattern, for the choice of ROLL_ONE_PASS_SHARE.
+ROLL_SWITCH_WIDTHS = (("float32", 3), ("float32", 4), ("float32", 6),
+                      ("bfloat16", 6), ("bfloat16", 8), ("bfloat16", 12))
+# Cycles of the sleep kernel queued before each timed call of queued_ms:
+# about 0.5 ms on the H100, longer than the host takes to queue the call.
+SLEEP_CYCLES = 1_000_000
+
+
+def queued_ms(fn, flush=None, reps: int = 15) -> float:
+    """Median device time of one call of ``fn`` between two CUDA events,
+    the call queued behind a sleep kernel so that the events time the
+    card's work and not the host's launch; ``flush`` (a write through a
+    buffer larger than L2) runs before the first event: a cold L2."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        if flush is not None:
+            flush()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def roll_bytes(n, d, b, itemsize) -> int:
+    """The roll walk's bytes: 4B + 2 s d + 8 a particle (csrc/rolls.cu)."""
+    return (4 * b + 2 * itemsize * d + 8) * n
+
+
+def roll_pattern(pattern, n, b, gen, dev):
+    """(w, shifts, u) of an ancestor pattern of ROLL_PATTERNS."""
+    import torch
+
+    from cusmc_tpu_torch.resampling.rolls import roll_metropolis_draws
+
+    shifts, u = roll_metropolis_draws(gen, n, b, dev)
+    if pattern == "mixed":
+        ll = -0.5 * torch.randn(n, generator=gen, device=dev) ** 2 * 50.0
+        return torch.exp(ll - ll.max()), shifts, u
+    w = torch.ones(n, device=dev)
+    return w, shifts, torch.full_like(u, 1.0 if pattern == "identity"
+                                      else 0.5)
+
+
+def _roll_exact(name, fn, w, shifts, u, X, pattern, others=()):
+    """``fn(w, shifts, u, X)`` against the plain version (and each other
+    tree's kernel): ancestors and values exactly equal, the pattern's
+    ancestors where it fixes them, one launch counted a call."""
+    import torch
+
+    from cusmc_tpu_torch.resampling.rolls import \
+        roll_metropolis_sweeps_expspace, \
+        roll_metropolis_sweeps_expspace_plain
+
+    attr = "bf16_launches" if X.dtype == torch.bfloat16 else "launches"
+    before = getattr(roll_metropolis_sweeps_expspace, attr)
+    y, a = fn(w, shifts, u, X)
+    assert getattr(roll_metropolis_sweeps_expspace, attr) == before + 1, \
+        f"{name}: launches"
+    y_p, a_p = roll_metropolis_sweeps_expspace_plain(w, shifts, u, X)
+    n = w.numel()
+    assert torch.equal(a, a_p), \
+        f"{name}: ancestors differ ({int((a != a_p).sum())} of {n})"
+    assert y.dtype == X.dtype and torch.equal(y, y_p), \
+        f"{name}: values differ"
+    i = torch.arange(n, device=w.device)
+    if pattern == "identity":
+        assert torch.equal(a.long(), i), f"{name}: not the identity"
+    elif pattern == "one front":
+        assert torch.equal(a.long(), (i + int(shifts[-1])) % n), \
+            f"{name}: not the last shift"
+    for root, fns in others:
+        y_o, a_o = fns["roll_metropolis_sweeps_expspace"](w, shifts, u, X)
+        assert torch.equal(a_o, a) and torch.equal(y_o, y), \
+            f"{name}: {root}'s kernel differs"
+
+
+def check_roll_widths(others) -> None:
+    """Phase 3 for the roll walk at every width the paths give it
+    (ROLL_WIDTHS) and at N = 2^20, 2^20 - 3 and 1000003, B = 1, 3, 5 and
+    10, on the three ancestor patterns: the kernel as the card's plan runs
+    it (one pass or banded, ``roll_band_rows``) and at the forced band
+    sizes of ROLL_SPLITS, ancestors and values exactly the plain
+    version's (and each ``others`` tree's kernel's). Then at N = 2^20,
+    B = 10 each width and pattern timed (``queued_ms``, L2 warm and cold)
+    beside its bound and each other tree's kernel (in turns: other, this,
+    this, other), the band sizes of ROLL_BAND_SWEEP, one pass against
+    bands at ROLL_SWITCH_WIDTHS, and the walk alone."""
+    import torch
+
+    from cusmc_tpu_torch.resampling.rolls import ROLL_BAND_SHARE, \
+        ROLL_ONE_PASS_SHARE, l2_bytes, roll_band_rows, \
+        roll_metropolis_sweeps_expspace, roll_metropolis_sweeps_in_bands, \
+        roll_path
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9753)
+    l2 = l2_bytes(dev)
+    print(f"  L2 {l2} bytes; one pass while X fits {ROLL_ONE_PASS_SHARE:.4f}"
+          f" of it, else bands of {ROLL_BAND_SHARE:.4f} of it")
+    types = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    cases = 0
+    for n in ROLL_SIZES:
+        states = {}
+        for kind, d in ROLL_WIDTHS:
+            states[kind, d] = torch.randn((d, n), generator=gen,
+                                          device=dev).to(types[kind])
+        for b in ROLL_SWEEPS:
+            for pattern in ROLL_PATTERNS:
+                w, shifts, u = roll_pattern(pattern, n, b, gen, dev)
+                for (kind, d), X in states.items():
+                    _roll_exact(f"rolls N={n} d={d} {kind} B={b} {pattern}",
+                                roll_metropolis_sweeps_expspace, w, shifts,
+                                u, X, pattern, others)
+                    cases += 1
+                for kind, d, rows in ROLL_SPLITS:
+                    _roll_exact(
+                        f"rolls N={n} d={d} {kind} B={b} {pattern} "
+                        f"{rows} rows a band",
+                        lambda *a, rows=rows:
+                            roll_metropolis_sweeps_in_bands(*a, rows),
+                        w, shifts, u, states[kind, d], pattern)
+                    cases += 1
+        plans = ", ".join(
+            f"d={d} {kind} {roll_path(r, d)} ({r} rows a band)"
+            for (kind, d), X in states.items()
+            for r in (roll_band_rows(n, d, X.element_size(), l2),))
+        print(f"  rolls N={n}: the plan {plans}")
+        del states
+    print(f"  rolls: {cases} cases (widths {len(ROLL_WIDTHS)}, forced "
+          f"splits {len(ROLL_SPLITS)}, B in {ROLL_SWEEPS}, patterns "
+          f"{len(ROLL_PATTERNS)}, N in {ROLL_SIZES}), ancestors and values "
+          f"exactly the plain version's"
+          + (f" and {len(others)} other trees' kernels'" if others else ""))
+
+    n, b = N_BIG, 10
+    flush_buf = torch.empty(l2 // 2, dtype=torch.float32, device=dev)
+
+    def flush():
+        flush_buf.fill_(1.0)
+
+    def timed(label, args):
+        X = args[3]
+        nbytes = roll_bytes(n, X.shape[0], b, X.element_size())
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        line = f"  time rolls {label}: bound {t_bytes:.4f} ms (bytes, " \
+               f"{nbytes / 1e6:.1f} MB)"
+
+        def mine_fn():
+            return roll_metropolis_sweeps_expspace(*args)
+        for temp, fl in (("warm", None), ("cold", flush)):
+            mine, parts = [], []
+            for root, fns in others:
+                def theirs(fns=fns):
+                    return fns["roll_metropolis_sweeps_expspace"](*args)
+                t = [queued_ms(theirs, fl), queued_ms(mine_fn, fl),
+                     queued_ms(mine_fn, fl), queued_ms(theirs, fl)]
+                mine += t[1:3]
+                parts.append(f", {root} {t[0]:.4f}/{t[3]:.4f} ms (share "
+                             f"{t_bytes / min(t[0], t[3]):.3f})")
+            if not others:
+                mine = [queued_ms(mine_fn, fl), queued_ms(mine_fn, fl)]
+            line += (f"; {temp}: this tree "
+                     + "/".join(f"{t:.4f}" for t in mine)
+                     + f" ms (share of bound {t_bytes / min(mine):.3f})"
+                     + "".join(parts))
+        print(line)
+
+    for (kind, d) in ROLL_WIDTHS:
+        X = torch.randn((d, n), generator=gen, device=dev).to(types[kind])
+        rows = roll_band_rows(n, d, X.element_size(), l2)
+        for pattern in ROLL_PATTERNS:
+            w, shifts, u = roll_pattern(pattern, n, b, gen, dev)
+            timed(f"N=2^20 d={d} {kind} B={b} {pattern} "
+                  f"[{roll_path(rows, d)}, {rows} rows a band]",
+                  (w, shifts, u, X))
+        for rows in ROLL_BAND_SWEEP.get((kind, d), ()):
+            def banded(rows=rows, args=(w, shifts, u, X)):
+                return roll_metropolis_sweeps_in_bands(*args, rows)
+            print(f"  time rolls N=2^20 d={d} {kind} B={b} mixed, {rows} rows "
+                  f"a band [{roll_path(rows, d)}]: warm "
+                  f"{queued_ms(banded):.4f} ms, cold "
+                  f"{queued_ms(banded, flush):.4f} ms")
+        del X
+    for kind, d in ROLL_SWITCH_WIDTHS:
+        X = torch.randn((d, n), generator=gen, device=dev).to(types[kind])
+        plan = roll_band_rows(n, d, X.element_size(), l2)
+        fit = max(1, int(ROLL_BAND_SHARE * l2) // (n * X.element_size()))
+        mb = X.numel() * X.element_size() / 1e6
+        line = (f"  time rolls N=2^20 d={d} {kind} B={b} mixed ({mb:.1f} MB; "
+                f"the plan: {roll_path(plan, d)}")
+        for rows in (d, min(fit, d - 1)):
+            def fn(rows=rows, args=(w, shifts, u, X)):
+                return roll_metropolis_sweeps_in_bands(*args, rows)
+            line += f"; {roll_path(rows, d)} ({rows} rows a band) warm " \
+                    f"{queued_ms(fn):.4f} ms, cold {queued_ms(fn, flush):.4f} ms"
+        print(line + ")")
+        del X
+    X0 = torch.empty((0, n), device=dev)
+    walk = queued_ms(lambda: roll_metropolis_sweeps_expspace(w, shifts, u,
+                                                             X0))
+    print(f"  time rolls N=2^20 B={b} the walk alone (d=0): {walk:.4f} ms, "
+          f"bound {roll_bytes(n, 0, b, 4) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    torch.cuda.synchronize()
 
 
 def check_kernels() -> dict:
@@ -2269,10 +2533,14 @@ def main_path(card: str) -> None:
             ("metropolis", {"num_steps": 10}, ROLL_KERNELS),
             ("systematic", None, CDF_KERNELS)):
         before = _counts()
-        # Warm-up; the systematic run keeps the search-and-apply's inputs.
-        with capture(particle_filter, "inverse_cdf_apply", (
-                "composed systematic run, d=2 headline",)) \
-                if resampler == "systematic" else contextlib.nullcontext():
+        # Warm-up, which keeps the inputs of the roll walk or of the
+        # search-and-apply.
+        with capture(particle_filter, *(
+                ("roll_metropolis_sweeps_expspace",
+                 ("composed metropolis run, d=2 headline",))
+                if resampler == "metropolis" else
+                ("inverse_cdf_apply",
+                 ("composed systematic run, d=2 headline",)))):
             res = bootstrap_filter(0, model, ys_h, n, resampler=resampler,
                                    resampler_kwargs=kwargs,
                                    return_history=False)
@@ -2378,13 +2646,18 @@ def pallas_path(card: str) -> None:
                 return secs, res
 
             # Warm-up; the systematic runs keep the fused CDF step's inputs
-            # and, at d = 32, the search-and-apply's (the d = 2 composed run
+            # and, at d = 32, the composed runs those of the
+            # search-and-apply and the roll walk (the d = 2 composed runs
             # kept them in phase 4).
             with capture(particle_filter, "fused_cdf_filter_step",
                          (f"fused CDF step, d={d} systematic pallas run",)):
                 one("pallas", 0)
-            with capture(particle_filter, "inverse_cdf_apply", (
-                    f"composed systematic run, d={d} (engine xla)",)) \
+            with capture(particle_filter, *(
+                    ("roll_metropolis_sweeps_expspace",
+                     (f"composed metropolis run, d={d} (engine xla)",))
+                    if resampler == "metropolis" else
+                    ("inverse_cdf_apply",
+                     (f"composed systematic run, d={d} (engine xla)",)))) \
                     if d == D_WIDE else contextlib.nullcontext():
                 one("xla", 0)
             best = {"pallas": math.inf, "xla": math.inf}
@@ -4786,11 +5059,12 @@ def other_tree(root):
     ``root`` (its ``cusmc_tpu_torch/ops/kernels.py``, loaded under another
     name, builds them from its own sources into its own ``build/``):
     wrapper name -> ``fn(args, kwargs)`` returning the ancestors, called
-    with the arguments that this tree's wrapper takes, and
+    with the arguments that this tree's wrapper takes,
     "blocked_cumsum" -> ``fn(w)`` returning the cdf (phase 3's counts over
-    zero weights). The C entries keep
-    their signatures across trees (but for the fused CDF step's ``tiled``
-    argument, added with the "tile" design)."""
+    zero weights), and "roll_metropolis_sweeps_expspace" -> that tree's
+    own wrapper (its ``resampling/rolls.py`` bound to its kernels). The C
+    entries keep their signatures across trees (but for the fused CDF
+    step's ``tiled`` argument, added with the "tile" design)."""
     import importlib.util
 
     import torch
@@ -4807,6 +5081,18 @@ def other_tree(root):
     lib = mod.library()
     print(f"  built the kernels of {root} in "
           f"{time.perf_counter() - t0:.1f} s")
+    # That tree's own roll walk wrapper, bound to its kernels.
+    import cusmc_tpu_torch.ops as ops_package
+    spec = importlib.util.spec_from_file_location(
+        f"other_rolls_{abs(hash(root))}",
+        os.path.join(root, "cusmc_tpu_torch", "resampling", "rolls.py"))
+    other_rolls = importlib.util.module_from_spec(spec)
+    ours = ops_package.kernels
+    ops_package.kernels = mod
+    try:
+        spec.loader.exec_module(other_rolls)
+    finally:
+        ops_package.kernels = ours
     # Before the "tile" design the fused CDF step took no `tiled` argument;
     # before the bfloat16 state the search-and-apply took no `bf16` one.
     has_tiled = len(mod.SIGNATURES["cusmc_fused_cdf_step"]) == 23
@@ -4860,7 +5146,9 @@ def other_tree(root):
         return a
 
     return {"inverse_cdf_search": search, "inverse_cdf_apply": apply,
-            "fused_cdf_filter_step": cdf_step, "blocked_cumsum": cumsum}
+            "fused_cdf_filter_step": cdf_step, "blocked_cumsum": cumsum,
+            "roll_metropolis_sweeps_expspace":
+                other_rolls.roll_metropolis_sweeps_expspace}
 
 
 def check_traffic(others) -> None:
@@ -4898,7 +5186,7 @@ def check_traffic(others) -> None:
                 check_cumsum_traffic(name, args[0], others)
                 continue
             if fn == "roll_metropolis_sweeps_expspace":
-                check_roll_traffic(name, args)
+                check_roll_traffic(name, args, others)
                 continue
             if fn == "take_columns":
                 check_take_traffic(name, args)
@@ -4971,27 +5259,135 @@ def check_traffic(others) -> None:
     torch.cuda.synchronize()
 
 
-def check_roll_traffic(name, args) -> None:
+def check_roll_traffic(name, args, others=()) -> None:
     """Phase 5 for the roll walk on a path's ``(w, shifts, u, X)``: held
-    to its plain version (ancestors and values exactly equal), and its
-    device time."""
+    to its plain version (ancestors and values exactly equal) and to each
+    ``others`` tree's kernel, and its device time (``queued_ms``) beside
+    theirs, in the order other, this, this, other."""
     import torch
 
-    from cusmc_tpu_torch.resampling.rolls import \
-        roll_metropolis_sweeps_expspace, \
-        roll_metropolis_sweeps_expspace_plain
+    from cusmc_tpu_torch.resampling.rolls import l2_bytes, roll_band_rows, \
+        roll_metropolis_sweeps_expspace, roll_path
 
     w, shifts, u, X = args
-    y, a = roll_metropolis_sweeps_expspace(*args)
-    y_p, a_p = roll_metropolis_sweeps_expspace_plain(*args)
-    n = w.numel()
-    assert torch.equal(a, a_p), \
-        f"{name}: ancestors differ ({int((a != a_p).sum())} of {n})"
-    assert torch.equal(y, y_p), f"{name}: values differ"
-    mine = device_ms(lambda: roll_metropolis_sweeps_expspace(*args))
-    print(f"  {name}: N={n} d={X.shape[0]} B={shifts.numel()}, "
-          f"{int(torch.unique(a).numel())} distinct ancestors, ancestors and "
-          f"values equal to the plain version; device time {mine:.4f} ms")
+    _roll_exact(name, roll_metropolis_sweeps_expspace, *args, "mixed",
+                others)
+    (d, n), b = X.shape, shifts.numel()
+    rows = roll_band_rows(n, d, X.element_size(), l2_bytes(X.device))
+
+    def ours():
+        return roll_metropolis_sweeps_expspace(*args)
+    a = ours()[1]
+    t_bytes = roll_bytes(n, d, b, X.element_size()) / HBM_BYTES_PER_S * 1e3
+    line = (f"  {name}: N={n} d={d} {str(X.dtype)[6:]} B={b} "
+            f"[{roll_path(rows, d)}, {rows} rows a band], "
+            f"{int(torch.unique(a).numel())} distinct ancestors, moved share "
+            f"{float((a != torch.arange(n, device=a.device)).float().mean()):.3f}"
+            f", ancestors and values equal to the plain version; device time "
+            f"{queued_ms(ours):.4f} ms, bound {t_bytes:.4f} ms")
+    for root, fns in others:
+        def theirs(fns=fns):
+            return fns["roll_metropolis_sweeps_expspace"](*args)
+        t = [queued_ms(theirs), queued_ms(ours), queued_ms(ours),
+             queued_ms(theirs)]
+        line += (f"; {root} {t[0]:.4f}/{t[3]:.4f} ms, this tree "
+                 f"{t[1]:.4f}/{t[2]:.4f} ms beside it")
+    print(line)
+
+
+# -- the composed metropolis rows with each tree's roll walk ---------------
+
+def roll_row(card, others, keep=False) -> None:
+    """The composed ("xla") metropolis rows of phase 4 and 4b (MVT df=5,
+    N=2^20, T=200, B=10; d = 2 and 32) with this tree's roll walk and with
+    each ``others`` tree's (its wrapper and kernel) in its place, in turns (this, other, other,
+    this) after one warm-up each: particle-steps/s, and from one profiled
+    run each the device's busy share and the roll walk's device time a
+    step and share of the run's wall time (torch.profiler); each other
+    tree's runs bitwise this tree's (final particles, log-evidence, ESS).
+    With ``keep`` this tree's warm-ups keep the walk's inputs at
+    TRAFFIC_STEPS for phase 5, as phases 4 and 4b do."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cusmc_tpu_torch.io.data import demo_model_params
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.smc import particle_filter
+    from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+
+    n, steps = N_BIG, 200
+    walks = {root: fns["roll_metropolis_sweeps_expspace"]
+             for root, fns in others}
+    for d in (D, D_WIDE):
+        model = DLM.create(noise="mvt", df=5.0, device="cuda",
+                           **demo_model_params(d))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        _, ys_h = model.simulate(gen, steps)
+
+        def run(tree, seed):
+            this = particle_filter.roll_metropolis_sweeps_expspace
+            if tree is not None:
+                particle_filter.roll_metropolis_sweeps_expspace = walks[tree]
+            try:
+                res = bootstrap_filter(seed, model, ys_h, n,
+                                       resampler="metropolis",
+                                       resampler_kwargs={"num_steps": 10},
+                                       engine="xla", return_history=False)
+                torch.cuda.synchronize()
+            finally:
+                particle_filter.roll_metropolis_sweeps_expspace = this
+            return res
+
+        label = f"composed metropolis run, d={d} (engine xla)" \
+            if d == D_WIDE else f"composed metropolis run, d={d} headline"
+        with capture(particle_filter, "roll_metropolis_sweeps_expspace",
+                     (label,)) if keep else contextlib.nullcontext():
+            mine = run(None, 0)
+
+        def same(res, tree):
+            for key in ("final_particles", "final_log_weights", "ess"):
+                assert torch.equal(getattr(res, key), getattr(mine, key)), \
+                    f"d={d}: {tree}'s run differs in {key}"
+            assert float(res.log_evidence) == float(mine.log_evidence), \
+                f"d={d}: {tree}'s log-evidence differs"
+
+        for tree in walks:  # their warm-ups
+            same(run(tree, 0), tree)
+        trees = [None] + list(walks)
+        best = {tree: math.inf for tree in trees}
+        for tree in [t for root in walks for t in (None, root, root, None)] \
+                or [None] * 3:
+            t0 = time.perf_counter()
+            res = run(tree, 0)
+            best[tree] = min(best[tree], time.perf_counter() - t0)
+            if tree is not None:
+                same(res, tree)
+        for tree in trees:
+            for _ in range(5):  # the profiler can record no kernel at all
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    run(tree, 0)
+                    wall = time.perf_counter() - t0
+                kern = [e for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA]
+                if kern:
+                    break
+            busy = sum(e.self_device_time_total for e in kern) / 1e6 / wall
+            walk_us = sum(e.self_device_time_total for e in kern
+                          if "roll" in e.key)
+            print(f"  composed metropolis N=2^20 T={steps} d={d} B=10, "
+                  f"{'this tree' if tree is None else tree}'s roll walk: "
+                  f"{n * (steps - 1) / best[tree]:.6g} particle-steps/s "
+                  f"(best {best[tree]:.4f} s), device busy {busy:.3f}, the "
+                  f"walk {walk_us / 1e3 / (steps - 1):.4f} ms a step, "
+                  f"{walk_us / 1e6 / wall:.3f} of the wall time [{card}]")
+        if walks:
+            print(f"  d={d}: every other tree's run bitwise this tree's "
+                  f"(final particles, log weights, ESS, log-evidence "
+                  f"{float(mine.log_evidence):.6f})")
 
 
 def check_take_traffic(name, args) -> None:
@@ -5041,7 +5437,14 @@ def main(argv=None) -> int:
         "--against", nargs="+", default=[], metavar="DIR",
         help="other checkouts of the repo (the parent commit unpacked with "
              "git archive, say): phase 5 times their block-window kernels "
-             "beside this tree's on the main paths' own inputs")
+             "and roll walk beside this tree's on the main paths' own "
+             "inputs, phase 3 their roll walk at every width, and a last "
+             "phase runs the composed metropolis rows with their roll walk")
+    parser.add_argument(
+        "--rolls", action="store_true",
+        help="run only the roll walk's checks: phase 3's widths, the "
+             "composed metropolis rows (keeping their inputs) and phase 5 "
+             "on those inputs; prints no result")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -5062,6 +5465,17 @@ def main(argv=None) -> int:
     build_kernels()
     build_native()
     others = [(root, other_tree(root)) for root in args.against]
+    if args.rolls:
+        with phase("the roll walk at every width"):
+            check_roll_widths(others)
+        with phase("the composed metropolis rows with each tree's roll "
+                   "walk"):
+            roll_row(card, others, keep=True)
+        with phase("the roll walk on those rows' own inputs"):
+            check_traffic(others)
+        print(f"chip_smoke --rolls: {time.perf_counter() - t_start:.1f} s; "
+              f"card: {card}")
+        return 0
     with phase("kernels against their plain versions"):
         rec = check_kernels()
         rec["blocked_cumsum"]["zero_steps"] = check_zero_steps(others)
@@ -5069,6 +5483,8 @@ def main(argv=None) -> int:
         rec.update(check_fused_kernels())
         walk = rec["roll_metropolis_sweeps_expspace"]
         walk["max_abs_err"] = max(walk["max_abs_err"], check_roll_sweeps())
+    with phase("the roll walk at every width"):
+        check_roll_widths(others)
     with phase("the kernels at the other models' widths (d = 1; d = 13, "
                "k = 1; PMMH's N = 2^16, d = 1)"):
         for name, err in check_model_kernels().items():
@@ -5106,6 +5522,10 @@ def main(argv=None) -> int:
                 f"{k} {v}" for k, v in launches[path].items() if v))
     with phase("the block-window kernels on the main paths' own inputs"):
         check_traffic(others)
+    if others:
+        with phase("the composed metropolis rows with each tree's roll "
+                   "walk"):
+            roll_row(card, others)
 
     records = []
     for name, source, replaces, paths in KERNELS:

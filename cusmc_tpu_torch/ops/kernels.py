@@ -61,8 +61,8 @@ SIGNATURES = {
     "cusmc_inverse_cdf_search": (_P, _P, _P, _LL, _LL, _P),
     # X, a, out, n, m, d, bf16, stream
     "cusmc_take_columns": (_P, _P, _P, _LL, _LL, _I, _I, _P),
-    # w, shifts, u, X, out, anc, n, num_sweeps, d, bf16, stream
-    "cusmc_roll_metropolis": (_P,) * 6 + (_LL, _I, _I, _I, _P),
+    # w, shifts, u, X, out, anc, n, num_sweeps, d, bf16, band_rows, stream
+    "cusmc_roll_metropolis": (_P,) * 6 + (_LL, _I, _I, _I, _I, _P),
     # X, logw, y, G, Q, F, Li, s, seed, Xo, ll, anc, n, tile, d, k,
     # num_sweeps, num_window_tiles, noise, df_int, df, log_norm, tiled,
     # bf16, stream

@@ -9,11 +9,16 @@ a 0/0 pair rejects). ``jnp.roll(w, -s)[i] == w[(i + s) mod N]``.
   ``winning_ancestors`` are the JAX functions in torch; together they are
   the plain version of the kernel.
 - ``roll_metropolis_sweeps_expspace(w, shifts, u, X)`` launches the
-  hand-written kernel ``csrc/rolls.cu`` on a CUDA tensor (walk, apply and
-  ancestors in one pass) and takes the plain version on a CPU tensor. The
-  state ``X`` is float32 or bfloat16 (mixed precision); the weights, the
-  uniforms and the walk are float32 either way, and the apply copies the
-  winners' values exactly.
+  hand-written kernel ``csrc/rolls.cu`` on a CUDA tensor and takes the
+  plain version on a CPU tensor. The state ``X`` is float32 or bfloat16
+  (mixed precision); the weights, the uniforms and the walk are float32
+  either way, and the apply copies the winners' values exactly.
+- ``roll_band_rows`` plans the kernel's apply from (N, d, the state's
+  bytes, the card's L2 bytes): one pass (walk, apply and ancestors) while
+  X fits ``ROLL_ONE_PASS_SHARE`` of L2, else the walk with the first band
+  of rows, then the other bands, each band fitting ``ROLL_BAND_SHARE`` of
+  L2; ``roll_metropolis_sweeps_in_bands`` runs the kernel with a given band
+  size.
 - ``roll_metropolis_draws`` makes the draws: ``shifts`` from
   ``torch.randint(0, N, (B,))`` and ``u`` from ``torch.rand((B, N))``,
   both on the run's Generator, mirroring ``rolls.py:66-73``.
@@ -31,8 +36,9 @@ a 0/0 pair rejects). ``jnp.roll(w, -s)[i] == w[(i + s) mod N]``.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -41,6 +47,12 @@ from cusmc_tpu_torch.ops import kernels
 from cusmc_tpu_torch.resampling.classic import systematic_ancestors
 
 MAX_SWEEPS = 4096  # the kernel keeps the shifts in shared memory
+MAX_BANDS = 65535  # the banded apply's grid.y
+# The shares of the card's L2 that X may fill for the one-pass kernel, and
+# that one band of the banded apply may fill; the rest holds the uniforms'
+# and the output's streams, the ancestors and whatever else is resident.
+ROLL_ONE_PASS_SHARE = 0.4
+ROLL_BAND_SHARE = 1 / 6
 
 
 def roll_metropolis_draws(gen: Optional[torch.Generator], n: int,
@@ -107,15 +119,52 @@ def roll_metropolis_sweeps_expspace_plain(w: torch.Tensor,
                                                                     shifts)
 
 
-def roll_metropolis_sweeps_expspace(w: torch.Tensor, shifts: torch.Tensor,
-                                    u: torch.Tensor, X: torch.Tensor
+def roll_band_rows(n: int, d: int, itemsize: int, l2_bytes: int) -> int:
+    """Rows a band of the kernel's apply copies for a state X [d, n] of
+    ``itemsize``-byte values on a card with ``l2_bytes`` of L2: d (one
+    pass) when X fits ``ROLL_ONE_PASS_SHARE`` of L2, else as many as fit
+    ``ROLL_BAND_SHARE`` of it (at least 1), balanced so that the last band
+    is not much shorter than the others."""
+    if d * n * itemsize <= ROLL_ONE_PASS_SHARE * l2_bytes:
+        return d
+    fit = max(1, int(ROLL_BAND_SHARE * l2_bytes) // max(1, n * itemsize))
+    bands = -(-d // fit)
+    return -(-d // bands)
+
+
+def roll_bands(d: int, band_rows: int) -> List[Tuple[int, int]]:
+    """The row ranges ``[r0, r1)`` the kernel copies, one a band in launch
+    order (band_rows >= d: one pass over all d rows)."""
+    if band_rows >= d:
+        return [(0, d)]
+    return [(r, min(d, r + band_rows)) for r in range(0, d, band_rows)]
+
+
+def roll_path(band_rows: int, d: int) -> str:
+    """"one-pass" (walk, apply and ancestors in one launch) or "banded"
+    (the walk with band 0, then the other bands: two launches)."""
+    return "one-pass" if band_rows >= d else "banded"
+
+
+@functools.lru_cache(maxsize=None)
+def _l2_bytes(index: int) -> int:
+    return torch.cuda.get_device_properties(index).L2_cache_size
+
+
+def l2_bytes(device: torch.device) -> int:
+    """The L2 bytes of a CUDA ``device``."""
+    return _l2_bytes(torch.cuda.current_device() if device.index is None
+                     else device.index)
+
+
+def roll_metropolis_sweeps_in_bands(w: torch.Tensor, shifts: torch.Tensor,
+                                    u: torch.Tensor, X: torch.Tensor,
+                                    band_rows: Optional[int] = None
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B roll-Metropolis sweeps over exp-space weights ``w`` [N] with
-    ``shifts`` [B] and uniforms ``u`` [B, N]; returns ``(X[:, a], a)`` for
-    packed ``X`` [d, N] (float32 or bfloat16). CUDA: the kernel; CPU: the
-    plain version. ``roll_metropolis_sweeps_expspace.launches`` counts
-    kernel launches on a float32 state, ``.bf16_launches`` on a bfloat16
-    one."""
+    """``roll_metropolis_sweeps_expspace`` with the apply's band size
+    given: ``band_rows`` rows a band (d or more: one pass; None: the plan
+    ``roll_band_rows`` for this card). The result does not depend on it.
+    CUDA: the kernel, one call counted; CPU: the plain version."""
     if not is_cuda(w, "roll_metropolis_sweeps_expspace"):
         return roll_metropolis_sweeps_expspace_plain(w, shifts, u, X)
     dev = w.device
@@ -132,12 +181,18 @@ def roll_metropolis_sweeps_expspace(w: torch.Tensor, shifts: torch.Tensor,
                          f"{tuple(X.shape)}")
     if num_steps > MAX_SWEEPS:
         raise ValueError(f"at most {MAX_SWEEPS} sweeps, got {num_steps}")
+    if band_rows is None:
+        band_rows = roll_band_rows(n, d, X.element_size(), l2_bytes(dev))
+    band_rows = min(band_rows, d)
+    if d and (band_rows < 1 or -(-d // band_rows) > MAX_BANDS):
+        raise ValueError(f"band_rows {band_rows}: need 1 to {MAX_BANDS} "
+                         f"bands of d = {d} rows")
     lib = kernels.library()
     out = torch.empty_like(X)
     a = torch.empty((n,), dtype=torch.int32, device=dev)
     rc = lib.cusmc_roll_metropolis(
         w.data_ptr(), shifts.data_ptr(), u.data_ptr(), X.data_ptr(),
-        out.data_ptr(), a.data_ptr(), n, num_steps, d, bf16,
+        out.data_ptr(), a.data_ptr(), n, num_steps, d, bf16, band_rows,
         kernels.stream_of(w))
     kernels.check(rc, "roll_metropolis_sweeps_expspace")
     if bf16:
@@ -145,6 +200,19 @@ def roll_metropolis_sweeps_expspace(w: torch.Tensor, shifts: torch.Tensor,
     else:
         roll_metropolis_sweeps_expspace.launches += 1
     return out, a
+
+
+def roll_metropolis_sweeps_expspace(w: torch.Tensor, shifts: torch.Tensor,
+                                    u: torch.Tensor, X: torch.Tensor
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B roll-Metropolis sweeps over exp-space weights ``w`` [N] with
+    ``shifts`` [B] and uniforms ``u`` [B, N]; returns ``(X[:, a], a)`` for
+    packed ``X`` [d, N] (float32 or bfloat16). CUDA: the kernel, in one
+    pass or banded as ``roll_band_rows`` plans it for the card; CPU: the
+    plain version. ``roll_metropolis_sweeps_expspace.launches`` counts
+    kernel calls on a float32 state, ``.bf16_launches`` on a bfloat16 one
+    (one a call; a banded call is two CUDA launches)."""
+    return roll_metropolis_sweeps_in_bands(w, shifts, u, X)
 
 
 roll_metropolis_sweeps_expspace.launches = 0

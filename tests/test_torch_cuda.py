@@ -44,7 +44,8 @@ from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
     inverse_cdf_apply_plain, inverse_cdf_search, inverse_cdf_search_plain, \
     take_columns, take_columns_plain
 from cusmc_tpu_torch.resampling.rolls import roll_metropolis_draws, \
-    roll_metropolis_sweeps_expspace, roll_metropolis_sweeps_expspace_plain
+    roll_metropolis_sweeps_expspace, roll_metropolis_sweeps_expspace_plain, \
+    roll_metropolis_sweeps_in_bands
 
 
 @pytest.fixture
@@ -311,6 +312,67 @@ def test_cuda_roll_kernel(cuda):
     assert roll_metropolis_sweeps_expspace.launches == before + 1
     y_p, a_p = roll_metropolis_sweeps_expspace_plain(w, shifts, u, X)
     assert torch.equal(a, a_p) and torch.equal(y, y_p)
+
+
+# The roll walk at every width the paths give it, one pass or banded as the
+# card's plan takes it, and at forced band sizes with a partial last band:
+# ancestors and values exactly the plain version's, one launch counted a
+# call. Patterns: "identity" (w constant, u = 1: a = i), "one front" (u =
+# 1/2: a = i + s_B) and "mixed" (exp-space weights, drawn uniforms).
+ROLL_WIDTHS = [(torch.float32, 1), (torch.float32, 2), (torch.float32, 13),
+               (torch.float32, 16), (torch.float32, 32),
+               (torch.bfloat16, 2), (torch.bfloat16, 16),
+               (torch.bfloat16, 32)]
+
+
+def _roll_pattern(pattern, n, b, gen, dev):
+    shifts, u = roll_metropolis_draws(gen, n, b, dev)
+    if pattern == "mixed":
+        return torch.exp(-25.0 * torch.randn(n, generator=gen, device=dev)
+                         ** 2), shifts, u
+    return torch.ones(n, device=dev), shifts, torch.full_like(
+        u, 1.0 if pattern == "identity" else 0.5)
+
+
+def _check_roll(fn, w, shifts, u, X, pattern):
+    attr = "bf16_launches" if X.dtype == torch.bfloat16 else "launches"
+    before = getattr(roll_metropolis_sweeps_expspace, attr)
+    y, a = fn(w, shifts, u, X)
+    assert getattr(roll_metropolis_sweeps_expspace, attr) == before + 1
+    y_p, a_p = roll_metropolis_sweeps_expspace_plain(w, shifts, u, X)
+    assert torch.equal(a, a_p) and y.dtype == X.dtype and torch.equal(y, y_p)
+    i = torch.arange(w.numel(), device=w.device)
+    if pattern == "identity":
+        assert torch.equal(a.long(), i)
+    elif pattern == "one front":
+        assert torch.equal(a.long(), (i + int(shifts[-1])) % w.numel())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["identity", "one front", "mixed"])
+@pytest.mark.parametrize("dtype,d", ROLL_WIDTHS)
+def test_cuda_roll_kernel_at_every_width(cuda, dtype, d, pattern):
+    for n, b in ((1 << 20, 10), (1_000_003, 3)):
+        gen = torch.Generator(device=cuda).manual_seed(d * n + b)
+        w, shifts, u = _roll_pattern(pattern, n, b, gen, cuda)
+        X = torch.randn((d, n), generator=gen, device=cuda).to(dtype)
+        _check_roll(roll_metropolis_sweeps_expspace, w, shifts, u, X,
+                    pattern)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,rows", [
+    (torch.float32, 13, 3), (torch.float32, 2, 1), (torch.float32, 32, 5),
+    (torch.float32, 16, 9), (torch.float32, 32, 32), (torch.bfloat16, 16, 3),
+    (torch.bfloat16, 32, 7), (torch.bfloat16, 2, 1)])
+def test_cuda_roll_kernel_at_forced_band_sizes(cuda, dtype, d, rows):
+    n = 1_000_003
+    for pattern in ("identity", "one front", "mixed"):
+        gen = torch.Generator(device=cuda).manual_seed(rows * d)
+        w, shifts, u = _roll_pattern(pattern, n, 5, gen, cuda)
+        X = torch.randn((d, n), generator=gen, device=cuda).to(dtype)
+        _check_roll(lambda *a: roll_metropolis_sweeps_in_bands(*a, rows), w,
+                    shifts, u, X, pattern)
 
 
 @pytest.mark.cuda
