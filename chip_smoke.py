@@ -7,7 +7,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. The card's name and power limit, from nvidia-smi.
 2. Build: nvcc compiles the port's kernels (cusmc_tpu_torch/csrc/*.cu),
-   one process per source, all started together.
+   one process per source, all started together; the phase fails when a
+   width bucket of the fused kernels' "thread" design reports a stack
+   frame or a spill (ptxas), or when the draws' exact rewrites
+   (``cos_reduced``, ``to_uniform``) differ from cosf and float(m) 2^-23
+   on any of their 2^23 arguments (a small check built beside them).
 3. Kernels: each kernel against its plain PyTorch version on the same
    tensors, with the tolerance stated beside each check. The prefix sum,
    the search and the roll walk at N = 2^20 and a ragged N, d = 2 (the
@@ -42,8 +46,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    walk at d = 1 and d = 13 (N = 2^20, exp-space and concentrated
    weights), the cumsum and the search-and-apply at PMMH's N = 2^16, d = 1
    (the weight kinds above; each record's error is the largest of all its
-   cases), and both fused kernels on the monthly structural DLM, d = 13, k = 1, which
-   takes their runtime-width "thread" template (``launch<0, 0>``): the
+   cases), and both fused kernels on the monthly structural DLM, d = 13,
+   k = 1, which takes the "thread" design's (16, 1) width bucket: the
    Metropolis step MVN and MVT df=5, the CDF step systematic and
    stratified in both; each held to its plain version as above and timed
    beside its bound. Then the cumsum over zero weights at N = 2^20, on
@@ -69,7 +73,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (``queued_ms``: CUDA events around a call queued behind a sleep
    kernel) beside its bound, the band sizes of ROLL_BAND_SWEEP, one pass
    against bands about the switch (ROLL_SWITCH_WIDTHS), and the walk
-   alone.
+   alone. Then the fused kernels at the widths of
+   FUSED_WIDTHS (``check_fused_widths``: the Metropolis step at d = 2
+   float32 and bfloat16, 4, 5, 8 and the monthly DLM's d = 13, k = 1, MVN
+   and MVT; the CDF step at d = 2 and 13; the "tile" shapes), each held to
+   its plain version and printed with its width bucket, then timed with
+   L2 warm and cold beside the bound of ``fused_bound`` (bytes, and the
+   Philox multiplies, special functions and flops at their rates).
 3b. Statistics of the fused kernels (benchmarks/validate_fused_tpu.py
    checks 1-5d with their thresholds): zero-noise consistency, offspring
    against the indexed Metropolis resampler, noise moments, the inverse-CDF
@@ -285,9 +295,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    tree's in phase 3 (held equal to it); a last phase then runs the
    composed metropolis rows (d = 2 and 32) with each tree's roll walk in
    turns, their rates, busy shares and the walk's share, each run bitwise
-   this tree's. ``--rolls`` runs only the roll walk's part of phase 3,
-   those rows (keeping their inputs) and phase 5 on them, and prints no
-   result.
+   this tree's; with it phase 3 holds each other tree's fused kernels
+   bitwise to this tree's at FUSED_WIDTHS and times them in turns, and a
+   last phase runs the pallas headline and structural rows with each
+   tree's fused wrappers in turns (``fused_row``). ``--rolls`` runs only
+   the roll walk's part of phase 3, those rows (keeping their inputs) and
+   phase 5 on them, and prints no result; ``--fused`` only the fused
+   kernels' part of phase 3 and the pallas rows, ``--timed DIR ...``
+   adding trees that are timed there and held to nothing (variants that
+   drop work), and prints no result.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -302,6 +318,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -318,6 +335,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published (700 W part)
 FP32_FLOPS = 67e12         # H100 SXM, float32 outside the tensor cores
 TF32_FLOPS = 495e12        # H100 SXM, TF32 on the tensor cores, dense
 BF16_FLOPS = 989e12        # H100 SXM, bf16 on the tensor cores, dense
+# The fused kernels' draws run on two more pipes. At the clock at which
+# the published float32 rate is reached (132 SMs x 128 lanes x 2 flops),
+# the CUDA C++ Programming Guide's throughput for compute capability 9.0
+# gives 64 32-bit integer multiplies an SM a clock (Philox) and 16
+# special functions (exp2, log2, rsqrt, reciprocal, sin, cos).
+H100_SMS = 132
+BOOST_HZ = FP32_FLOPS / (H100_SMS * 128 * 2)
+INT32_MULS = 64 * H100_SMS * BOOST_HZ
+SFU_OPS = 16 * H100_SMS * BOOST_HZ
 ACCEPT_TIE = 2.0 ** -22    # two float32 ulps, relative
 
 
@@ -450,22 +476,34 @@ def device_busy(fn) -> tuple:
     return busy_us / 1e6 / wall, sum(e.count for e in kernels)
 
 
-def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS):
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS, ops=()):
     """(least time in ms, "bytes" or "operations"): the larger of the
-    bytes over the HBM rate and the operations over ``peak``, the rate of
-    their type (float32 outside the tensor cores unless given), both the
-    published H100 SXM peaks."""
+    bytes over the HBM rate and the operations over their rate: ``flops``
+    at ``peak`` (float32 outside the tensor cores unless given), and each
+    (count, rate) of ``ops`` (INT32_MULS, SFU_OPS), on pipes that run
+    side by side; the published H100 SXM peaks."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = max([flops / peak] + [c / r for c, r in ops]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ops_text(flops, peak, ops) -> str:
+    """The operation counts of a bound, each with its time."""
+    parts = [f"{flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s "
+             f"{flops / peak * 1e3:.4f} ms"]
+    for (count, rate), name in zip(ops, ("integer multiplies",
+                                         "special functions")):
+        parts.append(f"{count / 1e9:.3f} G {name} {count / rate * 1e3:.4f} "
+                     f"ms")
+    return ", ".join(parts)
+
+
 def time_kernel(name, kern, plain, library, label, nbytes, flops,
-                plain_reps=TIMING_REPS, peak=FP32_FLOPS) -> dict:
+                plain_reps=TIMING_REPS, peak=FP32_FLOPS, ops=()) -> dict:
     """Times a kernel, its plain version (alternating plain, kernel,
     kernel, plain) and the library call, each by CUDA events and by device
     time; returns the record fields. ``flops`` are operations at the
-    ``peak`` rate."""
+    ``peak`` rate, ``ops`` other operations as ``bound`` takes them."""
     p1 = median_ms(plain, plain_reps)
     k1 = median_ms(kern)
     k2 = median_ms(kern)
@@ -474,14 +512,15 @@ def time_kernel(name, kern, plain, library, label, nbytes, flops,
     dk = device_ms(kern)
     dp = device_ms(plain, plain_reps)
     dl = None if library is None else device_ms(library)
-    bound_ms, bound_by = bound(nbytes, flops, peak)
+    bound_ms, bound_by = bound(nbytes, flops, peak, ops)
     print(f"  time {name} {label}: kernel {k1:.4f}/{k2:.4f} ms, plain "
           f"{p1:.4f}/{p2:.4f} ms per call (CUDA events, median); device "
           f"time per call: kernel {dk:.4f} ms, plain {dp:.4f} ms "
           f"(torch.profiler); library "
           f"{'none' if lib is None else f'{lib:.4f} ms, device {dl:.4f} ms'}"
-          f"; bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s)")
+          f"; bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+          f"{ops_text(flops, peak, ops)})")
     return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib,
             "device_ms": dk, "library_device_ms": dl}
@@ -497,6 +536,117 @@ def kernels_per_call(fn, reps: int = TIMING_REPS) -> int:
     return round(sum(count for count, _ in kernels.values()) / reps)
 
 
+# A "thread" design instantiation of either fused kernel, and its width
+# bucket (DM, KM) from the mangled name: fused_step_kernel<DM, KM, T> and
+# fused_cdf_kernel<DM, KM>; (0, 0) is the run-time widths' template.
+THREAD_KERNEL = re.compile(r"(fused_(?:step|cdf)_kernel)ILi(\d+)ELi(\d+)E"
+                           r"(f|13__nv_bfloat16)?")
+
+
+def ptxas_report(log: str) -> list:
+    """[(kernel entry, line)] of nvcc's -Xptxas -v output."""
+    rows, entry = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            rows.append((entry, line.strip()))
+    return rows
+
+
+def check_thread_frames(rows) -> int:
+    """Fails unless every compiled width bucket of the fused kernels'
+    "thread" design (d, k <= 16, the widths the paths give it) reports a
+    0-byte stack frame and no spill; prints each bucket's registers, stack
+    and spills. Returns the number of bucket instantiations."""
+    seen = {}
+    for entry, line in rows:
+        m = THREAD_KERNEL.search(entry)
+        if not m or m.group(2) == "0":
+            continue
+        key = (m.group(1), int(m.group(2)), int(m.group(3)),
+               "bf16" if m.group(4) and "bf" in m.group(4) else "f32")
+        seen.setdefault(key, []).append(line)
+    for key, lines in sorted(seen.items()):
+        text = " ".join(lines)
+        frame = re.search(r"(\d+) bytes stack frame", text)
+        spills = re.findall(r"(\d+) bytes spill", text)
+        regs = re.search(r"Used (\d+) registers", text)
+        print(f"  thread bucket {key[0]}<{key[1]}, {key[2]}> {key[3]}: "
+              f"{regs.group(1) if regs else '?'} registers, stack frame "
+              f"{frame.group(1) if frame else '?'} bytes, spills "
+              f"{'/'.join(spills) or '?'} bytes")
+        assert frame and frame.group(1) == "0" and spills and \
+            all(x == "0" for x in spills), \
+            f"{key}: stack frame or spill in a compiled width bucket"
+    return len(seen)
+
+
+# The draws' two exact rewrites (csrc/philox.cuh), held on the card on
+# every argument they can be given: to_uniform's mantissa form against
+# float(m) * 2^-23 and cos_reduced against cosf on 2 pi u, for each of the
+# 2^23 values of the low 23 bits m. A check of its own, built beside the
+# library.
+DRAW_IDENTITIES_CU = r"""
+#include "philox.cuh"
+
+extern "C" __global__ void draw_identities(unsigned* bad) {
+  const unsigned m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= (1u << 23)) return;
+  const float u = cusmc::to_uniform(m);
+  const float ref = fmaxf(__fmul_rn(__uint2float_rn(m), 1.0f / 8388608.0f),
+                          1e-12f);
+  if (__float_as_uint(u) != __float_as_uint(ref)) atomicAdd(bad, 1u);
+  const float x = __fmul_rn(6.2831855f, u);
+  if (__float_as_uint(cusmc::cos_reduced(x)) != __float_as_uint(cosf(x))) {
+    atomicAdd(bad + 1, 1u);
+  }
+}
+
+extern "C" int run_draw_identities(unsigned* bad, void* stream) {
+  draw_identities<<<(1u << 23) / 256, 256, 0,
+                    static_cast<cudaStream_t>(stream)>>>(bad);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def check_draw_identities() -> None:
+    """Builds DRAW_IDENTITIES_CU with nvcc and fails unless both rewrites
+    are bitwise on all 2^23 arguments."""
+    import ctypes
+
+    import torch
+
+    from cusmc_tpu_torch.ops import kernels
+
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = kernels.BUILD_DIR / f"draw_identities_{os.getpid()}.cu"
+    lib_path = src.with_suffix(".so")
+    src.write_text(DRAW_IDENTITIES_CU)
+    try:
+        out = subprocess.run(
+            [kernels.find_nvcc(), *kernels.ARCH_FLAGS, "-O3", "-shared",
+             "-Xcompiler", "-fPIC", "-I", str(kernels.SRC_DIR), "-o",
+             str(lib_path), str(src)], capture_output=True, text=True,
+            timeout=600)
+        assert out.returncode == 0, f"nvcc failed:\n{out.stdout}{out.stderr}"
+        lib = ctypes.CDLL(str(lib_path))
+        lib.run_draw_identities.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        bad = torch.zeros(2, dtype=torch.int32, device="cuda")
+        assert lib.run_draw_identities(
+            bad.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+        uniform_bad, cos_bad = (int(v) for v in bad.cpu())
+    finally:
+        src.unlink(missing_ok=True)
+        lib_path.unlink(missing_ok=True)
+    print(f"  draws: to_uniform's mantissa form {uniform_bad} and "
+          f"cos_reduced {cos_bad} of 2^23 arguments off cosf / "
+          f"float(m) * 2^-23 (bitwise)")
+    assert uniform_bad == 0 and cos_bad == 0, "a draw rewrite is not exact"
+
+
 def build_kernels() -> float:
     from cusmc_tpu_torch.ops import kernels
 
@@ -506,12 +656,14 @@ def build_kernels() -> float:
     info = kernels.build_info
     print(f"build: {seconds:.2f} s (nvcc {info.get('seconds', 0.0):.2f} s) "
           f"-> {info.get('path')}")
-    entry = ""
-    for line in info.get("log", "").splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1][:90]
-        elif "registers" in line or "spill" in line:
-            print(f"  ptxas: {entry}: {line.strip()}")
+    rows = ptxas_report(info.get("log", ""))
+    for entry, line in rows:
+        print(f"  ptxas: {entry[:90]}: {line}")
+    if rows:
+        n = check_thread_frames(rows)
+        assert n == 24, f"{n} thread buckets compiled, expected 24"
+    else:
+        print("  (a cached build: no ptxas report to check)")
     return seconds
 
 
@@ -1026,6 +1178,122 @@ def check_roll_widths(others) -> None:
     torch.cuda.synchronize()
 
 
+# The fused kernels at the widths the paths give them, and about their
+# buckets: (kernel, d, k, noise, state type or cdf mode). The "thread"
+# design at d = 2 (float32 and bfloat16; the headline), 4, 5, 8 and the
+# monthly structural DLM's d = 13, k = 1; the "tile" design at d = k = 16
+# and 32, whose times a change of the shared walk must keep.
+FUSED_WIDTHS = tuple(
+    [("step", d, d, noise, dtype) for d, dtype in
+     ((2, "float32"), (2, "bfloat16"), (4, "float32"), (5, "float32"),
+      (8, "float32")) for noise in ("mvn", "mvt")]
+    + [("step", 13, 1, noise, "float32") for noise in ("mvn", "mvt")]
+    + [("cdf", 2, 2, "mvt", mode) for mode in ("systematic", "stratified")]
+    + [("cdf", 13, 1, noise, mode) for noise in ("mvn", "mvt")
+       for mode in ("systematic", "stratified")]
+    + [("step", d, d, "mvt", dtype) for d in (16, 32)
+       for dtype in ("float32", "bfloat16")]
+    + [("cdf", d, d, "mvt", "systematic") for d in (16, 32)])
+
+
+def _same_outputs(label, mine, theirs, root) -> str:
+    """Another tree's (X_new, ll, ancestors) against this tree's:
+    ancestors bitwise equal, states and ll bitwise or within 1e-4 (then
+    the mismatches are counted). Returns a short verdict."""
+    import torch
+
+    (x, ll, a), (x_o, ll_o, a_o) = mine, theirs
+    assert torch.equal(a, a_o), f"{label}: {root}'s ancestors differ"
+    if torch.equal(x, x_o) and torch.equal(ll, ll_o):
+        return "bitwise"
+    torch.testing.assert_close(x_o.float(), x.float(), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ll_o, ll, rtol=1e-4, atol=1e-4)
+    nx = int((x != x_o).sum())
+    nl = int((ll != ll_o).sum())
+    gap = max(float((x.float() - x_o.float()).abs().max()),
+              float((ll - ll_o).abs().max()))
+    return f"{nx} states and {nl} ll differ, max {gap:.2e}"
+
+
+def check_fused_widths(others, timed=()) -> None:
+    """The fused kernels at FUSED_WIDTHS, N = 2^20, B = 10: each held to
+    its plain version as phase 3 holds it (``_fused_step_case``,
+    ``_fused_step_case_bf16``, ``_fused_cdf_case``; the design and bucket
+    printed) and to each ``others`` tree's kernel on the same inputs and
+    draws (ancestors bitwise, states and ll bitwise or within 1e-4, the
+    mismatches counted), then timed with L2 warm and cold (``queued_ms``)
+    beside each other tree's, in turns (other, this, this, other), beside
+    the bound of ``fused_bound`` and the operation that sets it. The trees
+    of ``timed`` (variants that drop part of the work, to split the time)
+    are timed the same way and held to nothing."""
+    import torch
+
+    from cusmc_tpu_torch.ops.fused_cdf_step import fused_cdf_filter_step
+    from cusmc_tpu_torch.ops.fused_step import fused_filter_step, step_path
+    from cusmc_tpu_torch.resampling.rolls import l2_bytes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1357)
+    n = N_BIG
+    flush_buf = torch.empty(l2_bytes(dev) // 2, dtype=torch.float32,
+                            device=dev)
+
+    def flush():
+        flush_buf.fill_(1.0)
+
+    for kind, d, k, noise, variant in FUSED_WIDTHS:
+        model = monthly_model(dev, noise) if k != d else None
+        if kind == "step" and variant == "bfloat16":
+            _, args, kw = _fused_step_case_bf16(n, d, noise, gen, dev)
+        elif kind == "step":
+            _, args, kw = _fused_step_case(n, d, noise, gen, dev, model)
+        else:
+            _, args, kw = _fused_cdf_case(n, d, variant, gen, dev, model)
+        if kind == "step":
+            def mine_fn(args=args, kw=kw):
+                return fused_filter_step(*args, **kw)
+            key = "fused_step_outputs"
+        else:
+            def mine_fn(args=args, kw=kw):
+                return fused_cdf_filter_step(*args, **kw)
+            key = "fused_cdf_outputs"
+        itemsize = 2 if variant == "bfloat16" else 4
+        label = (f"fused_{kind} N=2^20 d={d} k={k} {noise} {variant} "
+                 f"[{path_text(d, k)}]")
+        mine = mine_fn()
+        verdicts = [
+            f"{root} {_same_outputs(label, mine, fns[key](args, kw), root)}"
+            for root, fns in others]
+        nbytes, flops, peak, ops = fused_bound(
+            kind, d, k, n, noise=noise, df_int=kw.get("df_int"),
+            itemsize=itemsize, design=step_path(d, k))
+        t_bound, by = bound(nbytes, flops, peak, ops)
+        line = (f"  time {label}: bound {t_bound:.4f} ms ({by}: "
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms of bytes, "
+                f"{ops_text(flops, peak, ops)})")
+        if verdicts:
+            line += "; against this tree: " + ", ".join(verdicts)
+        for temp, fl in (("warm", None), ("cold", flush)):
+            times, parts = [], []
+            for root, fns in list(others) + list(timed):
+                def theirs(fns=fns, args=args, kw=kw):
+                    return fns[key](args, kw)
+                t = [queued_ms(theirs, fl), queued_ms(mine_fn, fl),
+                     queued_ms(mine_fn, fl), queued_ms(theirs, fl)]
+                times += t[1:3]
+                parts.append(f", {root} {t[0]:.4f}/{t[3]:.4f} ms (share "
+                             f"{t_bound / min(t[0], t[3]):.3f})")
+            if not others and not timed:
+                times = [queued_ms(mine_fn, fl), queued_ms(mine_fn, fl)]
+            line += (f"; {temp}: this tree "
+                     + "/".join(f"{t:.4f}" for t in times)
+                     + f" ms (share of bound {t_bound / min(times):.3f})"
+                     + "".join(parts))
+        print(line)
+    torch.cuda.synchronize()
+
+
 def check_kernels() -> dict:
     """Phase 3 for the prefix sum, the search and the roll walk. Returns
     per-kernel records at N = 2^20, d = 2, B = 10."""
@@ -1276,6 +1544,18 @@ def check_shard_kernels() -> dict:
 
 # -- the fused steps ------------------------------------------------------
 
+def path_text(d, k) -> str:
+    """The fused kernels' design at (d, k), with the "thread" design's
+    width bucket."""
+    from cusmc_tpu_torch.ops import fused_step
+
+    if fused_step.step_path(d, k) == "tile":
+        return "tile"
+    dm, km = fused_step.thread_widths(d, k)
+    return f"thread, bucket ({dm}, {km})" if dm else \
+        "thread, run-time widths"
+
+
 def _fused_model(d, noise, dev, state_dtype=None):
     """The demo DLM of width d on the card (``state_dtype``: its state's
     type, None for float32), and its kernel arguments."""
@@ -1405,7 +1685,7 @@ def _fused_step_case(n, d, noise, gen, dev, model=None):
             assert margin <= ACCEPT_TIE, f"slot {p}: margin {margin}"
 
     label = (f"fused_step N={n} d={d} k={k} {noise} tile={tile} "
-             f"path={step_path(d, k)}")
+             f"path={path_text(d, k)}")
     err, nbad = _compare(label, a, a_p, (x, ll), (x_p, ll_p), ties)
     moved = float((a != torch.arange(n, device=dev)).float().mean())
     print(f"  {label}: ancestors {'equal' if not nbad else 'equal but ties'}"
@@ -1452,7 +1732,7 @@ def _fused_cdf_case(n, d, mode, gen, dev, model=None):
             assert _cdf_tie(cdf, p, lo, hi), f"slot {g} is no cdf tie"
 
     label = f"fused_cdf {mode} N={n} d={d} k={k} {m.noise} tile={tile} " \
-        f"path={step_path(d, k)}"
+        f"path={path_text(d, k)}"
     err, nbad = _compare(label, a, a_p, (x, ll), (x_p, ll_p), ties)
     print(f"  {label}: ancestors {'equal' if not nbad else 'equal but ties'}"
           f", max|kernel-plain| {err:.3e} (states, ll), distinct ancestors "
@@ -1490,19 +1770,19 @@ def check_fused_kernels() -> dict:
                 if n == N_BIG and mode == "systematic":
                     cdf_cases[d] = (args, kw)
     for d in (D_WIDE, D_MID, D):  # d = 2 last: its numbers are recorded
-        flops = 2.0 * 4 * d * d * N_BIG   # G, Q, F, Li at k = d
-        peak = FP32_FLOPS
-        if step_path(d, d) == "tile":
-            # Each product as three TF32 tensor-core products (3xTF32).
-            flops, peak = 3 * flops, TF32_FLOPS
-        nbytes = (8 * d + 12) * N_BIG
+        design = step_path(d, d)
+        nbytes, flops, peak, ops = fused_bound("step", d, d, N_BIG,
+                                               design=design)
         args, kw = step_cases[d]
         rec["fused_filter_step"] = dict(max_abs_err=max(step_errs),
                                         **time_kernel(
             "fused_filter_step", lambda: fused_filter_step(*args, **kw),
             lambda: fused_filter_step_plain(*args, **kw), None,
             f"N=2^20 d={d} MVT df=5 B=10 tile={kw['tile']} "
-            f"path={step_path(d, d)}", nbytes, flops, PLAIN_FUSED_REPS, peak))
+            f"path={path_text(d, d)}", nbytes, flops, PLAIN_FUSED_REPS, peak,
+            ops))
+        nbytes, flops, peak, ops = fused_bound("cdf", d, d, N_BIG,
+                                               design=design)
         cargs, ckw = cdf_cases[d]
         rec["fused_cdf_filter_step"] = dict(max_abs_err=max(cdf_errs),
                                             **time_kernel(
@@ -1510,7 +1790,8 @@ def check_fused_kernels() -> dict:
             lambda: fused_cdf_filter_step(*cargs, **ckw),
             lambda: fused_cdf_filter_step_plain(*cargs, **ckw), None,
             f"N=2^20 d={d} MVT df=5 systematic tile={ckw['tile']} "
-            f"path={step_path(d, d)}", nbytes, flops, PLAIN_FUSED_REPS, peak))
+            f"path={path_text(d, d)}", nbytes, flops, PLAIN_FUSED_REPS, peak,
+            ops))
     torch.cuda.synchronize()
     return rec
 
@@ -1520,7 +1801,7 @@ def check_fused_kernels() -> dict:
 # The stochastic volatility model and UNGM run the packed fast step on a
 # state of one row; the monthly structural DLM (a local linear trend and a
 # 12-period seasonal) is d = 13 with k = 1, which takes both fused kernels'
-# runtime-width "thread" template (launch<0, 0>).
+# "thread" design in its (16, 1) width bucket.
 D_ONE = 1
 D_MONTHLY = 13
 
@@ -1544,11 +1825,39 @@ def monthly_model(dev, noise="mvn"):
                    df=5.0 if noise == "mvt" else None, device=dev)
 
 
-def fused_bound(d, k, n):
-    """(bytes, flops) of one fused step: X read and written, the log
-    weights read, ll and the ancestors written; the G, Q, F and Li
-    products."""
-    return (8 * d + 12) * n, 2.0 * (2 * d * d + k * d + k * k) * n
+def fused_bound(kind, d, k, n, *, num_sweeps=10, noise="mvt", df_int=5,
+                itemsize=4, design="thread"):
+    """``(bytes, flops, peak, ops)`` of one fused step ("step": the
+    Metropolis step at ``num_sweeps``; "cdf": the inverse-CDF step) at
+    state width d and observation width k, as ``bound`` takes them and as
+    PERF.md's table counts them per particle. Bytes: X[:, a] read and the
+    new state written (``itemsize``-byte states), ll and the ancestor
+    written, and one log weight or cdf entry read (the B further
+    candidates of the window come from L2). Integer multiplies: 40 a
+    Philox call (10 rounds of two 32 x 32 -> 64 products, both halves),
+    one call a group of four of the particle's rows. Special functions:
+    an exp a walk candidate (B + 1), a log, a sqrt and a cos a normal,
+    and for MVT the chi-square's log, the sqrt of df / g, the two
+    divisions and the log1p (integer df; a Marsaglia-Tsang round adds a
+    normal and two logs). Flops: the four products, 2 (2 d^2 + k d + k^2)
+    in float32, or on the tensor cores in the "tile" design (3xTF32 in
+    float32; in bfloat16 G, Q and F in one bf16 pass, Li in 3xTF32)."""
+    from cusmc_tpu_torch.ops.fused_step import chi2_rows
+
+    rows = (num_sweeps if kind == "step" else 1) + 2 * d \
+        + chi2_rows(noise, df_int)
+    sfu = 3 * d + (num_sweeps + 1 if kind == "step" else 0)
+    if noise == "mvt":
+        sfu += 4 * 5 + 6 if df_int is None else \
+            int(df_int // 2 > 0) + 3 * (df_int % 2) + 4
+    ops = ((40.0 * -(-rows // 4) * n, INT32_MULS), (float(sfu) * n, SFU_OPS))
+    mults = 2.0 * (2 * d * d + k * d + k * k) * n
+    flops, peak = mults, FP32_FLOPS
+    if design == "tile":
+        flops = 3 * mults if itemsize == 4 else \
+            0.75 * mults * TF32_FLOPS / BF16_FLOPS + 0.25 * mults * 3
+        peak = TF32_FLOPS
+    return (2 * itemsize * d + 12) * n, flops, peak, ops
 
 
 def check_model_kernels() -> dict:
@@ -1616,22 +1925,26 @@ def check_model_kernels() -> dict:
             _, args, kw = _fused_cdf_case(n, d, mode, gen, dev, model=model)
             cases["cdf", noise, mode] = (args, kw)
     assert step_path(d, k) == "thread"
-    nbytes, flops = fused_bound(d, k, n)
     for noise in ("mvn", "mvt"):
+        df_int = cases["step", noise][1]["df_int"]
+        nbytes, flops, peak, ops = fused_bound("step", d, k, n, noise=noise,
+                                               df_int=df_int)
         args, kw = cases["step", noise]
         time_kernel("fused_filter_step",
                     lambda: fused_filter_step(*args, **kw),
                     lambda: fused_filter_step_plain(*args, **kw), None,
                     f"N=2^20 d={d} k={k} {noise} B=10 tile={kw['tile']} "
-                    f"path=thread (launch<0, 0>)", nbytes, flops,
-                    PLAIN_FUSED_REPS)
+                    f"path={path_text(d, k)}", nbytes, flops,
+                    PLAIN_FUSED_REPS, peak, ops)
+        nbytes, flops, peak, ops = fused_bound("cdf", d, k, n, noise=noise,
+                                               df_int=df_int)
         args, kw = cases["cdf", noise, "systematic"]
         time_kernel("fused_cdf_filter_step",
                     lambda: fused_cdf_filter_step(*args, **kw),
                     lambda: fused_cdf_filter_step_plain(*args, **kw), None,
                     f"N=2^20 d={d} k={k} {noise} systematic "
-                    f"tile={kw['tile']} path=thread (launch<0, 0>)", nbytes,
-                    flops, PLAIN_FUSED_REPS)
+                    f"tile={kw['tile']} path={path_text(d, k)}", nbytes,
+                    flops, PLAIN_FUSED_REPS, peak, ops)
     torch.cuda.synchronize()
     return errs
 
@@ -1745,7 +2058,7 @@ def _fused_step_case_bf16(n, d, noise, gen, dev):
             assert margin <= ACCEPT_TIE, f"slot {p}: margin {margin}"
 
     label = (f"fused_step[bf16] N={n} d={d} {noise} tile={tile} "
-             f"path={step_path(d, d)}")
+             f"path={path_text(d, d)}")
     bad = (a != a_p).nonzero().flatten()
     assert bad.numel() <= 1000, f"{label}: {bad.numel()} ancestors differ"
     ties(bad)
@@ -1867,19 +2180,14 @@ def check_bf16_kernels() -> dict:
             (12 + 4 * d) * n, 0))
     for d in (D_WIDE, D_MID, D):
         err, args, kw = steps[d]
-        ops = 2.0 * 4 * d * d * n   # G, Q, F, Li at k = d
-        flops, peak = ops, FP32_FLOPS
-        if step_path(d, d) == "tile":
-            # G, Q and F as one bf16 tensor-core product each, Li as three
-            # TF32 ones: in TF32-rate operations.
-            flops = 0.75 * ops * TF32_FLOPS / BF16_FLOPS + 0.25 * ops * 3
-            peak = TF32_FLOPS
+        nbytes, flops, peak, ops = fused_bound(
+            "step", d, d, n, itemsize=2, design=step_path(d, d))
         rec["fused_filter_step[bf16]"] = dict(max_abs_err=err, **time_kernel(
             "fused_filter_step[bf16]", lambda: fused_filter_step(*args, **kw),
             lambda: fused_filter_step_plain(*args, **kw), None,
             f"N=2^20 d={d} MVT df=5 B=10 bf16 tile={kw['tile']} "
-            f"path={step_path(d, d)}", (4 * d + 12) * n, flops,
-            PLAIN_FUSED_REPS, peak))
+            f"path={path_text(d, d)}", nbytes, flops, PLAIN_FUSED_REPS, peak,
+            ops))
     torch.cuda.synchronize()
     return rec
 
@@ -5054,49 +5362,92 @@ def capture(module, name, labels, steps=TRAFFIC_STEPS):
         setattr(module, name, fn)
 
 
-def other_tree(root):
-    """The kernels that phase 5 times, of another checkout of the repo at
-    ``root`` (its ``cusmc_tpu_torch/ops/kernels.py``, loaded under another
-    name, builds them from its own sources into its own ``build/``):
+def _other_module(root, rel, name, kernels_mod):
+    """The module at ``root``/``rel`` of another checkout, loaded under
+    ``name`` with ``cusmc_tpu_torch.ops.kernels`` bound to that tree's
+    kernels module while it imports, so that its wrappers launch that
+    tree's kernels (and count on their own functions)."""
+    import importlib.util
+
+    import cusmc_tpu_torch.ops as ops_package
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, *rel.split("/")))
+    mod = importlib.util.module_from_spec(spec)
+    ours = ops_package.kernels
+    ops_package.kernels = kernels_mod
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        ops_package.kernels = ours
+    return mod
+
+
+def other_trees(roots) -> list:
+    """[(root, other_tree(root))] for each root, their kernels built side
+    by side (one thread a tree: each build runs its own nvcc processes)."""
+    import concurrent.futures
+    import importlib.util
+
+    mods = []
+    for root in roots:
+        spec = importlib.util.spec_from_file_location(
+            f"other_kernels_{abs(hash(root))}",
+            os.path.join(root, "cusmc_tpu_torch", "ops", "kernels.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mods.append(mod)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(mods))) as pool:
+        list(pool.map(lambda mod: mod.build(), mods))
+    print(f"  built the kernels of {len(mods)} other trees in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for root, mod in zip(roots, mods):
+        for entry, line in ptxas_report(mod.build_info.get("log", "")):
+            if "fused" in entry:
+                print(f"  ptxas ({root}): {entry[:90]}: {line}")
+    return [(root, other_tree(root, mod)) for root, mod in zip(roots, mods)]
+
+
+def other_tree(root, mod):
+    """The kernels that phases 3 and 5 compare, of another checkout of the
+    repo at ``root`` whose ``cusmc_tpu_torch/ops/kernels.py`` is loaded as
+    ``mod`` (it builds them from its own sources into its own ``build/``):
     wrapper name -> ``fn(args, kwargs)`` returning the ancestors, called
     with the arguments that this tree's wrapper takes,
     "blocked_cumsum" -> ``fn(w)`` returning the cdf (phase 3's counts over
-    zero weights), and "roll_metropolis_sweeps_expspace" -> that tree's
-    own wrapper (its ``resampling/rolls.py`` bound to its kernels). The C
-    entries keep their signatures across trees (but for the fused CDF
-    step's ``tiled`` argument, added with the "tile" design)."""
-    import importlib.util
-
+    zero weights), "fused_step_outputs" and "fused_cdf_outputs" ->
+    ``fn(args, kwargs)`` returning that tree's (X_new, ll, ancestors), and
+    "roll_metropolis_sweeps_expspace", "fused_filter_step" and
+    "fused_cdf_filter_step" -> that tree's own wrappers (its
+    ``resampling/rolls.py`` and ``ops/fused_*.py`` bound to its kernels).
+    The C entries keep their signatures across trees but for arguments
+    added since: the fused CDF step's ``tiled`` (the "tile" design), the
+    search-and-apply's ``bf16`` (the bfloat16 state) and both fused steps'
+    width bucket ``dm, km``."""
     import torch
 
     from cusmc_tpu_torch.ops.fused_cdf_step import MODES, cdf_auto_tile
-    from cusmc_tpu_torch.ops.fused_step import step_path
 
-    path = os.path.join(root, "cusmc_tpu_torch", "ops", "kernels.py")
-    spec = importlib.util.spec_from_file_location(
-        f"other_kernels_{abs(hash(root))}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    t0 = time.perf_counter()
     lib = mod.library()
-    print(f"  built the kernels of {root} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    # That tree's own roll walk wrapper, bound to its kernels.
-    import cusmc_tpu_torch.ops as ops_package
-    spec = importlib.util.spec_from_file_location(
-        f"other_rolls_{abs(hash(root))}",
-        os.path.join(root, "cusmc_tpu_torch", "resampling", "rolls.py"))
-    other_rolls = importlib.util.module_from_spec(spec)
-    ours = ops_package.kernels
-    ops_package.kernels = mod
+    tag = abs(hash(root))
+    other_rolls = _other_module(root, "cusmc_tpu_torch/resampling/rolls.py",
+                                f"other_rolls_{tag}", mod)
+    other_step = _other_module(root, "cusmc_tpu_torch/ops/fused_step.py",
+                               f"other_fused_step_{tag}", mod)
+    # That tree's fused CDF step imports its helpers from its fused step.
+    this_step = sys.modules["cusmc_tpu_torch.ops.fused_step"]
+    sys.modules["cusmc_tpu_torch.ops.fused_step"] = other_step
     try:
-        spec.loader.exec_module(other_rolls)
+        other_cdf = _other_module(
+            root, "cusmc_tpu_torch/ops/fused_cdf_step.py",
+            f"other_fused_cdf_{tag}", mod)
     finally:
-        ops_package.kernels = ours
-    # Before the "tile" design the fused CDF step took no `tiled` argument;
-    # before the bfloat16 state the search-and-apply took no `bf16` one.
-    has_tiled = len(mod.SIGNATURES["cusmc_fused_cdf_step"]) == 23
+        sys.modules["cusmc_tpu_torch.ops.fused_step"] = this_step
+    step_path = other_step.step_path
+    has_tiled = len(mod.SIGNATURES["cusmc_fused_cdf_step"]) >= 23
     has_bf16 = len(mod.SIGNATURES["cusmc_inverse_cdf_apply"]) == 12
+    has_buckets = len(mod.SIGNATURES["cusmc_fused_step"]) == 27
 
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -5130,25 +5481,52 @@ def other_tree(root):
             X.shape[0], *((0,) if has_bf16 else ()), stream), root)
         return a
 
-    def cdf_step(args, kw):
+    def design(d, k):
+        tiled = step_path(d, k) == "tile"
+        widths = ((0, 0) if tiled else other_step.thread_widths(d, k)) \
+            if has_buckets else ()
+        return int(tiled), widths
+
+    def cdf_outputs(args, kw):
         cdf, X, y, G, Q, F, Li, df, log_norm, (u, seed) = args
         (d, n), k = X.shape, F.shape[0]
         Xo, ll = torch.empty_like(X), torch.empty_like(cdf)
         a = torch.empty(n, dtype=torch.int32, device=X.device)
-        tiled = (int(step_path(d, k) == "tile"),) if has_tiled else ()
+        tiled, widths = design(d, k)
         mod.check(lib.cusmc_fused_cdf_step(
             *(t.data_ptr() for t in (cdf, X, y, G, Q, F, Li, u, seed, Xo, ll,
                                      a)),
             n, kw.get("tile") or cdf_auto_tile(n, max(d, k)), d, k,
             MODES.index(kw["mode"]), int(kw["noise"] == "mvt"),
             kw.get("df_int") or 0, 1.0 if df is None else float(df),
-            float(log_norm), *tiled, stream), root)
-        return a
+            float(log_norm), *((tiled,) if has_tiled else ()), *widths,
+            stream), root)
+        return Xo, ll, a
+
+    def step_outputs(args, kw):
+        X, logw, y, G, Q, F, Li, df, log_norm, (s, seed) = args
+        (d, n), k = X.shape, F.shape[0]
+        Xo = torch.empty_like(X)
+        ll = torch.empty_like(logw)
+        a = torch.empty(n, dtype=torch.int32, device=X.device)
+        tiled, widths = design(d, k)
+        mod.check(lib.cusmc_fused_step(
+            *(t.data_ptr() for t in (X, logw, y, G, Q, F, Li, s, seed, Xo, ll,
+                                     a)),
+            n, kw["tile"], d, k, kw["num_sweeps"], kw["num_window_tiles"],
+            int(kw["noise"] == "mvt"), kw.get("df_int") or 0,
+            1.0 if df is None else float(df), float(log_norm), tiled,
+            *widths, int(X.dtype == torch.bfloat16), stream), root)
+        return Xo, ll, a
 
     return {"inverse_cdf_search": search, "inverse_cdf_apply": apply,
-            "fused_cdf_filter_step": cdf_step, "blocked_cumsum": cumsum,
+            "fused_cdf_filter_step": lambda a, k: cdf_outputs(a, k)[2],
+            "fused_cdf_outputs": cdf_outputs,
+            "fused_step_outputs": step_outputs, "blocked_cumsum": cumsum,
             "roll_metropolis_sweeps_expspace":
-                other_rolls.roll_metropolis_sweeps_expspace}
+                other_rolls.roll_metropolis_sweeps_expspace,
+            "fused_step_wrapper": other_step.fused_filter_step,
+            "fused_cdf_wrapper": other_cdf.fused_cdf_filter_step}
 
 
 def check_traffic(others) -> None:
@@ -5390,6 +5768,111 @@ def roll_row(card, others, keep=False) -> None:
                   f"{float(mine.log_evidence):.6f})")
 
 
+# -- the pallas rows with each tree's fused kernels ------------------------
+
+def fused_row(card, others) -> None:
+    """The fused ("pallas") rows of phases 4b and 4g with this tree's
+    fused wrappers and with each ``others`` tree's (its wrappers and
+    kernels) in their place, in turns (this, other, other, this) after one
+    warm-up each: the headline (MVT df=5, N=2^20, T=200, d=2) and the
+    monthly structural DLM (MVN, N=2^20, T=200, d=13, k=1), metropolis
+    B=10 and systematic: particle-steps/s (best of 4 with each other tree,
+    two rounds of turns), and from one profiled run each
+    the device's busy share and the fused kernel's device time a step and
+    share of the run's wall time (torch.profiler); each other tree's runs
+    bitwise this tree's (final particles and log weights, ESS,
+    log-evidence)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cusmc_tpu_torch.io.data import demo_model_params
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.smc import particle_filter
+    from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+
+    n, steps = N_BIG, 200
+    dev = torch.device("cuda")
+    rows = (("headline", DLM.create(noise="mvt", df=5.0, device=dev,
+                                    **demo_model_params(D))),
+            ("structural", monthly_model(dev)))
+    names = {"metropolis": ("fused_filter_step", "fused_step_wrapper"),
+             "systematic": ("fused_cdf_filter_step", "fused_cdf_wrapper")}
+    for label, model in rows:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        _, ys = model.simulate(gen, steps)
+        for resampler, kwargs in (("metropolis", {"num_steps": 10}),
+                                  ("systematic", None)):
+            attr, key = names[resampler]
+
+            def run(tree):
+                this = getattr(particle_filter, attr)
+                if tree is not None:
+                    setattr(particle_filter, attr, dict(others)[tree][key])
+                try:
+                    res = bootstrap_filter(0, model, ys, n,
+                                           resampler=resampler,
+                                           resampler_kwargs=kwargs,
+                                           engine="pallas",
+                                           return_history=False)
+                    torch.cuda.synchronize()
+                finally:
+                    setattr(particle_filter, attr, this)
+                return res
+
+            mine = run(None)
+
+            def same(res, tree):
+                for name in ("final_particles", "final_log_weights", "ess"):
+                    assert torch.equal(getattr(res, name),
+                                       getattr(mine, name)), \
+                        f"{label} {resampler}: {tree}'s run differs in {name}"
+                assert float(res.log_evidence) == float(mine.log_evidence), \
+                    f"{label} {resampler}: {tree}'s log-evidence differs"
+
+            trees = [None] + [root for root, _ in others]
+            for tree in trees[1:]:
+                same(run(tree), tree)
+            secs = {tree: [] for tree in trees}
+            for tree in [t for root in trees[1:]
+                         for t in (None, root, root, None)] * 2 \
+                    or [None] * 3:
+                t0 = time.perf_counter()
+                res = run(tree)
+                secs[tree].append(time.perf_counter() - t0)
+                if tree is not None:
+                    same(res, tree)
+            best = {tree: min(v) for tree, v in secs.items()}
+            for tree in trees:
+                for _ in range(5):  # the profiler can record no kernel
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        run(tree)
+                        wall = time.perf_counter() - t0
+                    kern = [e for e in prof.key_averages() if e.device_type
+                            == torch.autograd.DeviceType.CUDA]
+                    if kern:
+                        break
+                busy = sum(e.self_device_time_total for e in kern) / 1e6 / wall
+                fused_us = sum(e.self_device_time_total for e in kern
+                               if "fused" in e.key)
+                print(f"  {label} pallas {resampler} N=2^20 T={steps}, "
+                      f"{'this tree' if tree is None else tree}'s fused "
+                      f"kernel: {n * (steps - 1) / best[tree]:.6g} "
+                      f"particle-steps/s (best {best[tree]:.4f} s of "
+                      f"{len(secs[tree])}, slowest {max(secs[tree]):.4f} s), "
+                      f"device "
+                      f"busy {busy:.3f}, the kernel "
+                      f"{fused_us / 1e3 / (steps - 1):.4f} ms a step, "
+                      f"{fused_us / 1e6 / wall:.3f} of the wall time [{card}]")
+            if others:
+                print(f"  {label} {resampler}: every other tree's run bitwise "
+                      f"this tree's (log-evidence "
+                      f"{float(mine.log_evidence):.6f})")
+
+
 def check_take_traffic(name, args) -> None:
     """Phase 5 for take-columns on a path's ``(X, a)``: exactly its plain
     version, and its device time."""
@@ -5438,8 +5921,22 @@ def main(argv=None) -> int:
         help="other checkouts of the repo (the parent commit unpacked with "
              "git archive, say): phase 5 times their block-window kernels "
              "and roll walk beside this tree's on the main paths' own "
-             "inputs, phase 3 their roll walk at every width, and a last "
-             "phase runs the composed metropolis rows with their roll walk")
+             "inputs, phase 3 their roll walk and fused kernels at every "
+             "width, and two last phases run the composed metropolis rows "
+             "with their roll walk and the pallas rows with their fused "
+             "kernels")
+    parser.add_argument(
+        "--timed", nargs="+", default=[], metavar="DIR",
+        help="with --fused: other checkouts whose fused kernels drop part "
+             "of the work (variants that split the time), timed beside this "
+             "tree's at every width and held to nothing")
+    parser.add_argument(
+        "--fused", action="store_true",
+        help="run only the fused kernels' checks: phase 3's fused cases and "
+             "the fused kernels at every width the paths give them (held to "
+             "each --against tree's and timed beside them), then the pallas "
+             "rows of phases 4b and 4g with each tree's fused kernels; "
+             "prints no result")
     parser.add_argument(
         "--rolls", action="store_true",
         help="run only the roll walk's checks: phase 3's widths, the "
@@ -5463,8 +5960,19 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     build_kernels()
+    check_draw_identities()
     build_native()
-    others = [(root, other_tree(root)) for root in args.against]
+    others = other_trees(args.against)
+    if args.fused:
+        with phase("the fused kernels against their plain versions"):
+            check_fused_kernels()
+        with phase("the fused kernels at every width, beside each tree's"):
+            check_fused_widths(others, other_trees(args.timed))
+        with phase("the pallas rows with each tree's fused kernels"):
+            fused_row(card, others)
+        print(f"chip_smoke --fused: {time.perf_counter() - t_start:.1f} s; "
+              f"card: {card}")
+        return 0
     if args.rolls:
         with phase("the roll walk at every width"):
             check_roll_widths(others)
@@ -5485,6 +5993,8 @@ def main(argv=None) -> int:
         walk["max_abs_err"] = max(walk["max_abs_err"], check_roll_sweeps())
     with phase("the roll walk at every width"):
         check_roll_widths(others)
+    with phase("the fused kernels at every width, beside each tree's"):
+        check_fused_widths(others)
     with phase("the kernels at the other models' widths (d = 1; d = 13, "
                "k = 1; PMMH's N = 2^16, d = 1)"):
         for name, err in check_model_kernels().items():
@@ -5526,6 +6036,8 @@ def main(argv=None) -> int:
         with phase("the composed metropolis rows with each tree's roll "
                    "walk"):
             roll_row(card, others)
+        with phase("the pallas rows with each tree's fused kernels"):
+            fused_row(card, others)
 
     records = []
     for name, source, replaces, paths in KERNELS:

@@ -23,10 +23,14 @@
 // Two designs of the propagate-and-reweight half, chosen by the caller as a
 // plain function of (d, k) (ops/fused_step.py::step_path, the rule of
 // fused_step.cu):
-//   - "thread" (d = k in {2, 4, 8} compiled, any other d or k at run
-//     time): one thread per particle, the vectors in registers
-//     (propagate.cuh). The matrices go to shared memory when they fit
-//     beside the window in 48 KB, else they are read through L1.
+//   - "thread" (every shape but d = k in {16, 32}; propagate.cuh): in a
+//     compiled width bucket (DM, KM) from ops/fused_step.py::thread_widths
+//     while d, k <= 16, two slots a thread (the block's 256 slots search
+//     one window, two queries a thread), else at run-time widths, one slot
+//     a thread (the matrices in shared memory when they fit beside the
+//     window in 48 KB, else read through L1). The block's Philox key and
+//     pscale are formed once, in 32 bits; the ancestors' columns fly while
+//     the noise is drawn.
 //   - "tile" (d = k in {16, 32}): each warp's 32 slots go through the four
 //     matrix products as 3xTF32 tensor-core tiles (tile_propagate.cuh);
 //     the window is laid over the tiles' shared memory, which the search
@@ -34,10 +38,12 @@
 // The ancestors are bitwise the plain version's in both; states and
 // log-likelihoods agree to rounding.
 //
-// Bound on the card: at d = 2, memory: 4 B of cdf, 4d B of state read,
-// 4d + 8 B written per particle; the Philox rounds and expf keep it over
-// that. At d = 32 the four products (4096 multiply-adds per particle at
-// d = k = 32) and the Box-Muller draws.
+// Bound on the card, per particle: bytes 8 d + 12 (4 B of cdf, 4 d of
+// state read, 4 d + 8 written); operations ceil((1 + 2 d + chi-square
+// rows) / 4) Philox calls of 40 integer multiplies, three special
+// functions a normal, and 2 (2 d^2 + k d + k^2) float32 flops. At d = 2
+// and at d = 13, k = 1 the bytes bind; at d = 32 the four products (4096
+// multiply-adds per particle at d = k = 32) and the Box-Muller draws.
 #include "tile_propagate.cuh"
 
 namespace {
@@ -61,42 +67,95 @@ __device__ __forceinline__ float slot_position(const float* __restrict__ cdf,
   return __fmul_rn(__fadd_rn(static_cast<float>(p), ug), pscale);
 }
 
-// The ancestor of each slot of the block, through the block's window.
-// Shared memory: `win` kWindow floats, `s_pos` 2 floats, `s_range` 2
-// counts. Synchronises the block.
-__device__ __forceinline__ long long block_ancestor(
-    const float* __restrict__ cdf, long long n, float pos, float* win,
-    float* s_pos, long long* s_range) {
-  if (threadIdx.x == 0) s_pos[0] = pos;
-  if (threadIdx.x == kThreads - 1) s_pos[1] = pos;
+// The ancestors of the block's slots, P a thread (their positions rise
+// with the slot: thread 0's first and the last thread's last bound the
+// block's), through the block's window. Shared memory: `win` kWindow
+// floats, `s_pos` 2 floats, `s_range` 2 counts. Synchronises the block.
+template <int P>
+__device__ __forceinline__ void block_ancestors(
+    const float* __restrict__ cdf, long long n, const float (&pos)[P],
+    float* win, float* s_pos, long long* s_range, long long (&c)[P]) {
+  if (threadIdx.x == 0) s_pos[0] = pos[0];
+  if (threadIdx.x == kThreads - 1) s_pos[1] = pos[P - 1];
   __syncthreads();
-  return cusmc::block_cdf_window<kWindow>(cdf, n, s_pos[0], s_pos[1], win,
-                                          s_range)
-      .search(pos);
+  cusmc::block_cdf_window<kWindow>(cdf, n, s_pos[0], s_pos[1], win, s_range)
+      .search<P>(pos, c);
 }
 
-// The "thread" design.
-template <int D, int K>
+// The "thread" design in bucket (DM, KM) (propagate.cuh), P slots a
+// thread, or at run-time widths (DM = KM = 0, one slot a thread; the
+// matrices staged when `staged`). A block holds kThreads * P slots, slot i
+// of thread t at (block * P + i) * kThreads + t; pscale and the Philox key
+// are the block's (tile % 1024 == 0).
+template <int DM, int KM>
 __global__ void __launch_bounds__(kThreads)
 fused_cdf_kernel(const float* __restrict__ cdf, const float* __restrict__ X,
                  const float* __restrict__ u, const int* __restrict__ seed,
                  cusmc::StepModel m, float* __restrict__ Xo,
-                 float* __restrict__ ll, int* __restrict__ anc, long long n,
-                 long long tile, int stratified, int staged) {
+                 float* __restrict__ ll, int* __restrict__ anc, unsigned n,
+                 unsigned tile, int stratified, int staged) {
+  constexpr bool kBucket = DM > 0;
+  constexpr int P = kBucket ? cusmc::bucket_particles<DM>(false) : 1;
+  constexpr int SD = kBucket ? DM : 1;
+  constexpr int SK = kBucket ? KM : 1;
   extern __shared__ float smem[];
+  __shared__ cusmc::BucketModel<SD, SK> s_m;
   __shared__ float s_win[kWindow];
   __shared__ float s_pos[2];
   __shared__ long long s_range[2];
-  m = cusmc::stage_model(m, smem, staged != 0);  // block_ancestor syncs
-  const long long p =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long blk = p / tile;
-  cusmc::BitStream bs(cusmc::philox_key(seed, blk),
-                      static_cast<uint32_t>(p - blk * tile), 0u);
-  const float pos = slot_position(cdf, u, n, p, stratified, bs);
-  const long long a = block_ancestor(cdf, n, pos, s_win, s_pos, s_range);
-  anc[p] = static_cast<int>(a);
-  cusmc::propagate_reweight<D, K>(m, X, n, a, Xo, ll, p, bs, 1);
+  __shared__ float s_pscale;
+  if constexpr (kBucket) {
+    cusmc::stage_bucket(m, s_m);
+  } else {
+    m = cusmc::stage_model(m, smem, staged != 0);
+  }
+  if (threadIdx.x == 0) {
+    s_pscale = __fdiv_rn(cdf[n - 1], static_cast<float>(n));
+  }
+  __syncthreads();
+  const unsigned blk = blockIdx.x * (kThreads * P) / tile;
+  unsigned p[P];
+  unsigned lane[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    p[i] = (blockIdx.x * P + i) * kThreads + threadIdx.x;
+    lane[i] = p[i] - blk * tile;
+  }
+  const uint2 key = cusmc::philox_key(seed, blk);
+  cusmc::RowCursors<P> rows(key, lane, 0u);
+  float ug[P];
+  if (stratified) {
+    uint32_t w[P];
+    rows.first(0, w);
+#pragma unroll
+    for (int i = 0; i < P; ++i) ug[i] = cusmc::to_uniform(w[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < P; ++i) ug[i] = u[0];
+  }
+  float pos[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    pos[i] = __fmul_rn(__fadd_rn(static_cast<float>(p[i]), ug[i]), s_pscale);
+  }
+  long long c[P];
+  block_ancestors<P>(cdf, n, pos, s_win, s_pos, s_range, c);
+  unsigned a[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    a[i] = static_cast<unsigned>(c[i]);
+    anc[p[i]] = static_cast<int>(a[i]);
+  }
+  if constexpr (kBucket) {
+    float x[P][DM];
+    cusmc::load_columns(X, n, a, m.d, x);
+    cusmc::propagate_bucket(s_m, m, x, n, Xo, ll, p, rows, 1);
+  } else {
+    cusmc::BitStream bs(key, lane[0], 0u);
+    bs.group = rows.ga;
+    bs.buf = rows.a[0];
+    cusmc::propagate_reweight(m, X, n, a[0], Xo, ll, p[0], bs, 1);
+  }
 }
 
 // The "tile" design, d = k = D. The block's slots share one Philox block
@@ -121,23 +180,33 @@ fused_cdf_tile_kernel(const float* __restrict__ cdf,
   const long long p = p0 + threadIdx.x;
   cusmc::BitStream bs(cusmc::philox_key(seed, blk),
                       static_cast<uint32_t>(p - blk * tile), 0u);
-  const float pos = slot_position(cdf, u, n, p, stratified, bs);
-  const long long a = block_ancestor(cdf, n, pos, smem, s_pos, s_range);
-  anc[p] = static_cast<int>(a);
+  const float pos[1] = {slot_position(cdf, u, n, p, stratified, bs)};
+  long long a[1];
+  block_ancestors<1>(cdf, n, pos, smem, s_pos, s_range, a);
+  anc[p] = static_cast<int>(a[0]);
   __syncthreads();  // every read of the window is done: the tiles take it
-  cusmc::tile_propagate_reweight<D>(m, smem, X, n, a, Xo, ll, p, bs, 1);
+  cusmc::tile_propagate_reweight<D>(m, smem, X, n, a[0], Xo, ll, p, bs, 1);
 }
 
-template <int D, int K>
+template <int DM, int KM>
 int launch(const float* cdf, const float* X, const float* u, const int* seed,
            const cusmc::StepModel& m, float* Xo, float* ll, int* anc,
-           long long n, long long tile, int stratified, cudaStream_t stream) {
-  const size_t bytes = cusmc::model_bytes(m.d, m.k);
-  const int staged = bytes + kWindowBytes <= cusmc::kStageBytes ? 1 : 0;
-  const long long blocks = n / kThreads;
-  fused_cdf_kernel<D, K><<<static_cast<unsigned>(blocks), kThreads,
-                           staged ? bytes : 0, stream>>>(
-      cdf, X, u, seed, m, Xo, ll, anc, n, tile, stratified, staged);
+           unsigned n, unsigned tile, int stratified, cudaStream_t stream) {
+  if constexpr (DM > 0) {
+    // kThreads * P divides 1024, and so n and the tile.
+    constexpr unsigned per_block =
+        kThreads * cusmc::bucket_particles<DM>(false);
+    static_assert(1024 % per_block == 0, "whole blocks in a 1024 tile");
+    if (m.d > DM || m.k > KM) return static_cast<int>(cudaErrorInvalidValue);
+    fused_cdf_kernel<DM, KM><<<n / per_block, kThreads, 0, stream>>>(
+        cdf, X, u, seed, m, Xo, ll, anc, n, tile, stratified, 0);
+  } else {
+    const size_t bytes = cusmc::model_bytes(m.d, m.k);
+    const int staged = bytes + kWindowBytes <= cusmc::kStageBytes ? 1 : 0;
+    fused_cdf_kernel<0, 0><<<n / kThreads, kThreads, staged ? bytes : 0,
+                             stream>>>(cdf, X, u, seed, m, Xo, ll, anc, n,
+                                       tile, stratified, staged);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -164,14 +233,17 @@ int launch_tile(const float* cdf, const float* X, const float* u,
 // f32, ll [n] f32, anc [n] int32. The caller checks n % tile == 0,
 // tile % 1024 == 0, n <= 2^24 and d, k <= 128. mode: 0 systematic,
 // 1 stratified; noise: 0 MVN, 1 MVT; df_int 0 selects Marsaglia-Tsang.
-// tiled: 1 takes the "tile" design, which needs d = k in {16, 32}
-// (cudaErrorInvalidValue otherwise), 0 the "thread" one.
+// tiled: 1 takes the "tile" design, which needs d = k in {16, 32}, 0 the
+// "thread" one in the width bucket (dm, km) of
+// ops/fused_step.py::thread_widths (d <= dm, k <= km; 0, 0 for run-time
+// widths). cudaErrorInvalidValue for a shape or a bucket that is not
+// compiled.
 CUSMC_EXPORT int cusmc_fused_cdf_step(
     const float* cdf, const float* X, const float* y, const float* G,
     const float* Q, const float* F, const float* Li, const float* u,
     const int* seed, float* Xo, float* ll, int* anc, long long n,
     long long tile, int d, int k, int mode, int noise, int df_int, float df,
-    float log_norm, int tiled, void* stream) {
+    float log_norm, int tiled, int dm, int km, void* stream) {
   const cusmc::StepModel m{G, Q, F, Li, y, d, k, noise, df_int, df, log_norm};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tiled) {
@@ -186,14 +258,20 @@ CUSMC_EXPORT int cusmc_fused_cdf_step(
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  switch (d == k ? d : 0) {
-    case 2:
-      return launch<2, 2>(cdf, X, u, seed, m, Xo, ll, anc, n, tile, mode, st);
-    case 4:
-      return launch<4, 4>(cdf, X, u, seed, m, Xo, ll, anc, n, tile, mode, st);
-    case 8:
-      return launch<8, 8>(cdf, X, u, seed, m, Xo, ll, anc, n, tile, mode, st);
-    default:
-      return launch<0, 0>(cdf, X, u, seed, m, Xo, ll, anc, n, tile, mode, st);
-  }
+  const unsigned nu = static_cast<unsigned>(n);
+  const unsigned tu = static_cast<unsigned>(tile);
+#define CUSMC_BUCKET(DM, KM)                                              \
+  if (dm == DM && km == KM)                                               \
+    return launch<DM, KM>(cdf, X, u, seed, m, Xo, ll, anc, nu, tu, mode, st);
+  CUSMC_BUCKET(2, 1)
+  CUSMC_BUCKET(2, 2)
+  CUSMC_BUCKET(4, 1)
+  CUSMC_BUCKET(4, 4)
+  CUSMC_BUCKET(8, 1)
+  CUSMC_BUCKET(8, 8)
+  CUSMC_BUCKET(16, 1)
+  CUSMC_BUCKET(16, 16)
+  CUSMC_BUCKET(0, 0)
+#undef CUSMC_BUCKET
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,19 +15,26 @@
 // the particle gives its B accept uniforms, then the noise rows.
 //
 // The TPU kernel double-buffers the window through VMEM with DMAs, because
-// a random gather is slow there. Here one thread per particle reads its
-// candidates straight from global memory: the window is 2-3 tiles, so it
-// sits in L2, and a warp's lanes read consecutive addresses. The block's
-// tile id is the particle index over the tile (blocks of 128 threads never
-// straddle a tile, as tile % 128 == 0).
+// a random gather is slow there. Here each particle reads its candidates
+// straight from global memory: the window is 2-3 tiles, so it sits in L2,
+// and a warp's lanes read consecutive addresses. A block never straddles a
+// tile, so its tile id, key, rotation, sweep offsets and window are the
+// block's, formed once in 32 bits (n < 2^31: the ancestors are int32); a
+// particle's candidate is then 32-bit adds and one wrap. Its walk loads
+// the weights of kWalkChunk sweeps (and its start) together, draws the
+// chunk's accept uniforms while they fly, and only then runs the accept
+// chain, in the sweeps' order.
 //
 // Two designs of the propagate-and-reweight half, chosen by the caller as a
 // plain function of (d, k) (ops/fused_step.py::step_path):
-//   - "thread" (d = k in {2, 4, 8} compiled, any other d or k at run
-//     time): one thread per particle, the vectors in registers
-//     (propagate.cuh). At d <= 8 the step is bound by Philox, expf and
-//     memory, not by the products. The matrices go to shared memory when
-//     they fit in 48 KB (d = k <= 55), else they are read through L1.
+//   - "thread" (every shape but d = k in {16, 32}; propagate.cuh): in a
+//     compiled width bucket (DM, KM) from ops/fused_step.py::thread_widths
+//     while d, k <= 16, two particles a thread (one at DM = 16), else at
+//     run-time widths, one particle a thread. A bucket's block holds 128
+//     particles a thread's particle count; where that does not divide the
+//     tile (a tile of an odd multiple of 128), the run-time widths run.
+//     The ancestors' columns are loaded right after the walk and fly while
+//     the noise is drawn.
 //   - "tile" (d = k in {16, 32}): each warp's 32 particles go through
 //     the four matrix products as 3xTF32 tensor-core tiles over
 //     shared-memory tiles (tile_propagate.cuh); the per-thread design
@@ -40,127 +47,223 @@
 // TPU kernel's); the walk reads float32 weights either way, so the
 // ancestors do not depend on T.
 //
-// Bound on the card: at d = 2, memory: per particle it reads X[:, a] and
-// B + 1 weights (L2), writes d states, ll and a (2 s d + 12 bytes of
-// device traffic for s-byte states, counting each input once). At d = 32,
-// the 2d^2 + 2k^2 FMAs of the four products (4096 at d = k = 32) and the
-// Philox rounds bind.
+// Bound on the card, per particle at B sweeps: bytes 2 s d + 12 (X[:, a]
+// read, the state, ll and a written, s-byte states; the B + 1 weights
+// come from L2); operations ceil((B + 2 d + chi-square rows) / 4) Philox
+// calls of 40 integer multiplies, B + 1 exps and three special functions
+// a normal on the special-function units, and 2 (2 d^2 + k d + k^2)
+// float32 flops. At d = 2 the Philox multiplies bind, at d = 13, k = 1 the
+// bytes; what the kernel reaches against them is in PERF.md.
 #include "tile_propagate.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxSweeps = 128;
+// Sweeps whose candidate weights a particle loads together (a multiple of
+// 4: the accept rows of a chunk are whole Philox groups).
+constexpr int kWalkChunk = 8;
+static_assert(kWalkChunk % 4 == 0, "whole groups of accept rows");
 
+// The window of a tile: its two (three) source tiles, in 32 bits.
 struct Window {
-  long long n;
-  long long tile;
-  long long ws;   // start of the contiguous pair
-  long long ws2;  // start of the third tile
-  long long len;  // num_window_tiles * tile
+  unsigned n;
+  unsigned tile;
+  unsigned ws;   // start of the contiguous pair
+  unsigned ws2;  // start of the third tile
+  unsigned len;  // num_window_tiles * tile
 
   // Global index of pre-rotation window position q in [0, len).
-  __device__ __forceinline__ long long at(long long q) const {
+  __device__ __forceinline__ unsigned at(unsigned q) const {
     if (q < 2 * tile) {
-      const long long g = ws + q;
+      const unsigned g = ws + q;
       return g >= n ? g - n : g;
     }
     return ws2 + (q - 2 * tile);
   }
 
-  __device__ __forceinline__ long long wrap(long long q) const {
+  __device__ __forceinline__ unsigned wrap(unsigned q) const {
     return q >= len ? q - len : q;
   }
 };
 
-// Block-shared draws of tile ti: the lane rotation r and the B sweep
-// offsets (stream 1), into s_r and s_db; the caller synchronises.
-__device__ __forceinline__ void tile_draws(uint2 key, long long tile,
-                                           int num_sweeps,
-                                           int num_window_tiles, int* s_db,
-                                           int* s_r) {
-  const int n_off = static_cast<int>((num_window_tiles - 1) * tile / 128 + 1);
-  if (threadIdx.x < (num_sweeps > 0 ? num_sweeps : 1)) {
+// The block's tile (a block of `per_block` particles never straddles one:
+// tile % per_block == 0): its draws (stream 1: the lane rotation r, row 0
+// of lane 0, and the B sweep offsets, row 1 of lane sw) into s_r and s_db,
+// and, by thread 0, its window into s_win. The caller synchronises.
+struct BlockTile {
+  unsigned ti;
+  uint2 key;
+};
+
+__device__ __forceinline__ BlockTile block_tile(
+    const int* __restrict__ s, const int* __restrict__ seed, unsigned n,
+    unsigned tile, unsigned per_block, int num_sweeps, int num_window_tiles,
+    int* s_db, int* s_r, Window* s_win) {
+  const unsigned ti = blockIdx.x * per_block / tile;
+  const uint2 key = cusmc::philox_key(seed, ti);
+  const unsigned n_off = (num_window_tiles - 1) * tile / 128 + 1;
+  if (threadIdx.x < static_cast<unsigned>(num_sweeps > 0 ? num_sweeps : 1)) {
     const uint4 c = cusmc::philox4x32_10(
         make_uint4(threadIdx.x, 0u, 1u, 0u), key);
     if (threadIdx.x == 0) *s_r = static_cast<int>(c.x & 127u);
     if (static_cast<int>(threadIdx.x) < num_sweeps) {
-      s_db[threadIdx.x] =
-          128 * static_cast<int>((c.y & 0x7FFFFFFFu) %
-                                 static_cast<uint32_t>(n_off));
+      s_db[threadIdx.x] = static_cast<int>(128 * ((c.y & 0x7FFFFFFFu) % n_off));
     }
   }
+  if (threadIdx.x == 0) {
+    const int nb = static_cast<int>(n / tile);
+    int s0 = s[0] % nb;
+    int s1 = s[1] % nb;
+    s0 += s0 < 0 ? nb : 0;
+    s1 += s1 < 0 ? nb : 0;
+    Window w;
+    w.n = n;
+    w.tile = tile;
+    w.ws = (ti + s0) % nb * tile;
+    w.ws2 = (ti + s1) % nb * tile;
+    w.len = num_window_tiles * tile;
+    *s_win = w;
+  }
+  return {ti, key};
 }
 
-// The window of tile ti: its two (three) source tiles.
-__device__ __forceinline__ Window make_window(const int* __restrict__ s,
-                                              long long n, long long tile,
-                                              long long ti,
-                                              int num_window_tiles) {
-  const long long nb = n / tile;
-  long long s0 = s[0] % nb;
-  long long s1 = s[1] % nb;
-  s0 += s0 < 0 ? nb : 0;
-  s1 += s1 < 0 ? nb : 0;
-  Window win;
-  win.n = n;
-  win.tile = tile;
-  win.ws = ((ti + s0) % nb) * tile;
-  win.ws2 = ((ti + s1) % nb) * tile;
-  win.len = num_window_tiles * tile;
-  return win;
-}
-
-// The windowed Metropolis walk of the particle at `lane` of its tile: its
-// ancestor. Leaves bs after the B accept rows.
-__device__ __forceinline__ long long window_ancestor(
-    const float* __restrict__ logw, const Window& win, long long lane,
-    int num_sweeps, const int* s_db, int r, cusmc::BitStream& bs) {
-  const long long base = lane + r;
-  float w_cur = expf(logw[win.at(win.wrap(base))]);
-  int a_off = 0;
-  for (int sw = 0; sw < num_sweeps; ++sw) {
-    const int db = s_db[sw];
-    const float w_cand = expf(logw[win.at(win.wrap(base + db))]);
-    const float u = cusmc::to_uniform(bs.bits(sw));
-    if (__fmul_rn(u, w_cur) < w_cand) {
-      w_cur = w_cand;
-      a_off = db;
+// The windowed Metropolis walks of P particles of one tile, at lanes
+// `lane`: their ancestors `a`. The accept rows are rows 0 .. B - 1 of each
+// particle's stream; `last_g` and `last` return the last group of them that
+// was drawn (-1 when B = 0), which the noise rows that follow may share.
+template <int P>
+__device__ __forceinline__ void window_ancestors(
+    const float* __restrict__ logw, const Window& win,
+    const unsigned (&lane)[P], int num_sweeps, const int* s_db, int r,
+    uint2 key, unsigned (&a)[P], int& last_g, uint4 (&last)[P]) {
+  unsigned base[P];
+  float lw_cur[P];
+  float w_cur[P];
+  int a_off[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    base[i] = lane[i] + r;
+    lw_cur[i] = logw[win.at(win.wrap(base[i]))];
+    w_cur[i] = 0.0f;
+    a_off[i] = 0;
+  }
+  last_g = -1;
+  for (int sw0 = 0; sw0 < num_sweeps || sw0 == 0; sw0 += kWalkChunk) {
+    float lw[kWalkChunk][P];
+#pragma unroll
+    for (int j = 0; j < kWalkChunk; ++j) {
+#pragma unroll
+      for (int i = 0; i < P; ++i) lw[j][i] = 0.0f;
+      if (sw0 + j < num_sweeps) {
+        const unsigned db = s_db[sw0 + j];
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          lw[j][i] = logw[win.at(win.wrap(base[i] + db))];
+        }
+      }
+    }
+    uint4 g[kWalkChunk / 4][P];
+#pragma unroll
+    for (int q = 0; q < kWalkChunk / 4; ++q) {
+#pragma unroll
+      for (int i = 0; i < P; ++i) g[q][i] = make_uint4(0u, 0u, 0u, 0u);
+      if (sw0 + 4 * q < num_sweeps) {
+        last_g = (sw0 >> 2) + q;
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          g[q][i] = cusmc::philox4x32_10(
+              make_uint4(lane[i], static_cast<uint32_t>(last_g), 0u, 0u),
+              key);
+          last[i] = g[q][i];
+        }
+      }
+    }
+    if (sw0 == 0) {
+#pragma unroll
+      for (int i = 0; i < P; ++i) w_cur[i] = expf(lw_cur[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < kWalkChunk; ++j) {
+      if (sw0 + j < num_sweeps) {
+        const int db = s_db[sw0 + j];
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          const float w_cand = expf(lw[j][i]);
+          const float u =
+              cusmc::to_uniform(cusmc::word_of(g[j >> 2][i], j & 3));
+          if (__fmul_rn(u, w_cur[i]) < w_cand) {
+            w_cur[i] = w_cand;
+            a_off[i] = db;
+          }
+        }
+      }
     }
   }
-  return win.at(win.wrap(base + a_off));
+#pragma unroll
+  for (int i = 0; i < P; ++i) a[i] = win.at(win.wrap(base[i] + a_off[i]));
 }
 
-// The "thread" design: propagate.cuh, one particle per thread.
-template <int D, int K, typename T>
+// The "thread" design in bucket (DM, KM) (propagate.cuh), P particles a
+// thread, or at run-time widths (DM = KM = 0, one particle a thread; the
+// matrices staged when `staged`). A block holds kThreads * P particles,
+// particle i of thread t at (block * P + i) * kThreads + t.
+template <int DM, int KM, typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_step_kernel(const T* __restrict__ X, const float* __restrict__ logw,
                   const int* __restrict__ s, const int* __restrict__ seed,
                   cusmc::StepModelT<T> m, T* __restrict__ Xo,
-                  float* __restrict__ ll, int* __restrict__ anc, long long n,
-                  long long tile, int num_sweeps, int num_window_tiles,
+                  float* __restrict__ ll, int* __restrict__ anc, unsigned n,
+                  unsigned tile, int num_sweeps, int num_window_tiles,
                   int staged) {
+  constexpr bool kBucket = DM > 0;
+  constexpr int P = kBucket ? cusmc::bucket_particles<DM>(true) : 1;
+  constexpr int SD = kBucket ? DM : 1;
+  constexpr int SK = kBucket ? KM : 1;
   extern __shared__ float smem[];
+  __shared__ cusmc::BucketModel<SD, SK> s_m;
   __shared__ int s_db[kMaxSweeps];
   __shared__ int s_r;
-  const long long p =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long ti = p / tile;
-  const long long lane = p - ti * tile;
-  const uint2 key = cusmc::philox_key(seed, ti);
-  tile_draws(key, tile, num_sweeps, num_window_tiles, s_db, &s_r);
-  m = cusmc::stage_model(m, smem, staged != 0);
+  __shared__ Window s_win;
+  const BlockTile bt = block_tile(s, seed, n, tile, kThreads * P, num_sweeps,
+                                  num_window_tiles, s_db, &s_r, &s_win);
+  if constexpr (kBucket) {
+    cusmc::stage_bucket(m, s_m);
+  } else {
+    m = cusmc::stage_model(m, smem, staged != 0);
+  }
   __syncthreads();
-  cusmc::BitStream bs(key, static_cast<uint32_t>(lane), 0u);
-  const Window win = make_window(s, n, tile, ti, num_window_tiles);
-  const long long a =
-      window_ancestor(logw, win, lane, num_sweeps, s_db, s_r, bs);
-  anc[p] = static_cast<int>(a);
-  cusmc::propagate_reweight<D, K>(m, X, n, a, Xo, ll, p, bs, num_sweeps);
+  unsigned p[P];
+  unsigned lane[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    p[i] = (blockIdx.x * P + i) * kThreads + threadIdx.x;
+    lane[i] = p[i] - bt.ti * tile;
+  }
+  unsigned a[P];
+  int last_g;
+  uint4 last[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) last[i] = make_uint4(0u, 0u, 0u, 0u);
+  window_ancestors<P>(logw, s_win, lane, num_sweeps, s_db, s_r, bt.key, a,
+                      last_g, last);
+#pragma unroll
+  for (int i = 0; i < P; ++i) anc[p[i]] = static_cast<int>(a[i]);
+  if constexpr (kBucket) {
+    float x[P][DM];
+    cusmc::load_columns(X, n, a, m.d, x);
+    cusmc::RowCursors<P> rows(bt.key, lane, 0u);
+    if (last_g >= 0) rows.hold(last_g, last);
+    cusmc::propagate_bucket(s_m, m, x, n, Xo, ll, p, rows, num_sweeps);
+  } else {
+    cusmc::BitStream bs(bt.key, lane[0], 0u);
+    bs.group = last_g;
+    bs.buf = last[0];
+    cusmc::propagate_reweight(m, X, n, a[0], Xo, ll, p[0], bs, num_sweeps);
+  }
 }
 
-// The "tile" design: tile_propagate.cuh, d = k = D. The tile id, its key
-// and its window are the block's (tile % 128 == 0), formed once.
+// The "tile" design: tile_propagate.cuh, d = k = D.
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 3)
 fused_step_tile_kernel(const T* __restrict__ X,
@@ -168,71 +271,76 @@ fused_step_tile_kernel(const T* __restrict__ X,
                        const int* __restrict__ s,
                        const int* __restrict__ seed, cusmc::StepModelT<T> m,
                        T* __restrict__ Xo, float* __restrict__ ll,
-                       int* __restrict__ anc, long long n, long long tile,
+                       int* __restrict__ anc, unsigned n, unsigned tile,
                        int num_sweeps, int num_window_tiles) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ int s_db[kMaxSweeps];
   __shared__ int s_r;
   __shared__ Window s_win;
-  const long long p0 = static_cast<long long>(blockIdx.x) * kThreads;
-  // n < 2^31 (int32 ancestors): a 32-bit division.
-  const long long ti =
-      static_cast<unsigned>(p0) / static_cast<unsigned>(tile);
-  const uint2 key = cusmc::philox_key(seed, ti);
-  tile_draws(key, tile, num_sweeps, num_window_tiles, s_db, &s_r);
-  if (threadIdx.x == 0) s_win = make_window(s, n, tile, ti, num_window_tiles);
+  const BlockTile bt = block_tile(s, seed, n, tile, kThreads, num_sweeps,
+                                  num_window_tiles, s_db, &s_r, &s_win);
   __syncthreads();
-  const long long p = p0 + threadIdx.x;
-  const long long lane = p - ti * tile;
-  cusmc::BitStream bs(key, static_cast<uint32_t>(lane), 0u);
-  const long long a =
-      window_ancestor(logw, s_win, lane, num_sweeps, s_db, s_r, bs);
-  anc[p] = static_cast<int>(a);
-  cusmc::tile_propagate_reweight<D>(m, smem, X, n, a, Xo, ll, p, bs,
+  const unsigned p = blockIdx.x * kThreads + threadIdx.x;
+  const unsigned lane[1] = {p - bt.ti * tile};
+  unsigned a[1];
+  int last_g;
+  uint4 last[1] = {make_uint4(0u, 0u, 0u, 0u)};
+  window_ancestors<1>(logw, s_win, lane, num_sweeps, s_db, s_r, bt.key, a,
+                      last_g, last);
+  anc[p] = static_cast<int>(a[0]);
+  const cusmc::BitStream bs(bt.key, lane[0], 0u);
+  cusmc::tile_propagate_reweight<D>(m, smem, X, n, a[0], Xo, ll, p, bs,
                                     num_sweeps);
 }
 
-template <int D, int K, typename T>
+template <int DM, int KM, typename T>
 int launch(const T* X, const float* logw, const int* s, const int* seed,
            const cusmc::StepModelT<T>& m, T* Xo, float* ll, int* anc,
-           long long n, long long tile, int num_sweeps, int wt,
+           unsigned n, unsigned tile, int num_sweeps, int wt,
            cudaStream_t stream) {
-  const size_t bytes = cusmc::model_bytes<T>(m.d, m.k);
-  const int staged = bytes <= cusmc::kStageBytes ? 1 : 0;
-  const long long blocks = n / kThreads;
-  fused_step_kernel<D, K, T><<<static_cast<unsigned>(blocks), kThreads,
-                               staged ? bytes : 0, stream>>>(
-      X, logw, s, seed, m, Xo, ll, anc, n, tile, num_sweeps, wt, staged);
+  if constexpr (DM > 0) {
+    constexpr unsigned per_block =
+        kThreads * cusmc::bucket_particles<DM>(true);
+    if (m.d > DM || m.k > KM) return static_cast<int>(cudaErrorInvalidValue);
+    if (tile % per_block != 0) {  // a block would straddle two tiles
+      return launch<0, 0>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
+                          num_sweeps, wt, stream);
+    }
+    fused_step_kernel<DM, KM, T><<<n / per_block, kThreads, 0, stream>>>(
+        X, logw, s, seed, m, Xo, ll, anc, n, tile, num_sweeps, wt, 0);
+  } else {
+    const size_t bytes = cusmc::model_bytes<T>(m.d, m.k);
+    const int staged = bytes <= cusmc::kStageBytes ? 1 : 0;
+    fused_step_kernel<0, 0, T><<<n / kThreads, kThreads, staged ? bytes : 0,
+                                 stream>>>(X, logw, s, seed, m, Xo, ll, anc, n,
+                                           tile, num_sweeps, wt, staged);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, typename T>
 int launch_tile(const T* X, const float* logw, const int* s,
                 const int* seed, const cusmc::StepModelT<T>& m, T* Xo,
-                float* ll, int* anc, long long n, long long tile,
+                float* ll, int* anc, unsigned n, unsigned tile,
                 int num_sweeps, int wt, cudaStream_t stream) {
   constexpr size_t bytes = cusmc::TileLayout<D, T>::bytes(kThreads / 32);
   static_assert(bytes <= cusmc::kStageBytes,
                 "above 48 KB the launch needs cudaFuncSetAttribute");
-  const long long blocks = n / kThreads;
-  fused_step_tile_kernel<D, T><<<static_cast<unsigned>(blocks), kThreads,
-                                 bytes, stream>>>(X, logw, s, seed, m, Xo, ll,
-                                                  anc, n, tile, num_sweeps,
-                                                  wt);
+  fused_step_tile_kernel<D, T><<<n / kThreads, kThreads, bytes, stream>>>(
+      X, logw, s, seed, m, Xo, ll, anc, n, tile, num_sweeps, wt);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One element type: the design that `tiled` names, at the compiled
-// widths.
+// One element type: the design that `tiled` names; for the "thread" one,
+// the width bucket (dm, km) (0, 0: run-time widths).
 template <typename T>
 int launch_step(const T* X, const float* logw, const int* s, const int* seed,
                 const cusmc::StepModelT<T>& m, T* Xo, float* ll, int* anc,
-                long long n, long long tile, int num_sweeps, int wt,
-                int tiled, cudaStream_t st) {
-  const int d = m.d;
+                unsigned n, unsigned tile, int num_sweeps, int wt,
+                int tiled, int dm, int km, cudaStream_t st) {
   if (tiled) {
-    switch (d == m.k ? d : 0) {
+    switch (m.d == m.k ? m.d : 0) {
       case 16:
         return launch_tile<16>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
                                num_sweeps, wt, st);
@@ -243,20 +351,21 @@ int launch_step(const T* X, const float* logw, const int* s, const int* seed,
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  switch (d == m.k ? d : 0) {
-    case 2:
-      return launch<2, 2>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
+#define CUSMC_BUCKET(DM, KM)                                              \
+  if (dm == DM && km == KM)                                               \
+    return launch<DM, KM>(X, logw, s, seed, m, Xo, ll, anc, n, tile,      \
                           num_sweeps, wt, st);
-    case 4:
-      return launch<4, 4>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
-                          num_sweeps, wt, st);
-    case 8:
-      return launch<8, 8>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
-                          num_sweeps, wt, st);
-    default:
-      return launch<0, 0>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
-                          num_sweeps, wt, st);
-  }
+  CUSMC_BUCKET(2, 1)
+  CUSMC_BUCKET(2, 2)
+  CUSMC_BUCKET(4, 1)
+  CUSMC_BUCKET(4, 4)
+  CUSMC_BUCKET(8, 1)
+  CUSMC_BUCKET(8, 8)
+  CUSMC_BUCKET(16, 1)
+  CUSMC_BUCKET(16, 16)
+  CUSMC_BUCKET(0, 0)
+#undef CUSMC_BUCKET
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -266,18 +375,22 @@ int launch_step(const T* X, const float* logw, const int* s, const int* seed,
 // and Li [k, k] (f32), all contiguous, s [2] and seed [2] int32 on the
 // device -> Xo [d, n] of X's type, ll [n] f32, anc [n] int32. The caller
 // checks n % tile == 0, tile % 128 == 0, n >= num_window_tiles * tile,
-// d, k <= 128, num_sweeps <= 128 and, for bf16, even d. noise: 0 MVN,
-// 1 MVT; df_int 0 selects Marsaglia-Tsang. tiled: 1 takes the "tile"
-// design, which needs d = k in {16, 32} (cudaErrorInvalidValue
-// otherwise), 0 the "thread" one.
+// d, k <= 128, num_sweeps <= 128, n < 2^31 and, for bf16, even d. noise:
+// 0 MVN, 1 MVT; df_int 0 selects Marsaglia-Tsang. tiled: 1 takes the
+// "tile" design, which needs d = k in {16, 32}, 0 the "thread" one in the
+// width bucket (dm, km) of ops/fused_step.py::thread_widths (d <= dm,
+// k <= km; 0, 0 for run-time widths). cudaErrorInvalidValue for a shape or
+// a bucket that is not compiled.
 CUSMC_EXPORT int cusmc_fused_step(
     const void* X, const float* logw, const float* y, const void* G,
     const void* Q, const void* F, const float* Li, const int* s,
     const int* seed, void* Xo, float* ll, int* anc, long long n,
     long long tile, int d, int k, int num_sweeps, int num_window_tiles,
-    int noise, int df_int, float df, float log_norm, int tiled, int bf16,
-    void* stream) {
+    int noise, int df_int, float df, float log_norm, int tiled, int dm,
+    int km, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned nu = static_cast<unsigned>(n);
+  const unsigned tu = static_cast<unsigned>(tile);
   if (bf16) {
     using B = __nv_bfloat16;
     const cusmc::StepModelT<B> m{static_cast<const B*>(G),
@@ -285,14 +398,14 @@ CUSMC_EXPORT int cusmc_fused_step(
                                  static_cast<const B*>(F),
                                  Li, y, d, k, noise, df_int, df, log_norm};
     return launch_step<B>(static_cast<const B*>(X), logw, s, seed, m,
-                          static_cast<B*>(Xo), ll, anc, n, tile, num_sweeps,
-                          num_window_tiles, tiled, st);
+                          static_cast<B*>(Xo), ll, anc, nu, tu, num_sweeps,
+                          num_window_tiles, tiled, dm, km, st);
   }
   const cusmc::StepModel m{static_cast<const float*>(G),
                            static_cast<const float*>(Q),
                            static_cast<const float*>(F),
                            Li, y, d, k, noise, df_int, df, log_norm};
   return launch_step<float>(static_cast<const float*>(X), logw, s, seed, m,
-                            static_cast<float*>(Xo), ll, anc, n, tile,
-                            num_sweeps, num_window_tiles, tiled, st);
+                            static_cast<float*>(Xo), ll, anc, nu, tu,
+                            num_sweeps, num_window_tiles, tiled, dm, km, st);
 }

@@ -257,7 +257,9 @@ __device__ __forceinline__ void tile_propagate_reweight(
     }
   }
   BitStream bc(bs.key, bs.lane, bs.stream);  // the chi-square rows
-  scale[lane] = m.mvt ? mvt_scale(bc, zrow + 2 * D, m) : 1.0f;
+  float s1[1] = {1.0f};
+  if (m.mvt) mvt_scales(bc, zrow + 2 * D, m, s1);
+  scale[lane] = s1[0];
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncwarp();
 
@@ -480,7 +482,9 @@ __device__ __forceinline__ void tile_propagate_reweight(
     }
   }
   BitStream bc(bs.key, bs.lane, bs.stream);  // the chi-square rows
-  scale[lane] = m.mvt ? mvt_scale(bc, zrow + 2 * D, m) : 1.0f;
+  float s1[1] = {1.0f};
+  if (m.mvt) mvt_scales(bc, zrow + 2 * D, m, s1);
+  scale[lane] = s1[0];
   // Each lane's row of T1 (its ancestor) and of T2 (its normals, rounded
   // to bfloat16), eight components a 16-byte store.
 #pragma unroll

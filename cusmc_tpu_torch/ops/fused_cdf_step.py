@@ -24,8 +24,10 @@ floats of the stretch between the block's first and last position
 (``csrc/common.cuh``). Its propagate-and-reweight half takes the design
 that ``ops.fused_step.step_path(d, k)`` names, the rule of the
 fused Metropolis step: "tile" (d = k in {16, 32}: 3xTF32 tensor-core
-tiles, ``csrc/tile_propagate.cuh``) or "thread" (``csrc/propagate.cuh``).
-The plain version is the same for both.
+tiles, ``csrc/tile_propagate.cuh``) or "thread" (``csrc/propagate.cuh``),
+the latter in the width bucket ``ops.fused_step.thread_widths(d, k)``
+(the block's Philox key and ``pscale`` formed once, in 32 bits). The
+plain version is the same for both.
 
 The TPU kernel's group-bound tables (``srows``, ``wcnt``, ``woff``,
 ``grows``, ``:383-411``) place Mosaic's DMA windows and are not ported;
@@ -49,6 +51,7 @@ from cusmc_tpu_torch.ops.fused_step import (
     propagate_reweight_plain,
     require_model,
     step_path,
+    thread_widths,
     to_uniform,
 )
 from cusmc_tpu_torch.ops.philox import philox_bits
@@ -177,6 +180,8 @@ def fused_cdf_filter_step(cdf, X, y, G, Q, F, Li, df, log_norm, draws, *,
     kernels.require(u, "u", torch.float32, 0, dev)
     if cdf.shape[0] != n:
         raise ValueError(f"cdf [{cdf.shape[0]}] does not match N={n}")
+    tiled = step_path(d, k) == "tile"
+    dm, km = (0, 0) if tiled else thread_widths(d, k)
     lib = kernels.library()
     x_new = torch.empty_like(X)
     ll = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -187,8 +192,7 @@ def fused_cdf_filter_step(cdf, X, y, G, Q, F, Li, df, log_norm, draws, *,
         seed.data_ptr(), x_new.data_ptr(), ll.data_ptr(), a.data_ptr(), n,
         tile, d, k, MODES.index(mode), int(noise == "mvt"),
         0 if df_int is None else df_int, 1.0 if df is None else float(df),
-        float(log_norm), int(step_path(d, k) == "tile"),
-        kernels.stream_of(X))
+        float(log_norm), int(tiled), dm, km, kernels.stream_of(X))
     kernels.check(rc, "fused_cdf_filter_step")
     fused_cdf_filter_step.launches += 1
     return x_new, ll, a

@@ -36,6 +36,20 @@ through the four matrix products as 3xTF32 tensor-core tiles,
 particle per thread, ``csrc/propagate.cuh``). Both draw the same bits
 and give the same ancestors; the plain version is the same for both.
 
+The "thread" design runs in a compiled width bucket, ``thread_widths(d,
+k)`` = (DM, KM) with DM >= d and KM >= k: its loops are unrolled to DM
+and KM and guarded by d and k, so that its vectors live in registers,
+and each normal is drawn and added into ``Q z`` in one pass over the
+columns, while the ancestor's column is in flight. Shapes wider than the
+largest bucket (16) run at run-time widths, with their vectors in local
+memory. The walk and the block's tile, key and window are formed in 32
+bits, once a block, and a particle's candidate weights are loaded a
+chunk of sweeps at a time, with the chunk's accept uniforms drawn while
+they fly; the accept chain keeps the sweeps' order. Each group of four
+Philox rows is drawn once a particle, even where the accept rows and the
+noise rows share one. The fused inverse-CDF step takes the same buckets
+(``ops/fused_cdf_step.py``).
+
 The state is float32 or, under mixed precision, bfloat16 with ``G``,
 ``Q`` and ``F`` in the state's type (``:223-229, 277-289, 329-336``); the
 weights, ``Li``, ``y``, the noise's scale and ``ll`` stay float32. The
@@ -129,12 +143,33 @@ def auto_tile(n: int, dk: int, state_itemsize: int = 4) -> int:
 
 
 TILE_DIMS = (16, 32)  # d = k compiled for the "tile" design
+# The "thread" design's compiled state widths: each with an observation
+# width of 1 (the univariate models, the structural family) and of itself.
+THREAD_BUCKET_DIMS = (2, 4, 8, 16)
 
 
 def step_path(d: int, k: int) -> str:
     """The design the kernel runs for state width d and observation width
     k: "tile" for d = k in ``TILE_DIMS``, else "thread"."""
     return "tile" if d == k and d in TILE_DIMS else "thread"
+
+
+def thread_widths(d: int, k: int) -> Tuple[int, int]:
+    """The "thread" design's compiled width bucket (DM, KM) for state
+    width d and observation width k, both kernels' rule: DM the smallest
+    of ``THREAD_BUCKET_DIMS`` at least d (at least max(d, k) when k > 1),
+    KM = 1 for k = 1, else DM; (0, 0), the run-time widths, when that
+    exceeds the largest bucket. The "tile" design's shapes have no bucket
+    (ValueError)."""
+    if not (1 <= d <= MAX_MXU_DIM and 1 <= k <= MAX_MXU_DIM):
+        raise ValueError(f"no fused step at d={d}, k={k}")
+    if step_path(d, k) == "tile":
+        raise ValueError(f"d = k = {d} takes the tile design")
+    want = d if k == 1 else max(d, k)
+    for width in THREAD_BUCKET_DIMS:
+        if want <= width:
+            return width, 1 if k == 1 else width
+    return 0, 0
 
 
 def fused_filter_step_draws(gen: Optional[torch.Generator], n: int,
@@ -349,6 +384,7 @@ def fused_filter_step(X, logw, y, G, Q, F, Li, df, log_norm, draws, *,
     if logw.shape[0] != n or s.shape[0] != 2:
         raise ValueError("logw [N] and s [2] expected")
     tiled = step_path(d, k) == "tile"
+    dm, km = (0, 0) if tiled else thread_widths(d, k)
     if bf16 and tiled and any(m.data_ptr() % 4 for m in (G, Q, F)):
         raise ValueError("the bfloat16 tile design reads G, Q and F in "
                          "4-byte words: they must be 4-byte aligned")
@@ -362,7 +398,7 @@ def fused_filter_step(X, logw, y, G, Q, F, Li, df, log_norm, draws, *,
         seed.data_ptr(), x_new.data_ptr(), ll.data_ptr(), a.data_ptr(), n,
         tile, d, k, num_sweeps, num_window_tiles, int(noise == "mvt"),
         0 if df_int is None else df_int, 1.0 if df is None else float(df),
-        float(log_norm), int(tiled), bf16,
+        float(log_norm), int(tiled), dm, km, bf16,
         kernels.stream_of(X))
     kernels.check(rc, "fused_filter_step")
     if bf16:

@@ -65,13 +65,13 @@ SIGNATURES = {
     "cusmc_roll_metropolis": (_P,) * 6 + (_LL, _I, _I, _I, _I, _P),
     # X, logw, y, G, Q, F, Li, s, seed, Xo, ll, anc, n, tile, d, k,
     # num_sweeps, num_window_tiles, noise, df_int, df, log_norm, tiled,
-    # bf16, stream
+    # dm, km, bf16, stream
     "cusmc_fused_step": (_P,) * 12 + (_LL, _LL) + (_I,) * 6
-    + (_F, _F, _I, _I, _P),
+    + (_F, _F, _I, _I, _I, _I, _P),
     # cdf, X, y, G, Q, F, Li, u, seed, Xo, ll, anc, n, tile, d, k, mode,
-    # noise, df_int, df, log_norm, tiled, stream
+    # noise, df_int, df, log_norm, tiled, dm, km, stream
     "cusmc_fused_cdf_step": (_P,) * 12 + (_LL, _LL) + (_I,) * 5
-    + (_F, _F, _I, _P),
+    + (_F, _F, _I, _I, _I, _P),
 }
 
 # Filled by ``library()``: the build's wall time and nvcc's output (ptxas

@@ -38,6 +38,18 @@ def monthly_dlm(device, noise="mvn"):
     return chip_smoke.monthly_model(device, noise)
 
 
+def monthly_mats():
+    """G, Q, F, Li of the monthly structural DLM (d = 13, k = 1) on the
+    CPU, as contiguous float32 numpy arrays."""
+    from cusmc_tpu_torch.models import structural
+
+    m = structural.combine([structural.local_linear_trend(init_var=0.01),
+                            structural.seasonal(12, init_var=0.01)],
+                           device="cpu")
+    return tuple(np.ascontiguousarray(t.numpy(), dtype=np.float32)
+                 for t in (m.G, m.W_sqrt, m.F, m.V_chol_inv))
+
+
 def offset_clgssm(device, mats_constant):
     """The offset CLGSSM of benchmarks/bench_subsystems.py:43-66 (the demo
     DLM, d = k = 2, with a [sin u, cos u] observation offset), as

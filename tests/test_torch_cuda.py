@@ -22,7 +22,8 @@ accept tests and positions), states and log-likelihoods at rtol 1e-4,
 atol 1e-4 (the kernel sums its d- and k-term products in FMA chains, or
 at d = k in {16, 32} in 3xTF32 tensor-core tiles, cuBLAS in its own
 order; the residual y - F x cancels, and the quadratic form multiplies it
-by Li). The "tile" design's statistical oracle runs here with
+by Li), in every width bucket of the "thread" design and beyond it. The
+"tile" design's statistical oracle runs here with
 chip_smoke.py's functions and limits (tests/test_torch_wide_oracle.py
 states them), so chip_smoke.py must sit at the root of the checkout.
 """
@@ -554,6 +555,88 @@ def test_cuda_fused_cdf_kernel(cuda, d, mode, noise, df, n):
     _close(ll, ll_p)
 
 
+# Shapes at the edges of the "thread" design's width buckets
+# (ops/fused_step.thread_widths: DM in {2, 4, 8, 16}, KM in {1, DM}) and
+# beyond the last, where the run-time widths take over.
+BUCKET_EDGES = [(1, 1), (2, 1), (3, 3), (4, 1), (8, 8), (9, 1), (13, 1),
+                (16, 1), (16, 8), (17, 1), (17, 17), (40, 40), (64, 64)]
+
+
+def _bucket_model(d, k, cuda):
+    """(G, Q, F, Li) of width d and observation width k, made from a seed:
+    a stable G, a lower-triangular Q, a dense F and a triangular Li."""
+    rng = np.random.default_rng(100 * d + k)
+    mats = (0.9 * np.eye(d) + 0.05 * rng.standard_normal((d, d)),
+            0.1 * np.eye(d) + 0.02 * np.tril(rng.standard_normal((d, d))),
+            0.3 * rng.standard_normal((k, d)),
+            np.eye(k) / 0.3 + 0.1 * np.tril(rng.standard_normal((k, k)), -1))
+    return tuple(torch.tensor(m, dtype=torch.float32, device=cuda)
+                 for m in mats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["metropolis", "systematic", "stratified"])
+@pytest.mark.parametrize("d,k", BUCKET_EDGES)
+def test_cuda_fused_kernels_at_bucket_edges(cuda, d, k, kind):
+    # Both fused kernels' "thread" design in each bucket it compiles and at
+    # run-time widths: ancestors exactly the plain version's, states and
+    # log-likelihoods at rtol 1e-4, atol 1e-4.
+    noise = "mvt" if (d + k) % 2 else "mvn"
+    df, df_int = (5.0, 5) if noise == "mvt" else (None, None)
+    n = 1 << 16
+    gen = torch.Generator(device=cuda).manual_seed(d * 131 + k)
+    X = 0.1 * torch.randn((d, n), generator=gen, device=cuda)
+    logw = -5.0 * torch.rand(n, generator=gen, device=cuda)
+    y = torch.full((k,), 0.05, device=cuda)
+    G, Q, F, Li = _bucket_model(d, k, cuda)
+    dm, km = fs.thread_widths(d, k)
+    assert (dm, km) == ((0, 0) if (d if k == 1 else max(d, k)) > 16
+                        else (dm, 1 if k == 1 else dm))
+    if kind == "metropolis":
+        wrapper = fs.fused_filter_step
+        draws = fs.fused_filter_step_draws(gen, n, 2048, cuda)
+        kw = dict(noise=noise, num_sweeps=10, tile=2048, df_int=df_int)
+        args = (X, logw, y, G, Q, F, Li, df, -0.75, draws)
+        plain = fs.fused_filter_step_plain(*args, **kw)
+    else:
+        wrapper = fc.fused_cdf_filter_step
+        cdf, _ = blocked_cumsum(torch.exp(logw))
+        draws = fc.fused_cdf_filter_step_draws(gen, cuda)
+        kw = dict(noise=noise, mode=kind, df_int=df_int)
+        args = (cdf, X, y, G, Q, F, Li, df, -0.75, draws)
+        plain = fc.fused_cdf_filter_step_plain(*args, **kw)
+    before = wrapper.launches
+    out = wrapper(*args, **kw)
+    assert wrapper.launches == before + 1
+    assert torch.equal(out[2], plain[2])
+    _close(out[0], plain[0])
+    _close(out[1], plain[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,noise", [(2, "mvt"), (13, "mvn")])
+def test_cuda_fused_step_kernel_on_a_tile_of_an_odd_multiple_of_128(
+        cuda, d, noise):
+    # A bucket's block of 256 particles would straddle two tiles of 384:
+    # the kernel runs the run-time widths there, with the same results.
+    n, tile = 384 * 32, 384
+    gen = torch.Generator(device=cuda).manual_seed(384 + d)
+    X = 0.1 * torch.randn((d, n), generator=gen, device=cuda)
+    logw = -5.0 * torch.rand(n, generator=gen, device=cuda)
+    y = torch.full((d,), 0.05, device=cuda)
+    G, Q, F, Li = _bucket_model(d, d, cuda)
+    df, df_int = (5.0, 5) if noise == "mvt" else (None, None)
+    draws = fs.fused_filter_step_draws(gen, n, tile, cuda)
+    args = (X, logw, y, G, Q, F, Li, df, -0.75, draws)
+    kw = dict(noise=noise, num_sweeps=10, tile=tile, df_int=df_int)
+    x, ll, a = fs.fused_filter_step(*args, **kw)
+    x_p, ll_p, a_p = fs.fused_filter_step_plain(*args, **kw)
+    assert fs.thread_widths(d, d) != (0, 0)
+    assert torch.equal(a, a_p)
+    _close(x, x_p)
+    _close(ll, ll_p)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [16, 32])
 @pytest.mark.parametrize("kind", ["metropolis", "cdf"])
@@ -654,7 +737,7 @@ def test_cuda_bf16_roll_and_search_and_apply_kernels(cuda, d):
 @pytest.mark.parametrize("d,noise,df", [
     (2, "mvn", None), (2, "mvt", 5.0), (4, "mvt", 5.5), (6, "mvn", None),
     (16, "mvn", None), (16, "mvt", 5.0), (32, "mvt", 5.0),
-    (32, "mvt", 5.5)])
+    (32, "mvt", 5.5), (6, "mvt", 5.0), (8, "mvn", None), (40, "mvt", 5.0)])
 def test_cuda_bf16_fused_step_kernel(cuda, d, noise, df):
     # The fused Metropolis step on a bfloat16 state: the float32 kernel's
     # ancestors, and chip_smoke.py's rule for the states (bitwise but for
@@ -767,7 +850,7 @@ def test_cuda_search_and_roll_at_model_widths(cuda, case, d):
 @pytest.mark.parametrize("kind", ["metropolis", "systematic", "stratified"])
 @pytest.mark.parametrize("noise", ["mvn", "mvt"])
 def test_cuda_fused_kernels_at_d13_k1(cuda, kind, noise):
-    # The fused kernels' runtime-width "thread" template (launch<0, 0>)
+    # The fused kernels' "thread" design in its (16, 1) width bucket
     # on the monthly DLM, d = 13, k = 1: ancestors exactly, states and
     # log-likelihoods at rtol 1e-4, atol 1e-4, as at the other widths.
     m = monthly_dlm(cuda, noise)

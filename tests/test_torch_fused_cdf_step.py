@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_inputs import monthly_mats
 from _torch_replay import fused_cdf_draws, fused_filter_parity, jax_model, \
     port_model, zero_bits
 
@@ -85,6 +86,38 @@ def test_step_matches_jax_kernel_with_zero_bits(mode, noise, df, df_int, n):
     pos = (np.arange(n, dtype=np.float32) + u).astype(np.float32) * pscale
     expect = np.minimum(np.searchsorted(cdf, pos, side="right"), n - 1)
     np.testing.assert_array_equal(a.numpy(), expect)
+
+
+@pytest.mark.parametrize("mode,noise,df,df_int", [
+    ("systematic", "mvn", None, None), ("systematic", "mvt", 5.0, 5),
+    ("stratified", "mvn", None, None), ("stratified", "mvt", 5.0, 5)])
+def test_step_matches_jax_kernel_at_the_structural_width(mode, noise, df,
+                                                         df_int):
+    # d = 13, k = 1 (the monthly structural DLM's matrices), the width
+    # whose kernel takes the (16, 1) bucket of the "thread" design.
+    from cusmc_tpu_torch.ops.fused_step import thread_widths
+
+    G, Q, F, Li = monthly_mats()
+    d = G.shape[0]
+    cdf, X, _, _, _, _, _ = _inputs(seed=4, d=d)
+    X = (0.3 * X).astype(np.float32)
+    y = np.array([0.2], dtype=np.float32)
+    key = jax.random.key(23)
+    xr, llr, ar = jax_step(
+        key, jnp.asarray(cdf), jnp.asarray(cdf[127::128]),
+        *map(jnp.asarray, (X, y, G, Q, F, Li)),
+        None if df is None else jnp.float32(df), jnp.float32(-0.5),
+        noise=noise, mode=mode, tile=TILE, interpret=True, df_int=df_int)
+    x, ll, a = fc.fused_cdf_filter_step_plain(
+        *map(torch.from_numpy, (cdf, X, y, G, Q, F, Li)), df, -0.5,
+        fused_cdf_draws(key), noise=noise, mode=mode, tile=TILE,
+        df_int=df_int, bits=zero_bits)
+    assert thread_widths(d, F.shape[0]) == (16, 1)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ar))
+    np.testing.assert_allclose(x.numpy(), np.asarray(xr), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(ll.numpy(), np.asarray(llr), rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_filter_matches_jax_with_zero_bits(monkeypatch):

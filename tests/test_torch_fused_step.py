@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_inputs import monthly_mats
 from _torch_replay import fused_filter_parity, fused_log_norm, \
     fused_step_draws, jax_model, port_model, zero_bits
 
@@ -106,6 +107,66 @@ def test_step_matches_jax_kernel_at_tile_widths(d, noise, df, df_int):
                                atol=ATOL)
     np.testing.assert_allclose(ll.numpy(), np.asarray(llr), rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("noise,df,df_int", [("mvn", None, None),
+                                             ("mvt", 5.0, 5)])
+def test_step_matches_jax_kernel_at_the_structural_width(noise, df, df_int):
+    # d = 13, k = 1, the width whose kernel takes the (16, 1) bucket of the
+    # "thread" design on the card: its plain version agrees with the JAX
+    # kernel here.
+    G, Q, F, Li = monthly_mats()
+    d, k = G.shape[0], F.shape[0]
+    rng = np.random.default_rng(3)
+    X = (0.3 * rng.standard_normal((d, N))).astype(np.float32)
+    logw = (2.0 * rng.standard_normal(N)).astype(np.float32)
+    logw -= logw.max()
+    y = np.array([0.2], dtype=np.float32)
+    key = jax.random.key(17)
+    xr, llr, ar = jax_fused_step(
+        key, *map(jnp.asarray, (X, logw, y, G, Q, F, Li)),
+        None if df is None else jnp.float32(df), jnp.float32(-0.5),
+        noise=noise, num_sweeps=10, tile=TILE, interpret=True,
+        df_int=df_int)
+    x, ll, a = fs.fused_filter_step_plain(
+        *map(torch.from_numpy, (X, logw, y, G, Q, F, Li)), df, -0.5,
+        fused_step_draws(key, N, TILE), noise=noise, num_sweeps=10,
+        tile=TILE, df_int=df_int, bits=zero_bits)
+    assert (d, k) == (13, 1) and fs.thread_widths(d, k) == (16, 1)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ar))
+    np.testing.assert_allclose(x.numpy(), np.asarray(xr), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(ll.numpy(), np.asarray(llr), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_thread_widths_cover_every_shape():
+    # Both kernels' rule for the "thread" design's compiled buckets, over
+    # every d, k <= 128: the smallest bucket that covers the shape, k = 1
+    # in a bucket of its own, the tile shapes in none, and the run-time
+    # widths beyond the largest bucket.
+    dims = fs.THREAD_BUCKET_DIMS
+    seen = set()
+    for d in range(1, fs.MAX_MXU_DIM + 1):
+        for k in range(1, fs.MAX_MXU_DIM + 1):
+            if fs.step_path(d, k) == "tile":
+                with pytest.raises(ValueError):
+                    fs.thread_widths(d, k)
+                continue
+            dm, km = fs.thread_widths(d, k)
+            seen.add((dm, km))
+            want = d if k == 1 else max(d, k)
+            if want > dims[-1]:
+                assert (dm, km) == (0, 0), (d, k)
+                continue
+            assert d <= dm and k <= km, (d, k)
+            assert (km == 1) == (k == 1) and km in (1, dm), (d, k)
+            assert dm == min(w for w in dims if w >= want), (d, k)
+    assert seen == ({(w, 1) for w in dims} | {(w, w) for w in dims}
+                    | {(0, 0)})
+    for d, k in ((0, 1), (1, 0), (129, 1), (2, 129)):
+        with pytest.raises(ValueError):
+            fs.thread_widths(d, k)
 
 
 @pytest.mark.parametrize("d,k,path", [

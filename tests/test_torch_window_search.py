@@ -395,8 +395,9 @@ def test_fused_step_positions_give_the_plain_ancestors(mode):
 @pytest.mark.parametrize("d,k", [(2, 2), (5, 5), (16, 16), (32, 32),
                                  (16, 8), (32, 16)])
 def test_fused_cdf_step_takes_its_design_from_step_path(monkeypatch, d, k):
-    # The wrapper hands the kernel fused_step.step_path's choice; a stand-in
-    # library records it (the CPU has no kernel to launch).
+    # The wrapper hands the kernel fused_step.step_path's choice and, for
+    # the "thread" design, its width bucket; a stand-in library records
+    # them (the CPU has no kernel to launch).
     calls = []
 
     class Library:
@@ -416,6 +417,8 @@ def test_fused_cdf_step_takes_its_design_from_step_path(monkeypatch, d, k):
         fc.fused_cdf_filter_step_draws(None), tile=1024)
     assert fc.fused_cdf_filter_step.launches == before + 1
     assert fc.step_path is fs.step_path
-    tiled = calls[0][-2]
+    tiled, dm, km = calls[0][-4:-1]
     assert tiled == int(fs.step_path(d, k) == "tile")
     assert tiled == int(d == k and d in (16, 32))
+    # The "thread" design's width bucket, fused_step.thread_widths's.
+    assert (dm, km) == ((0, 0) if tiled else fs.thread_widths(d, k))
