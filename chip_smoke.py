@@ -7,9 +7,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. The card's name and power limit, from nvidia-smi.
 2. Build: nvcc compiles the port's kernels (cusmc_tpu_torch/csrc/*.cu),
-   one process per source, all started together; the phase fails when a
-   width bucket of the fused kernels' "thread" design reports a stack
-   frame or a spill (ptxas), or when the draws' exact rewrites
+   one process per source, all started together; the phase fails when an
+   instantiation of the fused kernels (every "thread" bucket, exact tile
+   and padded tile width, FUSED_INSTANCES) reports a stack frame or a
+   spill (ptxas), or when the draws' exact rewrites
    (``cos_reduced``, ``to_uniform``) differ from cosf and float(m) 2^-23
    on any of their 2^23 arguments (a small check built beside them).
 3. Kernels: each kernel against its plain PyTorch version on the same
@@ -19,11 +20,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    queries; the prefix sum also at a few-element N, on weights that stress
    its tile boundaries, with one kernel a call counted by the profiler and
    the same result on a second call); the fused Metropolis step at
-   N = 2^20, d = 2, 16 and 32, MVN and MVT df=5, with the design each d
-   takes ("thread" or "tile"); the fused inverse-CDF step, systematic and
-   stratified, at N = 2^20 and N = 1_000_448, d = 2, 16 and 32, with its
-   design. The search-only kernel, the search-and-apply and the fused
-   inverse-CDF step search the cdf through
+   N = 2^20, d = 2, 16, 32, 64 and 128, MVN and MVT df=5, with the design
+   each d takes ("thread" or "tile"); the fused inverse-CDF step,
+   systematic and stratified, at N = 2^20 and N = 1_000_448, d = 2, 16,
+   32, 64 and 128, with its design. The search-only kernel, the
+   search-and-apply and the fused inverse-CDF step search the cdf through
    a block window; the share of blocks whose stretch fits the window is
    printed for each weight kind. Ancestors must be equal; a
    mismatch is allowed only at an exact accept or cdf tie, and each one is
@@ -76,17 +77,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    alone. Then the fused kernels at the widths of
    FUSED_WIDTHS (``check_fused_widths``: the Metropolis step at d = 2
    float32 and bfloat16, 4, 5, 8 and the monthly DLM's d = 13, k = 1, MVN
-   and MVT; the CDF step at d = 2 and 13; the "tile" shapes), each held to
-   its plain version and printed with its width bucket, then timed with
-   L2 warm and cold beside the bound of ``fused_bound`` (bytes, and the
-   Philox multiplies, special functions and flops at their rates).
+   and MVT; the CDF step at d = 2 and 13; the exact "tile" shapes; past 16
+   the padded "tile" widths: the Metropolis step at d = k = 24, 40, 64 and
+   128, (32, 1), (64, 1) and (2, 64), MVN and MVT, bfloat16 at 64 and 128,
+   the CDF step at 64 and 128), each held to its plain version and printed
+   with its design and widths, then timed with L2 warm and cold beside the
+   bound of ``fused_bound`` (bytes, and the Philox multiplies, special
+   functions and flops at their rates, at the unpadded widths; the padded
+   tiles' flops printed beside).
 3b. Statistics of the fused kernels (benchmarks/validate_fused_tpu.py
    checks 1-5d with their thresholds): zero-noise consistency, offspring
    against the indexed Metropolis resampler, noise moments, the inverse-CDF
    sandwich with an exact gather, stratified offspring, and log-evidence
    against the Kalman filter and the composed path.
-3c. The "tile" design's oracle, for both fused kernels at d = 16 and 32
-   (systematic for the CDF step), the design printed beside each case:
+3c. The "tile" design's oracle, for both fused kernels at d = 16, 32 and
+   64 (systematic for the CDF step; d = 64 in the padded widths' kernel),
+   the design printed beside each case:
    (1) a dense G with Q = 0 gives G x of the kernel's own ancestors within
    1e-5 of |G| |x| entrywise; (2) X = 0, G = 0 and a dense lower-triangular
    Q give noise whose mean and second moment stay within 5 standard errors
@@ -301,7 +307,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    tree's fused wrappers in turns (``fused_row``). ``--rolls`` runs only
    the roll walk's part of phase 3, those rows (keeping their inputs) and
    phase 5 on them, and prints no result; ``--fused`` only the fused
-   kernels' part of phase 3 and the pallas rows, ``--timed DIR ...``
+   kernels' part of phase 3, the pallas rows and the d >= 64 rows
+   (``wide_rows``, the README's pallas regime: the demo model at d = k =
+   64 and 128, float32 and bfloat16, MVT df=5, N=2^20, T=200, metropolis
+   B=10, pallas beside xla in turns, best of 3: particle-steps/s, ESS/s,
+   busy share, the step kernel's ms a step and both engines'
+   log-evidence beside the Kalman value, each run's log-evidence finite
+   and its launches exact), ``--timed DIR ...``
    adding trees that are timed there and held to nothing (variants that
    drop work), and prints no result.
 
@@ -329,6 +341,8 @@ N_RAGGED_CDF = 1_000_448  # 977 * 1024: the fused CDF step needs N % 1024
 D = 2
 D_MID = 16   # the narrower width of the fused steps' "tile" design
 D_WIDE = 32
+D_PAD = 64   # a width of the "tile" design's padded widths (phase 3c)
+FUSED_PAD_DIMS = (D_PAD, 128)  # d = k of phase 3's padded-width cases
 TIMING_REPS = 20
 PLAIN_FUSED_REPS = 5      # the plain fused steps take tens of ms a call
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published (700 W part)
@@ -536,11 +550,17 @@ def kernels_per_call(fn, reps: int = TIMING_REPS) -> int:
     return round(sum(count for count, _ in kernels.values()) / reps)
 
 
-# A "thread" design instantiation of either fused kernel, and its width
-# bucket (DM, KM) from the mangled name: fused_step_kernel<DM, KM, T> and
-# fused_cdf_kernel<DM, KM>; (0, 0) is the run-time widths' template.
-THREAD_KERNEL = re.compile(r"(fused_(?:step|cdf)_kernel)ILi(\d+)ELi(\d+)E"
-                           r"(f|13__nv_bfloat16)?")
+# An instantiation of either fused kernel and its compiled widths, from
+# the mangled name: the "thread" design's fused_step_kernel<DM, KM, T> and
+# fused_cdf_kernel<DM, KM>, the "tile" design's fused_*_tile_kernel<D(, T)>
+# (d = k = D exactly) and fused_*_wide_kernel<DM, KM(, T)> (padded widths).
+FUSED_KERNEL = re.compile(r"(fused_(?:step|cdf)(?:_tile|_wide)?_kernel)I"
+                          r"((?:Li\d+E)+)(f|13__nv_bfloat16)?")
+# The instantiations the build must report: the "thread" buckets (d, k up
+# to 16: 8 a kernel, the Metropolis step's in float32 and bfloat16), the
+# exact tiles (16 and 32) and the padded tile widths (32, 64 and 128 with
+# KM = 16 or DM), each Metropolis one in both state types.
+FUSED_INSTANCES = 3 * 8 + 3 * 2 + 3 * 6
 
 
 def ptxas_report(log: str) -> list:
@@ -554,31 +574,32 @@ def ptxas_report(log: str) -> list:
     return rows
 
 
-def check_thread_frames(rows) -> int:
-    """Fails unless every compiled width bucket of the fused kernels'
-    "thread" design (d, k <= 16, the widths the paths give it) reports a
-    0-byte stack frame and no spill; prints each bucket's registers, stack
-    and spills. Returns the number of bucket instantiations."""
+def check_fused_frames(rows) -> int:
+    """Fails unless every instantiation of both fused kernels, of both
+    designs and in every compiled width, reports a 0-byte stack frame and
+    no spill; prints each one's registers, stack and spills. Returns the
+    number of instantiations."""
     seen = {}
     for entry, line in rows:
-        m = THREAD_KERNEL.search(entry)
-        if not m or m.group(2) == "0":
+        m = FUSED_KERNEL.search(entry)
+        if not m:
             continue
-        key = (m.group(1), int(m.group(2)), int(m.group(3)),
-               "bf16" if m.group(4) and "bf" in m.group(4) else "f32")
+        widths = tuple(int(w) for w in re.findall(r"Li(\d+)E", m.group(2)))
+        key = (m.group(1), widths,
+               "bf16" if m.group(3) and "bf" in m.group(3) else "f32")
         seen.setdefault(key, []).append(line)
     for key, lines in sorted(seen.items()):
         text = " ".join(lines)
         frame = re.search(r"(\d+) bytes stack frame", text)
         spills = re.findall(r"(\d+) bytes spill", text)
         regs = re.search(r"Used (\d+) registers", text)
-        print(f"  thread bucket {key[0]}<{key[1]}, {key[2]}> {key[3]}: "
+        print(f"  fused {key[0]}<{', '.join(map(str, key[1]))}> {key[2]}: "
               f"{regs.group(1) if regs else '?'} registers, stack frame "
               f"{frame.group(1) if frame else '?'} bytes, spills "
               f"{'/'.join(spills) or '?'} bytes")
         assert frame and frame.group(1) == "0" and spills and \
             all(x == "0" for x in spills), \
-            f"{key}: stack frame or spill in a compiled width bucket"
+            f"{key}: stack frame or spill in a fused kernel"
     return len(seen)
 
 
@@ -660,8 +681,9 @@ def build_kernels() -> float:
     for entry, line in rows:
         print(f"  ptxas: {entry[:90]}: {line}")
     if rows:
-        n = check_thread_frames(rows)
-        assert n == 24, f"{n} thread buckets compiled, expected 24"
+        n = check_fused_frames(rows)
+        assert n == FUSED_INSTANCES, \
+            f"{n} fused instantiations compiled, expected {FUSED_INSTANCES}"
     else:
         print("  (a cached build: no ptxas report to check)")
     return seconds
@@ -1182,7 +1204,13 @@ def check_roll_widths(others) -> None:
 # buckets: (kernel, d, k, noise, state type or cdf mode). The "thread"
 # design at d = 2 (float32 and bfloat16; the headline), 4, 5, 8 and the
 # monthly structural DLM's d = 13, k = 1; the "tile" design at d = k = 16
-# and 32, whose times a change of the shared walk must keep.
+# and 32, whose times a change of the shared walk must keep; and the
+# widths past 16 (the README's d >= 64 pallas regime; ``shape_model`` for
+# k != d): d = k = 24, 40, 64 and 128, d = 32 and 64 with k = 1, and
+# d = 2 with k = 64, the Metropolis step MVN and MVT (bfloat16 at 64 and
+# 128), the CDF step at 64 and 128.
+WIDE_SHAPES = ((24, 24), (32, 1), (40, 40), (64, 1), (64, 64), (128, 128),
+               (2, 64))
 FUSED_WIDTHS = tuple(
     [("step", d, d, noise, dtype) for d, dtype in
      ((2, "float32"), (2, "bfloat16"), (4, "float32"), (5, "float32"),
@@ -1193,25 +1221,71 @@ FUSED_WIDTHS = tuple(
        for mode in ("systematic", "stratified")]
     + [("step", d, d, "mvt", dtype) for d in (16, 32)
        for dtype in ("float32", "bfloat16")]
-    + [("cdf", d, d, "mvt", "systematic") for d in (16, 32)])
+    + [("cdf", d, d, "mvt", "systematic") for d in (16, 32)]
+    + [("step", d, k, noise, "float32") for d, k in WIDE_SHAPES
+       for noise in ("mvn", "mvt")]
+    + [("step", d, d, noise, "bfloat16") for d in (64, 128)
+       for noise in ("mvn", "mvt")]
+    + [("cdf", d, d, noise, "systematic") for d in (64, 128)
+       for noise in ("mvn", "mvt")])
+
+
+def shape_model(d, k, noise, dev):
+    """A DLM of state width d and observation width k != d, made from a
+    seed: the demo model's G (a slow rotation, 0.999), a dense F [k, d] of
+    scale 0.3, V = 0.01 I, W = 0.001 I, m0 = 0, C0 = I; MVT with df=5."""
+    import numpy as np
+
+    from cusmc_tpu_torch.io.data import demo_model_params
+    from cusmc_tpu_torch.models.dlm import DLM
+
+    rng = np.random.default_rng(100 * d + k)
+    return DLM.create(F=0.3 * rng.standard_normal((k, d)),
+                      G=demo_model_params(d)["G"], m0=np.zeros(d),
+                      C0=np.eye(d), V=0.01 * np.eye(k), W=0.001 * np.eye(d),
+                      noise=noise, df=5.0 if noise == "mvt" else None,
+                      device=dev)
+
+
+def width_model(d, k, noise, dev):
+    """The model FUSED_WIDTHS runs at (d, k): the demo model (F = I) for
+    k = d, the monthly structural DLM for d = 13, k = 1, else
+    ``shape_model``."""
+    if k == d:
+        return _fused_model(d, noise, dev)[0]
+    if (d, k) == (D_MONTHLY, 1):
+        return monthly_model(dev, noise)
+    return shape_model(d, k, noise, dev)
 
 
 def _same_outputs(label, mine, theirs, root) -> str:
     """Another tree's (X_new, ll, ancestors) against this tree's:
     ancestors bitwise equal, states and ll bitwise or within 1e-4 (then
-    the mismatches are counted). Returns a short verdict."""
+    the mismatches are counted); a bfloat16 state's states bitwise, one
+    ulp apart (two roundings of the same float32 sum, as
+    ``bf16_state_mismatches`` holds each tree to the plain version) or
+    within 1e-4, and ll within 1e-4 where they agree. Returns a short
+    verdict."""
     import torch
 
     (x, ll, a), (x_o, ll_o, a_o) = mine, theirs
     assert torch.equal(a, a_o), f"{label}: {root}'s ancestors differ"
     if torch.equal(x, x_o) and torch.equal(ll, ll_o):
         return "bitwise"
-    torch.testing.assert_close(x_o.float(), x.float(), rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(ll_o, ll, rtol=1e-4, atol=1e-4)
+    keep = torch.ones_like(ll, dtype=torch.bool)
+    if x.dtype == torch.bfloat16:
+        ulps = (x.view(torch.int16).int() - x_o.view(torch.int16).int()).abs()
+        near = (x.float() - x_o.float()).abs() <= 1e-4
+        assert bool(((ulps <= 1) | near).all()), \
+            f"{label}: {root}'s states > 1 ulp and 1e-4 off"
+        keep = (ulps == 0).all(0)
+    else:
+        torch.testing.assert_close(x_o, x, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ll_o[keep], ll[keep], rtol=1e-4, atol=1e-4)
     nx = int((x != x_o).sum())
     nl = int((ll != ll_o).sum())
     gap = max(float((x.float() - x_o.float()).abs().max()),
-              float((ll - ll_o).abs().max()))
+              float((ll[keep] - ll_o[keep]).abs().max()))
     return f"{nx} states and {nl} ll differ, max {gap:.2e}"
 
 
@@ -1243,7 +1317,7 @@ def check_fused_widths(others, timed=()) -> None:
         flush_buf.fill_(1.0)
 
     for kind, d, k, noise, variant in FUSED_WIDTHS:
-        model = monthly_model(dev, noise) if k != d else None
+        model = width_model(d, k, noise, dev)
         if kind == "step" and variant == "bfloat16":
             _, args, kw = _fused_step_case_bf16(n, d, noise, gen, dev)
         elif kind == "step":
@@ -1272,6 +1346,11 @@ def check_fused_widths(others, timed=()) -> None:
         line = (f"  time {label}: bound {t_bound:.4f} ms ({by}: "
                 f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms of bytes, "
                 f"{ops_text(flops, peak, ops)})")
+        if step_path(d, k) == "tile":
+            padded = padded_flops(d, k, n, itemsize)
+            line += (f"; the padded tiles issue {padded / 1e9:.2f} GFLOP, "
+                     f"{padded / TF32_FLOPS * 1e3:.4f} ms at "
+                     f"{TF32_FLOPS / 1e12:.0f} TFLOP/s")
         if verdicts:
             line += "; against this tree: " + ", ".join(verdicts)
         for temp, fl in (("warm", None), ("cold", flush)):
@@ -1545,15 +1624,15 @@ def check_shard_kernels() -> dict:
 # -- the fused steps ------------------------------------------------------
 
 def path_text(d, k) -> str:
-    """The fused kernels' design at (d, k), with the "thread" design's
-    width bucket."""
+    """The fused kernels' design at (d, k) and its compiled widths."""
     from cusmc_tpu_torch.ops import fused_step
 
-    if fused_step.step_path(d, k) == "tile":
+    dm, km = fused_step.step_widths(d, k)
+    if fused_step.step_path(d, k) == "thread":
+        return f"thread, bucket ({dm}, {km})"
+    if d == k and d in fused_step.TILE_DIMS:
         return "tile"
-    dm, km = fused_step.thread_widths(d, k)
-    return f"thread, bucket ({dm}, {km})" if dm else \
-        "thread, run-time widths"
+    return f"tile, padded ({dm}, {km})"
 
 
 def _fused_model(d, noise, dev, state_dtype=None):
@@ -1741,8 +1820,10 @@ def _fused_cdf_case(n, d, mode, gen, dev, model=None):
 
 
 def check_fused_kernels() -> dict:
-    """Phase 3 for the two fused steps. Records at the headline shape:
-    N = 2^20, d = 2, MVT df=5 (metropolis B=10; systematic)."""
+    """Phase 3 for the two fused steps at d = 2, 16, 32 and the padded
+    "tile" widths' d = 64 and 128 (FUSED_PAD_DIMS). Records at the
+    headline shape: N = 2^20, d = 2, MVT df=5 (metropolis B=10;
+    systematic)."""
     import torch
 
     from cusmc_tpu_torch.ops.fused_cdf_step import fused_cdf_filter_step, \
@@ -1755,7 +1836,7 @@ def check_fused_kernels() -> dict:
     gen.manual_seed(4321)
     rec = {}
     step_errs, step_cases = [], {}
-    for d in (D, D_MID, D_WIDE):
+    for d in (D, D_MID, D_WIDE) + FUSED_PAD_DIMS:
         for noise in ("mvn", "mvt"):
             err, args, kw = _fused_step_case(N_BIG, d, noise, gen, dev)
             step_errs.append(err)
@@ -1763,13 +1844,14 @@ def check_fused_kernels() -> dict:
                 step_cases[d] = (args, kw)
     cdf_errs, cdf_cases = [], {}
     for n in (N_BIG, N_RAGGED_CDF):
-        for d in (D, D_MID, D_WIDE):
+        for d in (D, D_MID, D_WIDE) + FUSED_PAD_DIMS:
             for mode in ("systematic", "stratified"):
                 err, args, kw = _fused_cdf_case(n, d, mode, gen, dev)
                 cdf_errs.append(err)
                 if n == N_BIG and mode == "systematic":
                     cdf_cases[d] = (args, kw)
-    for d in (D_WIDE, D_MID, D):  # d = 2 last: its numbers are recorded
+    # d = 2 last: its numbers are recorded
+    for d in FUSED_PAD_DIMS[::-1] + (D_WIDE, D_MID, D):
         design = step_path(d, d)
         nbytes, flops, peak, ops = fused_bound("step", d, d, N_BIG,
                                                design=design)
@@ -1841,7 +1923,9 @@ def fused_bound(kind, d, k, n, *, num_sweeps=10, noise="mvt", df_int=5,
     divisions and the log1p (integer df; a Marsaglia-Tsang round adds a
     normal and two logs). Flops: the four products, 2 (2 d^2 + k d + k^2)
     in float32, or on the tensor cores in the "tile" design (3xTF32 in
-    float32; in bfloat16 G, Q and F in one bf16 pass, Li in 3xTF32)."""
+    float32; in bfloat16 G, Q and F in one bf16 pass, Li in 3xTF32), at
+    the unpadded widths: the least work (``padded_flops`` counts what the
+    padded tiles issue)."""
     from cusmc_tpu_torch.ops.fused_step import chi2_rows
 
     rows = (num_sweeps if kind == "step" else 1) + 2 * d \
@@ -1851,13 +1935,26 @@ def fused_bound(kind, d, k, n, *, num_sweeps=10, noise="mvt", df_int=5,
         sfu += 4 * 5 + 6 if df_int is None else \
             int(df_int // 2 > 0) + 3 * (df_int % 2) + 4
     ops = ((40.0 * -(-rows // 4) * n, INT32_MULS), (float(sfu) * n, SFU_OPS))
-    mults = 2.0 * (2 * d * d + k * d + k * k) * n
-    flops, peak = mults, FP32_FLOPS
+    model = 2.0 * (2 * d * d + k * d) * n  # G, Q and F
+    li = 2.0 * k * k * n
+    flops, peak = model + li, FP32_FLOPS
     if design == "tile":
-        flops = 3 * mults if itemsize == 4 else \
-            0.75 * mults * TF32_FLOPS / BF16_FLOPS + 0.25 * mults * 3
+        flops = 3 * (model + li) if itemsize == 4 else \
+            model * TF32_FLOPS / BF16_FLOPS + 3 * li
         peak = TF32_FLOPS
     return (2 * itemsize * d + 12) * n, flops, peak, ops
+
+
+def padded_flops(d, k, n, itemsize=4) -> float:
+    """The tensor-core flops the "tile" design issues at (d, k): its four
+    products at the compiled widths (DM, KM) of ``step_widths``, three
+    TF32 passes each, but one for G, Q and F on a bfloat16 state (their
+    values exact in TF32)."""
+    from cusmc_tpu_torch.ops.fused_step import step_widths
+
+    dm, km = step_widths(d, k)
+    model = 2.0 * (2 * dm * dm + km * dm) * n
+    return (3 if itemsize == 4 else 1) * model + 3 * 2.0 * km * km * n
 
 
 def check_model_kernels() -> dict:
@@ -2003,24 +2100,50 @@ def pmmh_width_kernels(gen, dev) -> dict:
 # mismatch passes when the plain version's float32 value before rounding
 # lies within this relative distance of that boundary.
 BF16_BOUNDARY_RTOL = 1e-5
+# Where G x_a and (Q z) s nearly cancel, those few float32 ulps of the
+# terms are many bfloat16 ulps of their sum, or one far from a boundary
+# (seen in 2^26 states of the demo model at d = 64: G x_a -0.0743, x_new
+# 1.5e-7, 8 ulps apart; one ulp with the plain value 9.1e-5 off the
+# boundary). Any other mismatch passes only there: the kernel's state
+# within half a bfloat16 ulp of itself plus this many float32 ulps of the
+# terms |G| |x_a| + |(Q z) s| from the plain value before rounding.
+BF16_CANCEL_ULPS = 4
 
 
-def bf16_state_mismatches(x, x_plain, x_pre, rtol=BF16_BOUNDARY_RTOL):
+def bf16_state_mismatches(x, x_plain, x_pre, rtol=BF16_BOUNDARY_RTOL,
+                          terms=None):
     """The mask of bfloat16 states that differ from the plain version's;
     each must be one ulp off with the plain float32 value before rounding
-    (``x_pre``) within ``rtol`` of the boundary between the two. Returns
-    ``(mask, largest relative distance to the boundary)``."""
+    (``x_pre``) within ``rtol`` of the boundary between the two, or, given
+    ``terms`` (``terms(rows, cols)``: the float64 magnitude |G| |x_a| +
+    |(Q z) s| of those entries' sums), off where its sum cancels
+    (BF16_CANCEL_ULPS). Returns ``(mask, largest relative distance of a
+    boundary mismatch to its boundary)``."""
     import torch
 
     diff = x != x_plain
     if not bool(diff.any()):
         return diff, 0.0
-    ulps = (x.view(torch.int16).int() - x_plain.view(torch.int16).int())
-    assert int(ulps.abs()[diff].max()) == 1, "a state is > 1 ulp off"
-    mid = (x.float()[diff] + x_plain.float()[diff]) / 2
-    dist = float(((x_pre[diff] - mid).abs() / mid.abs()).max())
-    assert dist <= rtol, f"a 1-ulp mismatch {dist:.3e} off its boundary"
-    return diff, dist
+    rows, cols = diff.nonzero(as_tuple=True)
+    xk, xp = x[rows, cols], x_plain[rows, cols]
+    ulps = (xk.view(torch.int16).int() - xp.view(torch.int16).int()).abs()
+    mid = (xk.float() + xp.float()) / 2
+    dist = (x_pre[rows, cols] - mid).abs() / mid.abs()
+    boundary = (ulps == 1) & (dist <= rtol)
+    rest = ~boundary
+    if bool(rest.any()):
+        if terms is None:
+            assert int(ulps.max()) == 1, "a state is > 1 ulp off"
+            raise AssertionError(f"a 1-ulp mismatch "
+                                 f"{float(dist[rest].max()):.3e} off its "
+                                 f"boundary")
+        pre = x_pre[rows[rest], cols[rest]].double()
+        gap = (xk[rest].double() - pre).abs()
+        limit = 2.0 ** -8 * xk[rest].double().abs() + BF16_CANCEL_ULPS * \
+            2.0 ** -24 * terms(rows[rest], cols[rest])
+        assert bool((gap <= limit).all()), \
+            "a state is off its plain value where its sum does not cancel"
+    return diff, float(dist[boundary].max()) if bool(boundary.any()) else 0.0
 
 
 def _fused_step_case_bf16(n, d, noise, gen, dev):
@@ -2063,17 +2186,27 @@ def _fused_step_case_bf16(n, d, noise, gen, dev):
     assert bad.numel() <= 1000, f"{label}: {bad.numel()} ancestors differ"
     ties(bad)
     keep = a == a_p
-    diff, dist = bf16_state_mismatches(x[:, keep], x_p[:, keep],
-                                       x_pre[:, keep])
+    a_keep, pre_keep = a[keep].long(), x_pre[:, keep]
+
+    def terms(rows, cols):
+        xa = X[:, a_keep[cols]].double().T          # [m, d]
+        g = G.double()[rows]                         # [m, d]
+        gx = (g * xa).sum(1)
+        return (g.abs() * xa.abs()).sum(1) + \
+            (pre_keep[rows, cols].double() - gx).abs()
+
+    diff, dist = bf16_state_mismatches(x[:, keep], x_p[:, keep], pre_keep,
+                                       terms=terms)
     same = diff.logical_not().all(0)
     torch.testing.assert_close(ll[keep][same], ll_p[keep][same], rtol=1e-4,
                                atol=1e-4)
     err = float((ll[keep][same] - ll_p[keep][same]).abs().max())
     print(f"  {label}: ancestors equal{' but ties' if bad.numel() else ''}"
           f" and the float32 kernel's; states bitwise but "
-          f"{int(diff.sum())} of {x[:, keep].numel()} one ulp off at a "
+          f"{int(diff.sum())} of {x[:, keep].numel()}, one ulp off at a "
           f"boundary (largest distance {dist:.2e}, limit "
-          f"{BF16_BOUNDARY_RTOL}); max|ll kernel-plain| {err:.3e}")
+          f"{BF16_BOUNDARY_RTOL}) or where G x_a and (Q z) s cancel; "
+          f"max|ll kernel-plain| {err:.3e}")
     return err, args, kw
 
 
@@ -2600,17 +2733,24 @@ def logz_checks(z, zk, band):
 # paths there (the filter sits below Kalman by a bias that shrinks with
 # N), above = 2 sd (4 sd / sqrt(R)), floor = 1 sd, each sd the largest of
 # the four paths', rounded up to 0.1 nat.
-ORACLE_BANDS = {D_MID: (10.7, 3.7, 1.9), D_WIDE: (46.1, 12.0, 6.0)}
+# At d = 64 the same rule on oracle_logz(64, 2**16, range(8), "cpu"):
+# biases 189.2-206.1 nats below Kalman, sds 15.0-39.3 (PERF.md section 6,
+# PR 16).
+ORACLE_BANDS = {D_MID: (10.7, 3.7, 1.9), D_WIDE: (46.1, 12.0, 6.0),
+                D_PAD: (363.3, 78.6, 39.3)}
 # The same check on a bfloat16 state (LOGZ_PATHS_BF16), sized the same way
 # from oracle_logz(d, 2**16, range(8), "cpu", state_dtype=torch.bfloat16)
-# before any card run read them (PERF.md section 6).
-ORACLE_BANDS_BF16 = {D_MID: (15.1, 4.6, 2.3), D_WIDE: (47.2, 12.3, 6.2)}
+# before any card run read them (PERF.md section 6; d = 64: biases
+# 184.6-204.0, sds 6.3-26.5, PR 16).
+ORACLE_BANDS_BF16 = {D_MID: (15.1, 4.6, 2.3), D_WIDE: (47.2, 12.3, 6.2),
+                     D_PAD: (310.0, 53.0, 26.5)}
 ORACLE_SEEDS = (0, 1, 2, 3)
 
 
 def check_tile_oracle() -> None:
     """Phase 3c: checks 1-4 of the "tile" design's oracle on both fused
-    kernels at d = 16 and 32, each line with the seconds it took; checks
+    kernels at d = 16, 32 and 64 (the last in the padded widths' kernel),
+    each line with the seconds it took; checks
     1-3 also on the fused Metropolis kernel's bfloat16 state, check 1
     within ZERO_NOISE_RTOL_BF16; check 4 also on a bfloat16 state, for its
     three paths, within ORACLE_BANDS_BF16."""
@@ -2631,7 +2771,7 @@ def check_tile_oracle() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
-    for d in (D_MID, D_WIDE):
+    for d in (D_MID, D_WIDE, D_PAD):
         path = step_path(d, d)
         assert path == "tile", f"d={d} runs the {path} design"
         for kind, name in (("metropolis", "fused_filter_step"),
@@ -5483,8 +5623,12 @@ def other_tree(root, mod):
 
     def design(d, k):
         tiled = step_path(d, k) == "tile"
-        widths = ((0, 0) if tiled else other_step.thread_widths(d, k)) \
-            if has_buckets else ()
+        if not has_buckets:
+            widths = ()
+        elif hasattr(other_step, "step_widths"):
+            widths = other_step.step_widths(d, k)
+        else:  # before the padded tile widths: (0, 0) for any tile shape
+            widths = (0, 0) if tiled else other_step.thread_widths(d, k)
         return int(tiled), widths
 
     def cdf_outputs(args, kw):
@@ -5783,7 +5927,6 @@ def fused_row(card, others) -> None:
     bitwise this tree's (final particles and log weights, ESS,
     log-evidence)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from cusmc_tpu_torch.io.data import demo_model_params
     from cusmc_tpu_torch.models.dlm import DLM
@@ -5844,20 +5987,7 @@ def fused_row(card, others) -> None:
                     same(res, tree)
             best = {tree: min(v) for tree, v in secs.items()}
             for tree in trees:
-                for _ in range(5):  # the profiler can record no kernel
-                    torch.cuda.synchronize()
-                    with profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
-                        t0 = time.perf_counter()
-                        run(tree)
-                        wall = time.perf_counter() - t0
-                    kern = [e for e in prof.key_averages() if e.device_type
-                            == torch.autograd.DeviceType.CUDA]
-                    if kern:
-                        break
-                busy = sum(e.self_device_time_total for e in kern) / 1e6 / wall
-                fused_us = sum(e.self_device_time_total for e in kern
-                               if "fused" in e.key)
+                busy, fused_us, wall = profiled_run(lambda: run(tree))
                 print(f"  {label} pallas {resampler} N=2^20 T={steps}, "
                       f"{'this tree' if tree is None else tree}'s fused "
                       f"kernel: {n * (steps - 1) / best[tree]:.6g} "
@@ -5871,6 +6001,123 @@ def fused_row(card, others) -> None:
                 print(f"  {label} {resampler}: every other tree's run bitwise "
                       f"this tree's (log-evidence "
                       f"{float(mine.log_evidence):.6f})")
+
+
+def profiled_run(fn, match="fused"):
+    """(busy share, device microseconds of the kernels whose name holds
+    ``match``, wall seconds) of one call of ``fn`` under torch.profiler
+    (host and device traced); a session that recorded no kernel is run
+    again, up to five times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kern:
+            break
+    busy = sum(e.self_device_time_total for e in kern) / 1e6 / wall
+    return busy, sum(e.self_device_time_total for e in kern
+                     if match in e.key), wall
+
+
+# The d >= 64 rows, the README's recommended regime for engine="pallas"
+# (README.md's table of configurations): the demo model (F = I, so k = d)
+# at these widths and state types, metropolis B=10, N=2^20, T=200. They
+# run in ``--fused`` (83 s), not in the whole script, whose phase 3 and
+# 3c already hold the kernels at these widths.
+WIDE_ROWS = ((64, "float32"), (64, "bfloat16"), (128, "bfloat16"),
+             (128, "float32"))
+WIDE_STEPS = 200
+
+
+def wide_rows(card) -> None:
+    """``bootstrap_filter`` on the demo model at d = k = 64 and 128
+    (WIDE_ROWS; MVT df=5, N=2^20, T=200, metropolis B=10) through
+    engine="pallas" beside engine="xla", in turns (pallas, xla, xla,
+    pallas, pallas, xla) after one warm-up each: particle-steps/s and
+    ESS/s (best of 3), then from one profiled run each the device's busy
+    share and the step kernel's device ms a step (the fused step, or the
+    roll walk for xla), and the log-evidence of both engines beside the
+    Kalman filter's (float64, on the CPU). Each run's log-evidence must
+    be finite; a pallas run launches the fused step (its bfloat16 count
+    on a bfloat16 state) T-1 times and no composed kernel, an xla run the
+    roll walk T-1 times and no fused kernel."""
+    import torch
+
+    from cusmc_tpu_torch.io.data import demo_model_params
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.smc.kalman import kalman_filter
+    from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+
+    n, steps = N_BIG, WIDE_STEPS
+    for d, dtype in WIDE_ROWS:
+        bf16 = dtype == "bfloat16"
+        p = demo_model_params(d)
+        model = DLM.create(noise="mvt", df=5.0, device="cuda",
+                           state_dtype=torch.bfloat16 if bf16 else None, **p)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        _, ys = model.simulate(gen, steps)
+        _, _, zk = kalman_filter(ys.double().cpu().numpy(),
+                                 **{k: p[k] for k in ("F", "G", "V", "W",
+                                                      "m0", "C0")})
+        tag = "[bf16]" if bf16 else ""
+        used = {"pallas": "fused_filter_step" + tag,
+                "xla": "roll_metropolis_sweeps_expspace" + tag}
+        kernel_name = {"pallas": "fused", "xla": "roll"}
+
+        def one(engine, seed):
+            before = _counts()
+            t0 = time.perf_counter()
+            res = bootstrap_filter(seed, model, ys, n, resampler="metropolis",
+                                   resampler_kwargs={"num_steps": 10},
+                                   engine=engine, return_history=False)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            after = _counts()
+            for name in after:
+                grown = after[name] - before[name]
+                want = steps - 1 if name == used[engine] else 0
+                if name == used[engine] or name in FUSED_KERNELS + \
+                        COMPOSED_KERNELS or "[bf16]" in name:
+                    assert grown == want, \
+                        f"d={d} {dtype} {engine}: {name} launched {grown}"
+            assert math.isfinite(float(res.log_evidence)), \
+                f"d={d} {dtype} {engine}: log-evidence not finite"
+            return secs, res
+
+        for engine in ("pallas", "xla"):
+            one(engine, 0)
+        best = {"pallas": math.inf, "xla": math.inf}
+        last = {}
+        for rep, engine in enumerate(("pallas", "xla", "xla", "pallas",
+                                      "pallas", "xla")):
+            secs, last[engine] = one(engine, rep + 1)
+            best[engine] = min(best[engine], secs)
+        for engine in ("pallas", "xla"):
+            res = last[engine]
+            busy, kern_us, _ = profiled_run(lambda: bootstrap_filter(
+                7, model, ys, n, resampler="metropolis",
+                resampler_kwargs={"num_steps": 10}, engine=engine,
+                return_history=False), kernel_name[engine])
+            print(f"  wide d={d} {dtype} MVT df=5 metropolis engine={engine} "
+                  f"N=2^20 T={steps}: {n * (steps - 1) / best[engine]:.6g} "
+                  f"particle-steps/s, "
+                  f"{float(res.ess.double().sum()) / best[engine]:.6g} "
+                  f"ESS/s, best {best[engine]:.4f} s of 3, device busy "
+                  f"{busy:.3f}, the {kernel_name[engine]} kernel "
+                  f"{kern_us / 1e3 / (steps - 1):.4f} ms a step, logZ "
+                  f"{float(res.log_evidence):.3f} (Kalman {zk:.3f}) [{card}]")
+        print(f"  pallas / xla rate, d={d} {dtype}: "
+              f"{best['xla'] / best['pallas']:.3f}")
 
 
 def check_take_traffic(name, args) -> None:
@@ -5970,6 +6217,8 @@ def main(argv=None) -> int:
             check_fused_widths(others, other_trees(args.timed))
         with phase("the pallas rows with each tree's fused kernels"):
             fused_row(card, others)
+        with phase("the d >= 64 rows, pallas beside xla"):
+            wide_rows(card)
         print(f"chip_smoke --fused: {time.perf_counter() - t_start:.1f} s; "
               f"card: {card}")
         return 0
@@ -6003,7 +6252,7 @@ def main(argv=None) -> int:
         rec.update(check_bf16_kernels())
     with phase("statistics of the fused kernels"):
         check_statistics()
-    with phase("the \"tile\" design's oracle (d = 16 and 32)"):
+    with phase("the \"tile\" design's oracle (d = 16, 32 and 64)"):
         check_tile_oracle()
 
     launches = {}

@@ -23,18 +23,17 @@
 // Two designs of the propagate-and-reweight half, chosen by the caller as a
 // plain function of (d, k) (ops/fused_step.py::step_path, the rule of
 // fused_step.cu):
-//   - "thread" (every shape but d = k in {16, 32}; propagate.cuh): in a
-//     compiled width bucket (DM, KM) from ops/fused_step.py::thread_widths
-//     while d, k <= 16, two slots a thread (the block's 256 slots search
-//     one window, two queries a thread), else at run-time widths, one slot
-//     a thread (the matrices in shared memory when they fit beside the
-//     window in 48 KB, else read through L1). The block's Philox key and
-//     pscale are formed once, in 32 bits; the ancestors' columns fly while
-//     the noise is drawn.
-//   - "tile" (d = k in {16, 32}): each warp's 32 slots go through the four
-//     matrix products as 3xTF32 tensor-core tiles (tile_propagate.cuh);
-//     the window is laid over the tiles' shared memory, which the search
-//     is done with before the tiles are written.
+//   - "thread" (d and k up to 16 but d = k = 16; propagate.cuh): in the
+//     compiled width bucket (DM, KM) of ops/fused_step.py::step_widths,
+//     two slots a thread (the block's 256 slots search one window, two
+//     queries a thread). The block's Philox key and pscale are formed once,
+//     in 32 bits; the ancestors' columns fly while the noise is drawn.
+//   - "tile" (d = k in {16, 32}, and every shape wider than 16): each
+//     warp's 32 slots go through the four matrix products as 3xTF32
+//     tensor-core tiles, at d = k in {16, 32} (tile_propagate.cuh) or at
+//     the padded widths of ops/fused_step.py::step_widths
+//     (wide_propagate.cuh); the window is laid over the tiles' shared
+//     memory, which the search is done with before the tiles are written.
 // The ancestors are bitwise the plain version's in both; states and
 // log-likelihoods agree to rounding.
 //
@@ -44,7 +43,7 @@
 // functions a normal, and 2 (2 d^2 + k d + k^2) float32 flops. At d = 2
 // and at d = 13, k = 1 the bytes bind; at d = 32 the four products (4096
 // multiply-adds per particle at d = k = 32) and the Box-Muller draws.
-#include "tile_propagate.cuh"
+#include "wide_propagate.cuh"
 
 namespace {
 
@@ -56,7 +55,31 @@ static_assert(kThreads % 32 == 0 && kThreads >= 64 && 1024 % kThreads == 0,
               "whole warps, two to search, and whole blocks in a 1024 tile");
 constexpr size_t kWindowBytes = sizeof(float) * kWindow;
 
-// Slot p's position.
+// The positions of slots p[i]: fl(fl(p + u_g) pscale), u_g the systematic
+// u or the stratified uniform of the slot's row 0 (cursor one of `rows`).
+template <int P>
+__device__ __forceinline__ void slot_positions(const unsigned (&p)[P],
+                                               const float* __restrict__ u,
+                                               int stratified, float pscale,
+                                               cusmc::RowCursors<P>& rows,
+                                               float (&pos)[P]) {
+  float ug[P];
+  if (stratified) {
+    uint32_t w[P];
+    rows.first(0, w);
+#pragma unroll
+    for (int i = 0; i < P; ++i) ug[i] = cusmc::to_uniform(w[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < P; ++i) ug[i] = u[0];
+  }
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    pos[i] = __fmul_rn(__fadd_rn(static_cast<float>(p[i]), ug[i]), pscale);
+  }
+}
+
+// Slot p's position, one slot a thread drawing its row 0 from `bs`.
 __device__ __forceinline__ float slot_position(const float* __restrict__ cdf,
                                                const float* __restrict__ u,
                                                long long n, long long p,
@@ -83,32 +106,23 @@ __device__ __forceinline__ void block_ancestors(
 }
 
 // The "thread" design in bucket (DM, KM) (propagate.cuh), P slots a
-// thread, or at run-time widths (DM = KM = 0, one slot a thread; the
-// matrices staged when `staged`). A block holds kThreads * P slots, slot i
-// of thread t at (block * P + i) * kThreads + t; pscale and the Philox key
-// are the block's (tile % 1024 == 0).
+// thread. A block holds kThreads * P slots, slot i of thread t at
+// (block * P + i) * kThreads + t; pscale and the Philox key are the
+// block's (tile % 1024 == 0).
 template <int DM, int KM>
 __global__ void __launch_bounds__(kThreads)
 fused_cdf_kernel(const float* __restrict__ cdf, const float* __restrict__ X,
                  const float* __restrict__ u, const int* __restrict__ seed,
                  cusmc::StepModel m, float* __restrict__ Xo,
                  float* __restrict__ ll, int* __restrict__ anc, unsigned n,
-                 unsigned tile, int stratified, int staged) {
-  constexpr bool kBucket = DM > 0;
-  constexpr int P = kBucket ? cusmc::bucket_particles<DM>(false) : 1;
-  constexpr int SD = kBucket ? DM : 1;
-  constexpr int SK = kBucket ? KM : 1;
-  extern __shared__ float smem[];
-  __shared__ cusmc::BucketModel<SD, SK> s_m;
+                 unsigned tile, int stratified) {
+  constexpr int P = cusmc::bucket_particles<DM>(false);
+  __shared__ cusmc::BucketModel<DM, KM> s_m;
   __shared__ float s_win[kWindow];
   __shared__ float s_pos[2];
   __shared__ long long s_range[2];
   __shared__ float s_pscale;
-  if constexpr (kBucket) {
-    cusmc::stage_bucket(m, s_m);
-  } else {
-    m = cusmc::stage_model(m, smem, staged != 0);
-  }
+  cusmc::stage_bucket(m, s_m);
   if (threadIdx.x == 0) {
     s_pscale = __fdiv_rn(cdf[n - 1], static_cast<float>(n));
   }
@@ -123,21 +137,8 @@ fused_cdf_kernel(const float* __restrict__ cdf, const float* __restrict__ X,
   }
   const uint2 key = cusmc::philox_key(seed, blk);
   cusmc::RowCursors<P> rows(key, lane, 0u);
-  float ug[P];
-  if (stratified) {
-    uint32_t w[P];
-    rows.first(0, w);
-#pragma unroll
-    for (int i = 0; i < P; ++i) ug[i] = cusmc::to_uniform(w[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < P; ++i) ug[i] = u[0];
-  }
   float pos[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    pos[i] = __fmul_rn(__fadd_rn(static_cast<float>(p[i]), ug[i]), s_pscale);
-  }
+  slot_positions(p, u, stratified, s_pscale, rows, pos);
   long long c[P];
   block_ancestors<P>(cdf, n, pos, s_win, s_pos, s_range, c);
   unsigned a[P];
@@ -146,16 +147,9 @@ fused_cdf_kernel(const float* __restrict__ cdf, const float* __restrict__ X,
     a[i] = static_cast<unsigned>(c[i]);
     anc[p[i]] = static_cast<int>(a[i]);
   }
-  if constexpr (kBucket) {
-    float x[P][DM];
-    cusmc::load_columns(X, n, a, m.d, x);
-    cusmc::propagate_bucket(s_m, m, x, n, Xo, ll, p, rows, 1);
-  } else {
-    cusmc::BitStream bs(key, lane[0], 0u);
-    bs.group = rows.ga;
-    bs.buf = rows.a[0];
-    cusmc::propagate_reweight(m, X, n, a[0], Xo, ll, p[0], bs, 1);
-  }
+  float x[P][DM];
+  cusmc::load_columns(X, n, a, m.d, x);
+  cusmc::propagate_bucket(s_m, m, x, n, Xo, ll, p, rows, 1);
 }
 
 // The "tile" design, d = k = D. The block's slots share one Philox block
@@ -188,41 +182,84 @@ fused_cdf_tile_kernel(const float* __restrict__ cdf,
   cusmc::tile_propagate_reweight<D>(m, smem, X, n, a[0], Xo, ll, p, bs, 1);
 }
 
+// The "tile" design at the padded widths (DM, KM): wide_propagate.cuh.
+// The block's slots share one Philox block (tile % 1024 == 0).
+template <int DM, int KM>
+__global__ void __launch_bounds__(kThreads, DM > 64 ? 2 : DM > 32 ? 3 : 4)
+fused_cdf_wide_kernel(const float* __restrict__ cdf,
+                      const float* __restrict__ X,
+                      const float* __restrict__ u,
+                      const int* __restrict__ seed, cusmc::StepModel m,
+                      float* __restrict__ Xo, float* __restrict__ ll,
+                      int* __restrict__ anc, unsigned n, unsigned tile,
+                      int stratified) {
+  static_assert(kThreads == 32 * cusmc::kWideWarps, "the panels' warps");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  __shared__ float s_pos[2];
+  __shared__ long long s_range[2];
+  __shared__ float s_pscale;
+  if (threadIdx.x == 0) {
+    s_pscale = __fdiv_rn(cdf[n - 1], static_cast<float>(n));
+  }
+  __syncthreads();
+  const unsigned blk = blockIdx.x * kThreads / tile;
+  const unsigned p[1] = {blockIdx.x * kThreads + threadIdx.x};
+  const unsigned lane[1] = {p[0] - blk * tile};
+  cusmc::RowCursors<1> rows(cusmc::philox_key(seed, blk), lane, 0u);
+  float pos[1];
+  slot_positions(p, u, stratified, s_pscale, rows, pos);
+  long long c[1];
+  block_ancestors<1>(cdf, n, pos, smem, s_pos, s_range, c);
+  anc[p[0]] = static_cast<int>(c[0]);
+  __syncthreads();  // every read of the window is done: the tiles take it
+  cusmc::wide_propagate_reweight<DM, KM>(m, smem, X, n,
+                                         static_cast<unsigned>(c[0]), Xo, ll,
+                                         p[0], rows, 1);
+}
+
 template <int DM, int KM>
 int launch(const float* cdf, const float* X, const float* u, const int* seed,
            const cusmc::StepModel& m, float* Xo, float* ll, int* anc,
            unsigned n, unsigned tile, int stratified, cudaStream_t stream) {
-  if constexpr (DM > 0) {
-    // kThreads * P divides 1024, and so n and the tile.
-    constexpr unsigned per_block =
-        kThreads * cusmc::bucket_particles<DM>(false);
-    static_assert(1024 % per_block == 0, "whole blocks in a 1024 tile");
-    if (m.d > DM || m.k > KM) return static_cast<int>(cudaErrorInvalidValue);
-    fused_cdf_kernel<DM, KM><<<n / per_block, kThreads, 0, stream>>>(
-        cdf, X, u, seed, m, Xo, ll, anc, n, tile, stratified, 0);
-  } else {
-    const size_t bytes = cusmc::model_bytes(m.d, m.k);
-    const int staged = bytes + kWindowBytes <= cusmc::kStageBytes ? 1 : 0;
-    fused_cdf_kernel<0, 0><<<n / kThreads, kThreads, staged ? bytes : 0,
-                             stream>>>(cdf, X, u, seed, m, Xo, ll, anc, n,
-                                       tile, stratified, staged);
-  }
+  // kThreads * P divides 1024, and so n and the tile.
+  constexpr unsigned per_block =
+      kThreads * cusmc::bucket_particles<DM>(false);
+  static_assert(1024 % per_block == 0, "whole blocks in a 1024 tile");
+  if (m.d > DM || m.k > KM) return static_cast<int>(cudaErrorInvalidValue);
+  fused_cdf_kernel<DM, KM><<<n / per_block, kThreads, 0, stream>>>(
+      cdf, X, u, seed, m, Xo, ll, anc, n, tile, stratified);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_tile(const float* cdf, const float* X, const float* u,
                 const int* seed, const cusmc::StepModel& m, float* Xo,
-                float* ll, int* anc, long long n, long long tile,
+                float* ll, int* anc, unsigned n, unsigned tile,
                 int stratified, cudaStream_t stream) {
   constexpr size_t bytes = cusmc::TileLayout<D>::bytes(kThreads / 32);
-  static_assert(bytes <= cusmc::kStageBytes,
+  static_assert(bytes <= 48 * 1024,
                 "above 48 KB the launch needs cudaFuncSetAttribute");
   static_assert(kWindowBytes <= bytes, "the window lies over the tiles");
-  const long long blocks = n / kThreads;
-  fused_cdf_tile_kernel<D><<<static_cast<unsigned>(blocks), kThreads, bytes,
-                             stream>>>(cdf, X, u, seed, m, Xo, ll, anc, n,
-                                       tile, stratified);
+  fused_cdf_tile_kernel<D><<<n / kThreads, kThreads, bytes, stream>>>(
+      cdf, X, u, seed, m, Xo, ll, anc, n, tile, stratified);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DM, int KM>
+int launch_wide(const float* cdf, const float* X, const float* u,
+                const int* seed, const cusmc::StepModel& m, float* Xo,
+                float* ll, int* anc, unsigned n, unsigned tile,
+                int stratified, cudaStream_t stream) {
+  constexpr size_t bytes = cusmc::WideLayout<DM, KM>::bytes(kThreads / 32);
+  static_assert(kWindowBytes <= bytes, "the window lies over the tiles");
+  if (m.d > DM || m.k > KM) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t rc = cudaFuncSetAttribute(
+      fused_cdf_wide_kernel<DM, KM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  fused_cdf_wide_kernel<DM, KM><<<n / kThreads, kThreads, bytes, stream>>>(
+      cdf, X, u, seed, m, Xo, ll, anc, n, tile, stratified);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -233,10 +270,9 @@ int launch_tile(const float* cdf, const float* X, const float* u,
 // f32, ll [n] f32, anc [n] int32. The caller checks n % tile == 0,
 // tile % 1024 == 0, n <= 2^24 and d, k <= 128. mode: 0 systematic,
 // 1 stratified; noise: 0 MVN, 1 MVT; df_int 0 selects Marsaglia-Tsang.
-// tiled: 1 takes the "tile" design, which needs d = k in {16, 32}, 0 the
-// "thread" one in the width bucket (dm, km) of
-// ops/fused_step.py::thread_widths (d <= dm, k <= km; 0, 0 for run-time
-// widths). cudaErrorInvalidValue for a shape or a bucket that is not
+// tiled: 1 takes the "tile" design, 0 the "thread" one, each in the
+// compiled widths (dm, km) of ops/fused_step.py::step_widths (d <= dm,
+// k <= km). cudaErrorInvalidValue for a shape or widths that are not
 // compiled.
 CUSMC_EXPORT int cusmc_fused_cdf_step(
     const float* cdf, const float* X, const float* y, const float* G,
@@ -246,32 +282,38 @@ CUSMC_EXPORT int cusmc_fused_cdf_step(
     float log_norm, int tiled, int dm, int km, void* stream) {
   const cusmc::StepModel m{G, Q, F, Li, y, d, k, noise, df_int, df, log_norm};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tiled) {
-    switch (d == k ? d : 0) {
-      case 16:
-        return launch_tile<16>(cdf, X, u, seed, m, Xo, ll, anc, n, tile, mode,
-                               st);
-      case 32:
-        return launch_tile<32>(cdf, X, u, seed, m, Xo, ll, anc, n, tile, mode,
-                               st);
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
   const unsigned nu = static_cast<unsigned>(n);
   const unsigned tu = static_cast<unsigned>(tile);
-#define CUSMC_BUCKET(DM, KM)                                              \
+#define CUSMC_WIDTHS(LAUNCH, DM, KM)                                      \
   if (dm == DM && km == KM)                                               \
-    return launch<DM, KM>(cdf, X, u, seed, m, Xo, ll, anc, nu, tu, mode, st);
-  CUSMC_BUCKET(2, 1)
-  CUSMC_BUCKET(2, 2)
-  CUSMC_BUCKET(4, 1)
-  CUSMC_BUCKET(4, 4)
-  CUSMC_BUCKET(8, 1)
-  CUSMC_BUCKET(8, 8)
-  CUSMC_BUCKET(16, 1)
-  CUSMC_BUCKET(16, 16)
-  CUSMC_BUCKET(0, 0)
-#undef CUSMC_BUCKET
+    return LAUNCH<DM, KM>(cdf, X, u, seed, m, Xo, ll, anc, nu, tu, mode, st);
+  if (tiled) {
+    if (d == dm && k == km && dm == km) {
+      if (dm == 16) {
+        return launch_tile<16>(cdf, X, u, seed, m, Xo, ll, anc, nu, tu, mode,
+                               st);
+      }
+      if (dm == 32) {
+        return launch_tile<32>(cdf, X, u, seed, m, Xo, ll, anc, nu, tu, mode,
+                               st);
+      }
+    }
+    CUSMC_WIDTHS(launch_wide, 32, 16)
+    CUSMC_WIDTHS(launch_wide, 32, 32)
+    CUSMC_WIDTHS(launch_wide, 64, 16)
+    CUSMC_WIDTHS(launch_wide, 64, 64)
+    CUSMC_WIDTHS(launch_wide, 128, 16)
+    CUSMC_WIDTHS(launch_wide, 128, 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUSMC_WIDTHS(launch, 2, 1)
+  CUSMC_WIDTHS(launch, 2, 2)
+  CUSMC_WIDTHS(launch, 4, 1)
+  CUSMC_WIDTHS(launch, 4, 4)
+  CUSMC_WIDTHS(launch, 8, 1)
+  CUSMC_WIDTHS(launch, 8, 8)
+  CUSMC_WIDTHS(launch, 16, 1)
+  CUSMC_WIDTHS(launch, 16, 16)
+#undef CUSMC_WIDTHS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -27,19 +27,24 @@
 //
 // Two designs of the propagate-and-reweight half, chosen by the caller as a
 // plain function of (d, k) (ops/fused_step.py::step_path):
-//   - "thread" (every shape but d = k in {16, 32}; propagate.cuh): in a
-//     compiled width bucket (DM, KM) from ops/fused_step.py::thread_widths
-//     while d, k <= 16, two particles a thread (one at DM = 16), else at
-//     run-time widths, one particle a thread. A bucket's block holds 128
+//   - "thread" (d and k up to 16 but d = k = 16; propagate.cuh): in the
+//     compiled width bucket (DM, KM) of ops/fused_step.py::step_widths,
+//     two particles a thread (one at DM = 16). A bucket's block holds 128
 //     particles a thread's particle count; where that does not divide the
-//     tile (a tile of an odd multiple of 128), the run-time widths run.
-//     The ancestors' columns are loaded right after the walk and fly while
-//     the noise is drawn.
-//   - "tile" (d = k in {16, 32}): each warp's 32 particles go through
-//     the four matrix products as 3xTF32 tensor-core tiles over
-//     shared-memory tiles (tile_propagate.cuh); the per-thread design
-//     spent ~4600 issue slots a particle on FFMAs and their broadcast
-//     loads and ran 8.6x its bound at d = 32 (PERF.md).
+//     tile (a tile of an odd multiple of 128), the bucket (16, 1 or 16)
+//     runs, one particle a thread, with the same values. The ancestors'
+//     columns are loaded right after the walk and fly while the noise is
+//     drawn.
+//   - "tile" (d = k in {16, 32}, and every shape wider than 16): each
+//     warp's 32 particles go through the four matrix products as 3xTF32
+//     tensor-core tiles; the per-thread design spent ~4600 issue slots a
+//     particle on FFMAs and their broadcast loads and ran 8.6x its bound at
+//     d = 32 (PERF.md). At d = k in {16, 32} over shared-memory tiles of
+//     exactly those widths (tile_propagate.cuh); past 16 at the padded
+//     widths (DM, KM) of ops/fused_step.py::step_widths, DM in {32, 64,
+//     128}, with one state tile a warp and the matrices' k-panels staged
+//     for the whole block (wide_propagate.cuh). No shape runs at run-time
+//     widths.
 // The resample half is the same code in both: ancestors are bitwise the
 // plain version's; states and log-likelihoods agree to rounding. Both
 // designs take a float32 or, under mixed precision, a bfloat16 state (the
@@ -54,7 +59,7 @@
 // a normal on the special-function units, and 2 (2 d^2 + k d + k^2)
 // float32 flops. At d = 2 the Philox multiplies bind, at d = 13, k = 1 the
 // bytes; what the kernel reaches against them is in PERF.md.
-#include "tile_propagate.cuh"
+#include "wide_propagate.cuh"
 
 namespace {
 
@@ -205,33 +210,23 @@ __device__ __forceinline__ void window_ancestors(
 }
 
 // The "thread" design in bucket (DM, KM) (propagate.cuh), P particles a
-// thread, or at run-time widths (DM = KM = 0, one particle a thread; the
-// matrices staged when `staged`). A block holds kThreads * P particles,
-// particle i of thread t at (block * P + i) * kThreads + t.
+// thread. A block holds kThreads * P particles, particle i of thread t at
+// (block * P + i) * kThreads + t.
 template <int DM, int KM, typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_step_kernel(const T* __restrict__ X, const float* __restrict__ logw,
                   const int* __restrict__ s, const int* __restrict__ seed,
                   cusmc::StepModelT<T> m, T* __restrict__ Xo,
                   float* __restrict__ ll, int* __restrict__ anc, unsigned n,
-                  unsigned tile, int num_sweeps, int num_window_tiles,
-                  int staged) {
-  constexpr bool kBucket = DM > 0;
-  constexpr int P = kBucket ? cusmc::bucket_particles<DM>(true) : 1;
-  constexpr int SD = kBucket ? DM : 1;
-  constexpr int SK = kBucket ? KM : 1;
-  extern __shared__ float smem[];
-  __shared__ cusmc::BucketModel<SD, SK> s_m;
+                  unsigned tile, int num_sweeps, int num_window_tiles) {
+  constexpr int P = cusmc::bucket_particles<DM>(true);
+  __shared__ cusmc::BucketModel<DM, KM> s_m;
   __shared__ int s_db[kMaxSweeps];
   __shared__ int s_r;
   __shared__ Window s_win;
   const BlockTile bt = block_tile(s, seed, n, tile, kThreads * P, num_sweeps,
                                   num_window_tiles, s_db, &s_r, &s_win);
-  if constexpr (kBucket) {
-    cusmc::stage_bucket(m, s_m);
-  } else {
-    m = cusmc::stage_model(m, smem, staged != 0);
-  }
+  cusmc::stage_bucket(m, s_m);
   __syncthreads();
   unsigned p[P];
   unsigned lane[P];
@@ -249,18 +244,11 @@ fused_step_kernel(const T* __restrict__ X, const float* __restrict__ logw,
                       last_g, last);
 #pragma unroll
   for (int i = 0; i < P; ++i) anc[p[i]] = static_cast<int>(a[i]);
-  if constexpr (kBucket) {
-    float x[P][DM];
-    cusmc::load_columns(X, n, a, m.d, x);
-    cusmc::RowCursors<P> rows(bt.key, lane, 0u);
-    if (last_g >= 0) rows.hold(last_g, last);
-    cusmc::propagate_bucket(s_m, m, x, n, Xo, ll, p, rows, num_sweeps);
-  } else {
-    cusmc::BitStream bs(bt.key, lane[0], 0u);
-    bs.group = last_g;
-    bs.buf = last[0];
-    cusmc::propagate_reweight(m, X, n, a[0], Xo, ll, p[0], bs, num_sweeps);
-  }
+  float x[P][DM];
+  cusmc::load_columns(X, n, a, m.d, x);
+  cusmc::RowCursors<P> rows(bt.key, lane, 0u);
+  if (last_g >= 0) rows.hold(last_g, last);
+  cusmc::propagate_bucket(s_m, m, x, n, Xo, ll, p, rows, num_sweeps);
 }
 
 // The "tile" design: tile_propagate.cuh, d = k = D.
@@ -294,28 +282,55 @@ fused_step_tile_kernel(const T* __restrict__ X,
                                     num_sweeps);
 }
 
+// The "tile" design at the padded widths (DM, KM): wide_propagate.cuh.
+template <int DM, int KM, typename T>
+__global__ void __launch_bounds__(kThreads, DM > 64 ? 2 : DM > 32 ? 3 : 4)
+fused_step_wide_kernel(const T* __restrict__ X,
+                       const float* __restrict__ logw,
+                       const int* __restrict__ s,
+                       const int* __restrict__ seed, cusmc::StepModelT<T> m,
+                       T* __restrict__ Xo, float* __restrict__ ll,
+                       int* __restrict__ anc, unsigned n, unsigned tile,
+                       int num_sweeps, int num_window_tiles) {
+  static_assert(kThreads == 32 * cusmc::kWideWarps, "the panels' warps");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  __shared__ int s_db[kMaxSweeps];
+  __shared__ int s_r;
+  __shared__ Window s_win;
+  const BlockTile bt = block_tile(s, seed, n, tile, kThreads, num_sweeps,
+                                  num_window_tiles, s_db, &s_r, &s_win);
+  __syncthreads();
+  const unsigned p = blockIdx.x * kThreads + threadIdx.x;
+  const unsigned lane[1] = {p - bt.ti * tile};
+  unsigned a[1];
+  int last_g;
+  uint4 last[1] = {make_uint4(0u, 0u, 0u, 0u)};
+  window_ancestors<1>(logw, s_win, lane, num_sweeps, s_db, s_r, bt.key, a,
+                      last_g, last);
+  anc[p] = static_cast<int>(a[0]);
+  cusmc::RowCursors<1> rows(bt.key, lane, 0u);
+  if (last_g >= 0) rows.hold(last_g, last);
+  cusmc::wide_propagate_reweight<DM, KM>(m, smem, X, n, a[0], Xo, ll, p,
+                                         rows, num_sweeps);
+}
+
 template <int DM, int KM, typename T>
 int launch(const T* X, const float* logw, const int* s, const int* seed,
            const cusmc::StepModelT<T>& m, T* Xo, float* ll, int* anc,
            unsigned n, unsigned tile, int num_sweeps, int wt,
            cudaStream_t stream) {
-  if constexpr (DM > 0) {
-    constexpr unsigned per_block =
-        kThreads * cusmc::bucket_particles<DM>(true);
-    if (m.d > DM || m.k > KM) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr unsigned per_block =
+      kThreads * cusmc::bucket_particles<DM>(true);
+  if (m.d > DM || m.k > KM) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (per_block > kThreads) {
     if (tile % per_block != 0) {  // a block would straddle two tiles
-      return launch<0, 0>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
-                          num_sweeps, wt, stream);
+      return launch<16, KM == 1 ? 1 : 16>(X, logw, s, seed, m, Xo, ll, anc, n,
+                                          tile, num_sweeps, wt, stream);
     }
-    fused_step_kernel<DM, KM, T><<<n / per_block, kThreads, 0, stream>>>(
-        X, logw, s, seed, m, Xo, ll, anc, n, tile, num_sweeps, wt, 0);
-  } else {
-    const size_t bytes = cusmc::model_bytes<T>(m.d, m.k);
-    const int staged = bytes <= cusmc::kStageBytes ? 1 : 0;
-    fused_step_kernel<0, 0, T><<<n / kThreads, kThreads, staged ? bytes : 0,
-                                 stream>>>(X, logw, s, seed, m, Xo, ll, anc, n,
-                                           tile, num_sweeps, wt, staged);
   }
+  fused_step_kernel<DM, KM, T><<<n / per_block, kThreads, 0, stream>>>(
+      X, logw, s, seed, m, Xo, ll, anc, n, tile, num_sweeps, wt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -325,46 +340,69 @@ int launch_tile(const T* X, const float* logw, const int* s,
                 float* ll, int* anc, unsigned n, unsigned tile,
                 int num_sweeps, int wt, cudaStream_t stream) {
   constexpr size_t bytes = cusmc::TileLayout<D, T>::bytes(kThreads / 32);
-  static_assert(bytes <= cusmc::kStageBytes,
+  static_assert(bytes <= 48 * 1024,
                 "above 48 KB the launch needs cudaFuncSetAttribute");
   fused_step_tile_kernel<D, T><<<n / kThreads, kThreads, bytes, stream>>>(
       X, logw, s, seed, m, Xo, ll, anc, n, tile, num_sweeps, wt);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One element type: the design that `tiled` names; for the "thread" one,
-// the width bucket (dm, km) (0, 0: run-time widths).
+template <int DM, int KM, typename T>
+int launch_wide(const T* X, const float* logw, const int* s,
+                const int* seed, const cusmc::StepModelT<T>& m, T* Xo,
+                float* ll, int* anc, unsigned n, unsigned tile,
+                int num_sweeps, int wt, cudaStream_t stream) {
+  constexpr size_t bytes = cusmc::WideLayout<DM, KM>::bytes(kThreads / 32);
+  if (m.d > DM || m.k > KM) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t rc = cudaFuncSetAttribute(
+      fused_step_wide_kernel<DM, KM, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  fused_step_wide_kernel<DM, KM, T><<<n / kThreads, kThreads, bytes, stream>>>(
+      X, logw, s, seed, m, Xo, ll, anc, n, tile, num_sweeps, wt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One element type: the design that `tiled` names, in its compiled widths
+// (dm, km): the "tile" design's exact kernel for d = k = dm = km in
+// {16, 32}, else its padded widths; the "thread" design's width bucket.
 template <typename T>
 int launch_step(const T* X, const float* logw, const int* s, const int* seed,
                 const cusmc::StepModelT<T>& m, T* Xo, float* ll, int* anc,
                 unsigned n, unsigned tile, int num_sweeps, int wt,
                 int tiled, int dm, int km, cudaStream_t st) {
+#define CUSMC_WIDTHS(LAUNCH, DM, KM)                                      \
+  if (dm == DM && km == KM)                                               \
+    return LAUNCH<DM, KM>(X, logw, s, seed, m, Xo, ll, anc, n, tile,      \
+                          num_sweeps, wt, st);
   if (tiled) {
-    switch (m.d == m.k ? m.d : 0) {
-      case 16:
+    if (m.d == dm && m.k == km && dm == km) {
+      if (dm == 16) {
         return launch_tile<16>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
                                num_sweeps, wt, st);
-      case 32:
+      }
+      if (dm == 32) {
         return launch_tile<32>(X, logw, s, seed, m, Xo, ll, anc, n, tile,
                                num_sweeps, wt, st);
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
+      }
     }
+    CUSMC_WIDTHS(launch_wide, 32, 16)
+    CUSMC_WIDTHS(launch_wide, 32, 32)
+    CUSMC_WIDTHS(launch_wide, 64, 16)
+    CUSMC_WIDTHS(launch_wide, 64, 64)
+    CUSMC_WIDTHS(launch_wide, 128, 16)
+    CUSMC_WIDTHS(launch_wide, 128, 128)
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-#define CUSMC_BUCKET(DM, KM)                                              \
-  if (dm == DM && km == KM)                                               \
-    return launch<DM, KM>(X, logw, s, seed, m, Xo, ll, anc, n, tile,      \
-                          num_sweeps, wt, st);
-  CUSMC_BUCKET(2, 1)
-  CUSMC_BUCKET(2, 2)
-  CUSMC_BUCKET(4, 1)
-  CUSMC_BUCKET(4, 4)
-  CUSMC_BUCKET(8, 1)
-  CUSMC_BUCKET(8, 8)
-  CUSMC_BUCKET(16, 1)
-  CUSMC_BUCKET(16, 16)
-  CUSMC_BUCKET(0, 0)
-#undef CUSMC_BUCKET
+  CUSMC_WIDTHS(launch, 2, 1)
+  CUSMC_WIDTHS(launch, 2, 2)
+  CUSMC_WIDTHS(launch, 4, 1)
+  CUSMC_WIDTHS(launch, 4, 4)
+  CUSMC_WIDTHS(launch, 8, 1)
+  CUSMC_WIDTHS(launch, 8, 8)
+  CUSMC_WIDTHS(launch, 16, 1)
+  CUSMC_WIDTHS(launch, 16, 16)
+#undef CUSMC_WIDTHS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -375,12 +413,12 @@ int launch_step(const T* X, const float* logw, const int* s, const int* seed,
 // and Li [k, k] (f32), all contiguous, s [2] and seed [2] int32 on the
 // device -> Xo [d, n] of X's type, ll [n] f32, anc [n] int32. The caller
 // checks n % tile == 0, tile % 128 == 0, n >= num_window_tiles * tile,
-// d, k <= 128, num_sweeps <= 128, n < 2^31 and, for bf16, even d. noise:
-// 0 MVN, 1 MVT; df_int 0 selects Marsaglia-Tsang. tiled: 1 takes the
-// "tile" design, which needs d = k in {16, 32}, 0 the "thread" one in the
-// width bucket (dm, km) of ops/fused_step.py::thread_widths (d <= dm,
-// k <= km; 0, 0 for run-time widths). cudaErrorInvalidValue for a shape or
-// a bucket that is not compiled.
+// d, k <= 128, num_sweeps <= 128, n < 2^31 and, for bf16, even d and X
+// 4-byte aligned. noise: 0 MVN, 1 MVT; df_int 0 selects Marsaglia-Tsang.
+// tiled: 1 takes the "tile" design, 0 the "thread" one, each in the
+// compiled widths (dm, km) of ops/fused_step.py::step_widths (d <= dm,
+// k <= km). cudaErrorInvalidValue for a shape or widths that are not
+// compiled.
 CUSMC_EXPORT int cusmc_fused_step(
     const void* X, const float* logw, const float* y, const void* G,
     const void* Q, const void* F, const float* Li, const int* s,

@@ -17,23 +17,21 @@
 // FMAs), so the chi-square accept tests agree with the plain version
 // exactly; each product is an FMA chain over the columns in order.
 //
-// Two paths, chosen on the host (ops/fused_step.py::thread_widths):
-//   - compiled width buckets (DM, KM), DM >= d and KM >= k, DM in
-//     {2, 4, 8, 16} and KM in {1, DM} (propagate_bucket): loops unrolled to
-//     DM and KM and guarded by the run-time d and k, so that every vector
-//     lives in registers, and P = bucket_particles<DM>(walk) particles a
-//     thread. The matrices are staged once a block, widened to float32,
-//     in shared memory at the bucket's padded strides (Q transposed),
-//     where a row is contiguous and loads as 16-byte vectors that serve
-//     the thread's P particles. The ancestors' columns are loaded first,
-//     and their loads fly while the noise is drawn: one pass over the
-//     columns c, each drawing z_c from its two rows (RowCursors' two
-//     cursors) and adding Q[:, c] z_c into the running sums, so the
-//     normals need no array.
-//   - wider shapes (propagate_reweight): the dimensions at run time, up to
-//     128, with the vectors in local memory.
-// Both give the same values: the products' FMA chains, and every rounding,
-// are the same in both.
+// The compiled width buckets (DM, KM) of ops/fused_step.py::step_widths,
+// DM >= d and KM >= k, DM in {2, 4, 8, 16} and KM in {1, DM}
+// (propagate_bucket): loops unrolled to DM and KM and guarded by the
+// run-time d and k, so that every vector lives in registers, and
+// P = bucket_particles<DM>(walk) particles a thread. The matrices are
+// staged once a block, widened to float32, in shared memory at the
+// bucket's padded strides (Q transposed), where a row is contiguous and
+// loads as 16-byte vectors that serve the thread's P particles. The
+// ancestors' columns are loaded first, and their loads fly while the noise
+// is drawn: one pass over the columns c, each drawing z_c from its two rows
+// (RowCursors' two cursors) and adding Q[:, c] z_c into the running sums,
+// so the normals need no array. Every bucket at least as wide as the shape
+// gives the same values: the guards keep each product's FMA chain and
+// every rounding. Shapes wider than 16 take the "tile" design
+// (tile_propagate.cuh, wide_propagate.cuh).
 //
 // The state's type T is float or, under mixed precision, __nv_bfloat16,
 // with G, Q and F of the same type (Li, y, the noise's scale and ll stay
@@ -51,9 +49,7 @@
 
 namespace cusmc {
 
-constexpr int kMaxDim = 128;
 constexpr int kMtRounds = 4;
-constexpr size_t kStageBytes = 48 * 1024;
 
 template <typename T = float>
 struct StepModelT {
@@ -90,42 +86,6 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return widen(narrow<T>(x));
-}
-
-// Bytes of the staged matrices: G, Q, F in the state's type, then Li in
-// float32 at a 4-byte boundary.
-template <typename T = float>
-inline size_t model_bytes(int d, int k) {
-  const size_t head = sizeof(T) * (2 * static_cast<size_t>(d) * d +
-                                   static_cast<size_t>(k) * d);
-  return (head + 3) / 4 * 4 + sizeof(float) * static_cast<size_t>(k) * k;
-}
-
-// Copies the matrices into `smem` (the block's dynamic shared memory) when
-// `staged`; the caller synchronises the block before using the result.
-template <typename T>
-__device__ __forceinline__ StepModelT<T> stage_model(StepModelT<T> m,
-                                                     float* smem,
-                                                     bool staged) {
-  if (!staged) return m;
-  const int dd = m.d * m.d;
-  const int kd = m.k * m.d;
-  const int kk = m.k * m.k;
-  T* G = reinterpret_cast<T*>(smem);
-  T* Q = G + dd;
-  T* F = Q + dd;
-  float* L = smem + (sizeof(T) * (2 * dd + kd) + 3) / 4;
-  for (int i = threadIdx.x; i < dd; i += blockDim.x) {
-    G[i] = m.G[i];
-    Q[i] = m.Q[i];
-  }
-  for (int i = threadIdx.x; i < kd; i += blockDim.x) F[i] = m.F[i];
-  for (int i = threadIdx.x; i < kk; i += blockDim.x) L[i] = m.Li[i];
-  m.G = G;
-  m.Q = Q;
-  m.F = F;
-  m.Li = L;
-  return m;
 }
 
 // sqrt(df / g), g ~ chi-square(df), for the P particles of `rows` (a
@@ -219,55 +179,6 @@ __device__ __forceinline__ float reweight(const StepModelT<T>& m,
                      __fmul_rn(half_dfk, log1pf(__fdiv_rn(quad, m.df))));
   }
   return __fsub_rn(m.log_norm, __fmul_rn(0.5f, quad));
-}
-
-// The run-time path: propagates particle p from its ancestor a (column a
-// of X [d, n]), writes column p of Xo [d, n] and ll[p]; zrow: the
-// particle's first noise row of bs. d, k <= kMaxDim, the vectors in local
-// memory.
-template <typename T>
-__device__ __forceinline__ void propagate_reweight(
-    const StepModelT<T>& m, const T* __restrict__ X, long long n, long long a,
-    T* __restrict__ Xo, float* __restrict__ ll, long long p,
-    BitStream& bs, int zrow) {
-  const int d = m.d;
-  const int k = m.k;
-  float v[kMaxDim];   // the normals z, then the ancestor state
-  float xn[kMaxDim];  // Q z (scaled), then the new state
-  float res[kMaxDim];
-  for (int r = 0; r < d; ++r) v[r] = to_uniform(bs.bits(zrow + r));
-  for (int r = 0; r < d; ++r) {
-    v[r] = round_to<T>(box_muller(v[r], to_uniform(bs.bits(zrow + d + r))));
-  }
-  float scale[1] = {1.0f};
-  if (m.mvt) mvt_scales(bs, zrow + 2 * d, m, scale);
-  for (int r = 0; r < d; ++r) {
-    float acc = 0.0f;
-    for (int c = 0; c < d; ++c) acc = fmaf(widen(m.Q[r * d + c]), v[c], acc);
-    xn[r] = m.mvt ? __fmul_rn(acc, scale[0]) : acc;
-  }
-  for (int c = 0; c < d; ++c) {
-    v[c] = widen(X[static_cast<long long>(c) * n + a]);
-  }
-  for (int r = 0; r < d; ++r) {
-    float acc = 0.0f;
-    for (int c = 0; c < d; ++c) acc = fmaf(widen(m.G[r * d + c]), v[c], acc);
-    const T x = narrow<T>(__fadd_rn(acc, xn[r]));
-    xn[r] = widen(x);
-    Xo[static_cast<long long>(r) * n + p] = x;
-  }
-  for (int j = 0; j < k; ++j) {
-    float acc = 0.0f;
-    for (int c = 0; c < d; ++c) acc = fmaf(widen(m.F[j * d + c]), xn[c], acc);
-    res[j] = __fsub_rn(m.y[j], acc);
-  }
-  float quad = 0.0f;
-  for (int i = 0; i < k; ++i) {
-    float acc = 0.0f;
-    for (int j = 0; j < k; ++j) acc = fmaf(m.Li[i * k + j], res[j], acc);
-    quad = fmaf(acc, acc, quad);
-  }
-  ll[p] = reweight(m, quad);
 }
 
 // Particles a thread in bucket DM, for the Metropolis step (`walk`) or

@@ -22,12 +22,13 @@ The kernel searches the cdf a block of ``kernels.CDF_BLOCK`` slots at a
 time, through a shared-memory window of at most ``kernels.CDF_WINDOW``
 floats of the stretch between the block's first and last position
 (``csrc/common.cuh``). Its propagate-and-reweight half takes the design
-that ``ops.fused_step.step_path(d, k)`` names, the rule of the
-fused Metropolis step: "tile" (d = k in {16, 32}: 3xTF32 tensor-core
-tiles, ``csrc/tile_propagate.cuh``) or "thread" (``csrc/propagate.cuh``),
-the latter in the width bucket ``ops.fused_step.thread_widths(d, k)``
-(the block's Philox key and ``pscale`` formed once, in 32 bits). The
-plain version is the same for both.
+that ``ops.fused_step.step_path(d, k)`` names in the widths
+``ops.fused_step.step_widths(d, k)``, the rule of the fused Metropolis
+step: "tile" (d = k in {16, 32} and every shape wider than 16: 3xTF32
+tensor-core tiles, ``csrc/tile_propagate.cuh`` and, at padded widths,
+``csrc/wide_propagate.cuh``) or "thread" (``csrc/propagate.cuh``, the
+block's Philox key and ``pscale`` formed once, in 32 bits). The plain
+version is the same for both.
 
 The TPU kernel's group-bound tables (``srows``, ``wcnt``, ``woff``,
 ``grows``, ``:383-411``) place Mosaic's DMA windows and are not ported;
@@ -51,7 +52,7 @@ from cusmc_tpu_torch.ops.fused_step import (
     propagate_reweight_plain,
     require_model,
     step_path,
-    thread_widths,
+    step_widths,
     to_uniform,
 )
 from cusmc_tpu_torch.ops.philox import philox_bits
@@ -181,7 +182,7 @@ def fused_cdf_filter_step(cdf, X, y, G, Q, F, Li, df, log_norm, draws, *,
     if cdf.shape[0] != n:
         raise ValueError(f"cdf [{cdf.shape[0]}] does not match N={n}")
     tiled = step_path(d, k) == "tile"
-    dm, km = (0, 0) if tiled else thread_widths(d, k)
+    dm, km = step_widths(d, k)
     lib = kernels.library()
     x_new = torch.empty_like(X)
     ll = torch.empty((n,), dtype=torch.float32, device=dev)

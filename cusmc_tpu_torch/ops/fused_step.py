@@ -30,24 +30,33 @@ chi-square rows (``df_int // 2 + 2 (df_int % 2)``, or 3 per
 Marsaglia-Tsang round).
 
 The kernel has two designs of its propagate-and-reweight half, chosen by
-``step_path(d, k)``: "tile" (d = k in {16, 32}: each warp's 32 particles
-through the four matrix products as 3xTF32 tensor-core tiles,
-``csrc/tile_propagate.cuh``) and "thread" (every other shape: one
-particle per thread, ``csrc/propagate.cuh``). Both draw the same bits
-and give the same ancestors; the plain version is the same for both.
+``step_path(d, k)`` in the compiled widths ``step_widths(d, k)``: "thread"
+(d and k up to 16 but d = k = 16; one particle per thread,
+``csrc/propagate.cuh``) and "tile" (d = k in {16, 32}, and every shape
+wider than 16: each warp's 32 particles through the four matrix products
+as 3xTF32 tensor-core tiles). Both draw the same bits and give the same
+ancestors; the plain version is the same for both. No shape runs at
+run-time widths.
 
-The "thread" design runs in a compiled width bucket, ``thread_widths(d,
+The "thread" design runs in a compiled width bucket, ``step_widths(d,
 k)`` = (DM, KM) with DM >= d and KM >= k: its loops are unrolled to DM
 and KM and guarded by d and k, so that its vectors live in registers,
 and each normal is drawn and added into ``Q z`` in one pass over the
-columns, while the ancestor's column is in flight. Shapes wider than the
-largest bucket (16) run at run-time widths, with their vectors in local
-memory. The walk and the block's tile, key and window are formed in 32
-bits, once a block, and a particle's candidate weights are loaded a
-chunk of sweeps at a time, with the chunk's accept uniforms drawn while
-they fly; the accept chain keeps the sweeps' order. Each group of four
-Philox rows is drawn once a particle, even where the accept rows and the
-noise rows share one. The fused inverse-CDF step takes the same buckets
+columns, while the ancestor's column is in flight. The walk and the
+block's tile, key and window are formed in 32 bits, once a block, and a
+particle's candidate weights are loaded a chunk of sweeps at a time, with
+the chunk's accept uniforms drawn while they fly; the accept chain keeps
+the sweeps' order. Each group of four Philox rows is drawn once a
+particle, even where the accept rows and the noise rows share one.
+
+The "tile" design runs at d = k in ``TILE_DIMS`` in tiles of exactly
+that width (``csrc/tile_propagate.cuh``), and past 16 at the padded
+widths ``step_widths(d, k)`` = (DM, KM), DM the smallest of
+``TILE_PAD_DIMS`` at least d (at least max(d, k) when k > 1), KM = 16 for
+k <= 16, else DM (``csrc/wide_propagate.cuh``): d and k zero-padded, the
+padding drawing no Philox row, one state tile a warp, the normals drawn a
+k-step at a time, and the matrices' k-panels staged for the whole block.
+The fused inverse-CDF step takes the same designs and widths
 (``ops/fused_cdf_step.py``).
 
 The state is float32 or, under mixed precision, bfloat16 with ``G``,
@@ -142,34 +151,47 @@ def auto_tile(n: int, dk: int, state_itemsize: int = 4) -> int:
     return t
 
 
-TILE_DIMS = (16, 32)  # d = k compiled for the "tile" design
+TILE_DIMS = (16, 32)  # d = k compiled exactly for the "tile" design
+# The "tile" design's padded state widths past 16, and the observation
+# width of its shapes with k <= 16.
+TILE_PAD_DIMS = (32, 64, 128)
+TILE_PAD_OBS = 16
 # The "thread" design's compiled state widths: each with an observation
 # width of 1 (the univariate models, the structural family) and of itself.
 THREAD_BUCKET_DIMS = (2, 4, 8, 16)
 
 
-def step_path(d: int, k: int) -> str:
-    """The design the kernel runs for state width d and observation width
-    k: "tile" for d = k in ``TILE_DIMS``, else "thread"."""
-    return "tile" if d == k and d in TILE_DIMS else "thread"
-
-
-def thread_widths(d: int, k: int) -> Tuple[int, int]:
-    """The "thread" design's compiled width bucket (DM, KM) for state
-    width d and observation width k, both kernels' rule: DM the smallest
-    of ``THREAD_BUCKET_DIMS`` at least d (at least max(d, k) when k > 1),
-    KM = 1 for k = 1, else DM; (0, 0), the run-time widths, when that
-    exceeds the largest bucket. The "tile" design's shapes have no bucket
-    (ValueError)."""
+def _width(d: int, k: int) -> int:
+    """The width a shape needs: d for k = 1, else max(d, k)."""
     if not (1 <= d <= MAX_MXU_DIM and 1 <= k <= MAX_MXU_DIM):
         raise ValueError(f"no fused step at d={d}, k={k}")
-    if step_path(d, k) == "tile":
-        raise ValueError(f"d = k = {d} takes the tile design")
-    want = d if k == 1 else max(d, k)
-    for width in THREAD_BUCKET_DIMS:
-        if want <= width:
-            return width, 1 if k == 1 else width
-    return 0, 0
+    return d if k == 1 else max(d, k)
+
+
+def step_path(d: int, k: int) -> str:
+    """The design the kernel runs for state width d and observation width
+    k: "tile" for d = k in ``TILE_DIMS`` and for every shape wider than
+    the largest "thread" bucket, else "thread"."""
+    wide = _width(d, k) > THREAD_BUCKET_DIMS[-1]
+    return "tile" if wide or (d == k and d in TILE_DIMS) else "thread"
+
+
+def step_widths(d: int, k: int) -> Tuple[int, int]:
+    """The compiled widths (DM, KM) both kernels run the design
+    ``step_path(d, k)`` in, d and k padded to them: for "thread" the
+    width bucket, DM the smallest of ``THREAD_BUCKET_DIMS`` at least d (at
+    least max(d, k) when k > 1) and KM = 1 for k = 1, else DM; for "tile"
+    (d, d) at d = k in ``TILE_DIMS``, else DM the smallest of
+    ``TILE_PAD_DIMS`` at least d (at least max(d, k) when k > 1) and
+    KM = ``TILE_PAD_OBS`` for k <= 16, else DM."""
+    want = _width(d, k)
+    if step_path(d, k) == "thread":
+        width = min(w for w in THREAD_BUCKET_DIMS if w >= want)
+        return width, 1 if k == 1 else width
+    if d == k and d in TILE_DIMS:
+        return d, d
+    dm = min(w for w in TILE_PAD_DIMS if w >= want)
+    return dm, TILE_PAD_OBS if k <= TILE_PAD_OBS else dm
 
 
 def fused_filter_step_draws(gen: Optional[torch.Generator], n: int,
@@ -384,9 +406,9 @@ def fused_filter_step(X, logw, y, G, Q, F, Li, df, log_norm, draws, *,
     if logw.shape[0] != n or s.shape[0] != 2:
         raise ValueError("logw [N] and s [2] expected")
     tiled = step_path(d, k) == "tile"
-    dm, km = (0, 0) if tiled else thread_widths(d, k)
-    if bf16 and tiled and any(m.data_ptr() % 4 for m in (G, Q, F)):
-        raise ValueError("the bfloat16 tile design reads G, Q and F in "
+    dm, km = step_widths(d, k)
+    if bf16 and tiled and any(m.data_ptr() % 4 for m in (X, G, Q, F)):
+        raise ValueError("the bfloat16 tile design reads X, G, Q and F in "
                          "4-byte words: they must be 4-byte aligned")
     lib = kernels.library()
     x_new = torch.empty_like(X)

@@ -556,10 +556,12 @@ def test_cuda_fused_cdf_kernel(cuda, d, mode, noise, df, n):
 
 
 # Shapes at the edges of the "thread" design's width buckets
-# (ops/fused_step.thread_widths: DM in {2, 4, 8, 16}, KM in {1, DM}) and
-# beyond the last, where the run-time widths take over.
+# (ops/fused_step.step_widths: DM in {2, 4, 8, 16}, KM in {1, DM}) and of
+# the "tile" design's padded widths beyond them (ops/fused_step.step_widths:
+# DM in {32, 64, 128}, KM in {16, DM}).
 BUCKET_EDGES = [(1, 1), (2, 1), (3, 3), (4, 1), (8, 8), (9, 1), (13, 1),
-                (16, 1), (16, 8), (17, 1), (17, 17), (40, 40), (64, 64)]
+                (16, 1), (16, 8), (17, 1), (17, 17), (40, 40), (64, 64),
+                (24, 24), (32, 1), (33, 33), (64, 1), (2, 64), (128, 128)]
 
 
 def _bucket_model(d, k, cuda):
@@ -578,9 +580,10 @@ def _bucket_model(d, k, cuda):
 @pytest.mark.parametrize("kind", ["metropolis", "systematic", "stratified"])
 @pytest.mark.parametrize("d,k", BUCKET_EDGES)
 def test_cuda_fused_kernels_at_bucket_edges(cuda, d, k, kind):
-    # Both fused kernels' "thread" design in each bucket it compiles and at
-    # run-time widths: ancestors exactly the plain version's, states and
-    # log-likelihoods at rtol 1e-4, atol 1e-4.
+    # Both fused kernels in each compiled width about the edges of the
+    # "thread" buckets and the "tile" design's padded widths: ancestors
+    # exactly the plain version's, states and log-likelihoods at rtol 1e-4,
+    # atol 1e-4.
     noise = "mvt" if (d + k) % 2 else "mvn"
     df, df_int = (5.0, 5) if noise == "mvt" else (None, None)
     n = 1 << 16
@@ -589,9 +592,11 @@ def test_cuda_fused_kernels_at_bucket_edges(cuda, d, k, kind):
     logw = -5.0 * torch.rand(n, generator=gen, device=cuda)
     y = torch.full((k,), 0.05, device=cuda)
     G, Q, F, Li = _bucket_model(d, k, cuda)
-    dm, km = fs.thread_widths(d, k)
-    assert (dm, km) == ((0, 0) if (d if k == 1 else max(d, k)) > 16
-                        else (dm, 1 if k == 1 else dm))
+    dm, km = fs.step_widths(d, k)
+    want = d if k == 1 else max(d, k)
+    assert d <= dm and k <= km
+    assert fs.step_path(d, k) == ("tile" if want > 16 or d == k == 16
+                                  else "thread")
     if kind == "metropolis":
         wrapper = fs.fused_filter_step
         draws = fs.fused_filter_step_draws(gen, n, 2048, cuda)
@@ -614,11 +619,62 @@ def test_cuda_fused_kernels_at_bucket_edges(cuda, d, k, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("noise", ["mvn", "mvt"])
+def test_cuda_fused_step_bf16_at_padded_tile_widths(cuda, d, noise):
+    # A bfloat16 state in the "tile" design's padded widths, chip_smoke.py's
+    # bfloat16 case: ancestors equal to the plain version's and to the
+    # float32 kernel's, states bitwise but for 1-ulp mismatches shown at a
+    # rounding boundary, ll at 1e-4.
+    import chip_smoke as cs
+
+    assert fs.step_path(d, d) == "tile"
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    cs._fused_step_case_bf16(1 << 16, d, noise, gen, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 8, 64])
+def test_cuda_pallas_filter_at_a_tile_of_128(cuda, d):
+    # pallas_tile = 128, the smallest tile the JAX package accepts: the
+    # "thread" buckets of two particles a thread would straddle two tiles
+    # and run the one-particle bucket, the "tile" design's blocks fit.
+    # The kernel against its plain version, then a filter run that
+    # launches it every step.
+    n, tile = 1 << 14, 128
+    gen = torch.Generator(device=cuda).manual_seed(128 + d)
+    X = 0.1 * torch.randn((d, n), generator=gen, device=cuda)
+    logw = -5.0 * torch.rand(n, generator=gen, device=cuda)
+    y = torch.full((d,), 0.05, device=cuda)
+    G, Q, F, Li = _bucket_model(d, d, cuda)
+    draws = fs.fused_filter_step_draws(gen, n, tile, cuda)
+    args = (X, logw, y, G, Q, F, Li, 5.0, -0.75, draws)
+    kw = dict(noise="mvt", num_sweeps=10, tile=tile, df_int=5)
+    x, ll, a = fs.fused_filter_step(*args, **kw)
+    x_p, ll_p, a_p = fs.fused_filter_step_plain(*args, **kw)
+    assert torch.equal(a, a_p)
+    _close(x, x_p)
+    _close(ll, ll_p)
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+
+    model = DLM.create(noise="mvt", df=5.0, device=cuda,
+                       **demo_model_params(d))
+    _, ys = model.simulate(gen, 10)
+    before = fs.fused_filter_step.launches
+    res = bootstrap_filter(0, model, ys, n, engine="pallas",
+                           pallas_tile=tile, return_history=False)
+    assert fs.fused_filter_step.launches == before + 9
+    assert bool(torch.isfinite(res.log_evidence))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d,noise", [(2, "mvt"), (13, "mvn")])
 def test_cuda_fused_step_kernel_on_a_tile_of_an_odd_multiple_of_128(
         cuda, d, noise):
     # A bucket's block of 256 particles would straddle two tiles of 384:
-    # the kernel runs the run-time widths there, with the same results.
+    # the kernel runs the one-particle bucket there, with the same
+    # results.
     n, tile = 384 * 32, 384
     gen = torch.Generator(device=cuda).manual_seed(384 + d)
     X = 0.1 * torch.randn((d, n), generator=gen, device=cuda)
@@ -631,14 +687,14 @@ def test_cuda_fused_step_kernel_on_a_tile_of_an_odd_multiple_of_128(
     kw = dict(noise=noise, num_sweeps=10, tile=tile, df_int=df_int)
     x, ll, a = fs.fused_filter_step(*args, **kw)
     x_p, ll_p, a_p = fs.fused_filter_step_plain(*args, **kw)
-    assert fs.thread_widths(d, d) != (0, 0)
+    assert fs.step_path(d, d) == "thread"
     assert torch.equal(a, a_p)
     _close(x, x_p)
     _close(ll, ll_p)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", [16, 32, 64])
 @pytest.mark.parametrize("kind", ["metropolis", "cdf"])
 def test_cuda_tile_oracle_moments(cuda, kind, d):
     # chip_smoke.py's checks 1-3 of the "tile" design on the kernel, at
@@ -656,7 +712,7 @@ def test_cuda_tile_oracle_moments(cuda, kind, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", [16, 32, 64])
 def test_cuda_tile_oracle_log_evidence(cuda, d):
     # chip_smoke.py's check 4: the conditioned model at N = 2^20, T = 101,
     # 4 seeds a path, both engines and resamplers, in the bands that

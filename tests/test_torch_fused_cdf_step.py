@@ -95,7 +95,7 @@ def test_step_matches_jax_kernel_at_the_structural_width(mode, noise, df,
                                                          df_int):
     # d = 13, k = 1 (the monthly structural DLM's matrices), the width
     # whose kernel takes the (16, 1) bucket of the "thread" design.
-    from cusmc_tpu_torch.ops.fused_step import thread_widths
+    from cusmc_tpu_torch.ops.fused_step import step_widths
 
     G, Q, F, Li = monthly_mats()
     d = G.shape[0]
@@ -112,7 +112,47 @@ def test_step_matches_jax_kernel_at_the_structural_width(mode, noise, df,
         *map(torch.from_numpy, (cdf, X, y, G, Q, F, Li)), df, -0.5,
         fused_cdf_draws(key), noise=noise, mode=mode, tile=TILE,
         df_int=df_int, bits=zero_bits)
-    assert thread_widths(d, F.shape[0]) == (16, 1)
+    assert step_widths(d, F.shape[0]) == (16, 1)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ar))
+    np.testing.assert_allclose(x.numpy(), np.asarray(xr), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(ll.numpy(), np.asarray(llr), rtol=RTOL,
+                               atol=ATOL)
+
+
+# (d, k, mode, noise, df, df_int): the "tile" design in its padded widths
+# at d = k = 64 and at k != d past the "thread" buckets ((64, 16)).
+TILE_CASES = [(64, 64, "stratified", "mvt", 5.0, 5),
+              (40, 1, "systematic", "mvn", None, None)]
+TILE_N, TILE_SR = 2048, 8  # the smallest window the JAX kernel takes
+
+
+@pytest.mark.parametrize("d,k,mode,noise,df,df_int", TILE_CASES)
+def test_step_matches_jax_kernel_at_tile_widths(d, k, mode, noise, df,
+                                                df_int):
+    # The plain version the card holds the "tile" design to agrees with
+    # the JAX kernel here.
+    from cusmc_tpu_torch.ops.fused_step import step_path
+
+    cdf, X, y, G, Q, F, Li = _inputs(seed=d + k, d=d, n=TILE_N)
+    if k != d:
+        rng = np.random.default_rng(100 + d + k)
+        y = (0.1 * rng.standard_normal(k)).astype(np.float32)
+        F = (0.3 * rng.standard_normal((k, d))).astype(np.float32)
+        Li = (np.eye(k) / 0.3 + 0.1 * np.tril(rng.standard_normal((k, k)),
+                                               -1)).astype(np.float32)
+    key = jax.random.key(29)
+    xr, llr, ar = jax_step(
+        key, jnp.asarray(cdf), jnp.asarray(cdf[127::128]),
+        *map(jnp.asarray, (X, y, G, Q, F, Li)),
+        None if df is None else jnp.float32(df), jnp.float32(-0.5),
+        noise=noise, mode=mode, tile=TILE, sr=TILE_SR, interpret=True,
+        df_int=df_int)
+    x, ll, a = fc.fused_cdf_filter_step_plain(
+        *map(torch.from_numpy, (cdf, X, y, G, Q, F, Li)), df, -0.5,
+        fused_cdf_draws(key), noise=noise, mode=mode, tile=TILE, sr=TILE_SR,
+        df_int=df_int, bits=zero_bits)
+    assert step_path(d, k) == "tile"
     np.testing.assert_array_equal(a.numpy(), np.asarray(ar))
     np.testing.assert_allclose(x.numpy(), np.asarray(xr), rtol=RTOL,
                                atol=ATOL)

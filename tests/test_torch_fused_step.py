@@ -84,29 +84,59 @@ def test_step_matches_jax_kernel_with_zero_bits(noise, df, df_int, wt):
         a.numpy(), ((i + s0) % (N // TILE)) * TILE + lane)
 
 
-@pytest.mark.parametrize("d", [16, 32])
-@pytest.mark.parametrize("noise,df,df_int", [("mvn", None, None),
-                                             ("mvt", 5.0, 5)])
-def test_step_matches_jax_kernel_at_tile_widths(d, noise, df, df_int):
-    # The widths whose kernel takes the "tile" design: the plain version
-    # it is held to on the card agrees with the JAX kernel here.
-    X, logw, y, G, Q, F, Li = _inputs(d=d)
-    key = jax.random.key(13)
+def _jax_parity(X, logw, y, G, Q, F, Li, noise, df, df_int, log_norm, key):
+    """The JAX kernel in interpret mode and the port's plain version with
+    zero bits on the same inputs: ancestors exactly, states and ll at
+    RTOL, ATOL."""
     xr, llr, ar = jax_fused_step(
         key, *map(jnp.asarray, (X, logw, y, G, Q, F, Li)),
-        None if df is None else jnp.float32(df), jnp.float32(-1.25),
+        None if df is None else jnp.float32(df), jnp.float32(log_norm),
         noise=noise, num_sweeps=10, tile=TILE, interpret=True,
         df_int=df_int)
     x, ll, a = fs.fused_filter_step_plain(
-        *map(torch.from_numpy, (X, logw, y, G, Q, F, Li)), df, -1.25,
+        *map(torch.from_numpy, (X, logw, y, G, Q, F, Li)), df, log_norm,
         fused_step_draws(key, N, TILE), noise=noise, num_sweeps=10,
         tile=TILE, df_int=df_int, bits=zero_bits)
-    assert fs.step_path(d, d) == "tile"
     np.testing.assert_array_equal(a.numpy(), np.asarray(ar))
     np.testing.assert_allclose(x.numpy(), np.asarray(xr), rtol=RTOL,
                                atol=ATOL)
     np.testing.assert_allclose(ll.numpy(), np.asarray(llr), rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("noise,df,df_int", [("mvn", None, None),
+                                             ("mvt", 5.0, 5)])
+def test_step_matches_jax_kernel_at_tile_widths(d, noise, df, df_int):
+    # Widths whose kernel takes the "tile" design (d = 16 and 32 exactly,
+    # d = 64 in its padded widths): the plain version it is held to on the
+    # card agrees with the JAX kernel here.
+    assert fs.step_path(d, d) == "tile"
+    _jax_parity(*_inputs(d=d), noise, df, df_int, -1.25,
+                jax.random.key(13))
+
+
+def _shape_inputs(d, k, seed):
+    """Inputs of state width d and observation width k != d: a dense F
+    [k, d] and a triangular Li [k, k], made with numpy from a seed."""
+    X, logw, _, G, Q, _, _ = _inputs(seed=seed, d=d)
+    rng = np.random.default_rng(100 + seed)
+    y = (0.1 * rng.standard_normal(k)).astype(np.float32)
+    F = (0.3 * rng.standard_normal((k, d))).astype(np.float32)
+    Li = (np.eye(k) / 0.3 + 0.1 * np.tril(rng.standard_normal((k, k)), -1)
+          ).astype(np.float32)
+    return X, logw, y, G, Q, F, Li
+
+
+@pytest.mark.parametrize("d,k,noise,df,df_int", [
+    (40, 1, "mvt", 5.0, 5), (20, 24, "mvn", None, None)])
+def test_step_matches_jax_kernel_at_padded_tile_widths_k_not_d(
+        d, k, noise, df, df_int):
+    # Shapes with k != d past the "thread" buckets, which the card runs in
+    # the "tile" design's padded widths ((64, 16) and (32, 32)).
+    assert fs.step_path(d, k) == "tile" and fs.step_widths(d, k) != (d, k)
+    _jax_parity(*_shape_inputs(d, k, seed=d + k), noise, df, df_int, -0.75,
+                jax.random.key(19))
 
 
 @pytest.mark.parametrize("noise,df,df_int", [("mvn", None, None),
@@ -132,7 +162,7 @@ def test_step_matches_jax_kernel_at_the_structural_width(noise, df, df_int):
         *map(torch.from_numpy, (X, logw, y, G, Q, F, Li)), df, -0.5,
         fused_step_draws(key, N, TILE), noise=noise, num_sweeps=10,
         tile=TILE, df_int=df_int, bits=zero_bits)
-    assert (d, k) == (13, 1) and fs.thread_widths(d, k) == (16, 1)
+    assert (d, k) == (13, 1) and fs.step_widths(d, k) == (16, 1)
     np.testing.assert_array_equal(a.numpy(), np.asarray(ar))
     np.testing.assert_allclose(x.numpy(), np.asarray(xr), rtol=RTOL,
                                atol=ATOL)
@@ -141,43 +171,55 @@ def test_step_matches_jax_kernel_at_the_structural_width(noise, df, df_int):
 
 
 def test_thread_widths_cover_every_shape():
-    # Both kernels' rule for the "thread" design's compiled buckets, over
-    # every d, k <= 128: the smallest bucket that covers the shape, k = 1
-    # in a bucket of its own, the tile shapes in none, and the run-time
-    # widths beyond the largest bucket.
-    dims = fs.THREAD_BUCKET_DIMS
+    # Both kernels' rule, over every d, k <= 128: each shape maps to a
+    # compiled design and widths, none to run-time widths. "thread" in the
+    # smallest bucket that covers the shape while it needs at most 16
+    # (k = 1 in a bucket of its own) but d = k = 16; "tile" at d = k in
+    # TILE_DIMS exactly, else in the smallest padded width that covers it,
+    # KM = 16 for k <= 16, else DM.
+    buckets = fs.THREAD_BUCKET_DIMS
+    pads = fs.TILE_PAD_DIMS
     seen = set()
     for d in range(1, fs.MAX_MXU_DIM + 1):
         for k in range(1, fs.MAX_MXU_DIM + 1):
-            if fs.step_path(d, k) == "tile":
-                with pytest.raises(ValueError):
-                    fs.thread_widths(d, k)
-                continue
-            dm, km = fs.thread_widths(d, k)
-            seen.add((dm, km))
             want = d if k == 1 else max(d, k)
-            if want > dims[-1]:
-                assert (dm, km) == (0, 0), (d, k)
-                continue
-            assert d <= dm and k <= km, (d, k)
-            assert (km == 1) == (k == 1) and km in (1, dm), (d, k)
-            assert dm == min(w for w in dims if w >= want), (d, k)
-    assert seen == ({(w, 1) for w in dims} | {(w, w) for w in dims}
-                    | {(0, 0)})
+            path = fs.step_path(d, k)
+            dm, km = fs.step_widths(d, k)
+            seen.add((path, dm, km))
+            assert d <= dm and k <= km and km <= dm, (d, k)
+            if path == "thread":
+                assert want <= buckets[-1] and (d, k) != (16, 16), (d, k)
+                assert dm == min(w for w in buckets if w >= want), (d, k)
+                assert km == (1 if k == 1 else dm), (d, k)
+            elif d == k and d in fs.TILE_DIMS:
+                assert (dm, km) == (d, d)
+            else:
+                assert want > buckets[-1], (d, k)
+                assert dm == min(w for w in pads if w >= want), (d, k)
+                assert km == (fs.TILE_PAD_OBS if k <= fs.TILE_PAD_OBS
+                              else dm)
+    assert seen == ({("thread", w, 1) for w in buckets}
+                    | {("thread", w, w) for w in buckets}
+                    | {("tile", w, w) for w in fs.TILE_DIMS}
+                    | {("tile", w, fs.TILE_PAD_OBS) for w in pads}
+                    | {("tile", w, w) for w in pads})
     for d, k in ((0, 1), (1, 0), (129, 1), (2, 129)):
-        with pytest.raises(ValueError):
-            fs.thread_widths(d, k)
+        for rule in (fs.step_path, fs.step_widths):
+            with pytest.raises(ValueError):
+                rule(d, k)
 
 
 @pytest.mark.parametrize("d,k,path", [
     (2, 2, "thread"), (4, 4, "thread"), (8, 8, "thread"), (16, 16, "tile"),
     (32, 32, "tile"), (16, 8, "thread"), (5, 5, "thread"),
-    (64, 64, "thread")])
+    (64, 64, "tile"), (24, 24, "tile"), (32, 1, "tile"), (2, 64, "tile"),
+    (128, 128, "tile"), (16, 1, "thread")])
 def test_step_path_by_shape(d, k, path):
-    # A plain function of (d, k): the tile design exactly where the
-    # kernel compiles it (d = k in TILE_DIMS).
+    # A plain function of (d, k): the tile design at d = k in TILE_DIMS and
+    # wherever the shape needs more than the widest bucket (16).
     assert fs.step_path(d, k) == path
-    assert (path == "tile") == (d == k and d in fs.TILE_DIMS)
+    assert (path == "tile") == (d == k == 16 or
+                                (d if k == 1 else max(d, k)) > 16)
 
 
 @pytest.mark.parametrize("noise,df", [("mvn", None), ("mvt", 5.0),

@@ -1,5 +1,6 @@
 """PyTorch port, the statistical oracle of the fused steps' "tile" design
-(d = k in {16, 32}; chip_smoke.py phase 3c) on the CPU.
+(d = k in {16, 32}, and d = k = 64 in its padded widths; chip_smoke.py
+phase 3c) on the CPU.
 
 The fused kernels' plain versions draw the kernels' own Philox bits in
 the kernels' own layout (``ops/philox.py``), and the kernels are held to
@@ -49,7 +50,7 @@ def _tile(kind, d, m=M):
         fc.cdf_auto_tile(m, d)
 
 
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", [16, 32, 64])
 @pytest.mark.parametrize("kind", KINDS)
 def test_dense_g_without_noise_gives_g_x_of_the_ancestors(kind, d):
     assert fs.step_path(d, d) == "tile"
@@ -59,7 +60,7 @@ def test_dense_g_without_noise_gives_g_x_of_the_ancestors(kind, d):
 
 
 @pytest.mark.parametrize("noise", ["mvn", "mvt"])
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", [16, 32, 64])
 @pytest.mark.parametrize("kind", KINDS)
 def test_noise_law_and_independence(kind, d, noise):
     gen = torch.Generator().manual_seed(10 * d + len(noise))

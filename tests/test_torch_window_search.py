@@ -393,11 +393,11 @@ def test_fused_step_positions_give_the_plain_ancestors(mode):
 
 
 @pytest.mark.parametrize("d,k", [(2, 2), (5, 5), (16, 16), (32, 32),
-                                 (16, 8), (32, 16)])
+                                 (16, 8), (32, 16), (64, 64), (2, 64)])
 def test_fused_cdf_step_takes_its_design_from_step_path(monkeypatch, d, k):
-    # The wrapper hands the kernel fused_step.step_path's choice and, for
-    # the "thread" design, its width bucket; a stand-in library records
-    # them (the CPU has no kernel to launch).
+    # The wrapper hands the kernel fused_step.step_path's choice and its
+    # compiled widths; a stand-in library records them (the CPU has no
+    # kernel to launch).
     calls = []
 
     class Library:
@@ -419,6 +419,6 @@ def test_fused_cdf_step_takes_its_design_from_step_path(monkeypatch, d, k):
     assert fc.step_path is fs.step_path
     tiled, dm, km = calls[0][-4:-1]
     assert tiled == int(fs.step_path(d, k) == "tile")
-    assert tiled == int(d == k and d in (16, 32))
-    # The "thread" design's width bucket, fused_step.thread_widths's.
-    assert (dm, km) == ((0, 0) if tiled else fs.thread_widths(d, k))
+    assert tiled == int(d == k == 16 or max(d, k) > 16)
+    # The design's compiled widths, fused_step.step_widths's.
+    assert (dm, km) == fs.step_widths(d, k)
