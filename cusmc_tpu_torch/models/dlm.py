@@ -139,6 +139,8 @@ class DLM(nn.Module):
         eye_k = torch.eye(V_chol.shape[-1], dtype=dtype,
                           device=V_chol.device)
         V_chol_inv = torch.linalg.solve_triangular(V_chol, eye_k, upper=False)
+        # A tensor df is read once, when the model is built: off a run's
+        # path, so not through ``host_scalar``.
         df_f = None if noise != "mvt" else float(df)
         model = cls(F=t(F, sdtype), G=t(G, sdtype), m0=t(m0, sdtype),
                     C0_sqrt=cov_sqrt(t(C0), sqrt_method).to(sdtype),

@@ -96,6 +96,7 @@ def window_fit_share(cdf: torch.Tensor, positions: torch.Tensor,
     ``kernels.CDF_WINDOW`` with ``ends=True`` are the fused inverse-CDF
     step's."""
     spans = block_spans(cdf, positions, block, ends)
+    # A diagnostic of the kernels' inputs, off a filter run's path.
     return float((spans <= window).float().mean())
 
 

@@ -60,6 +60,7 @@ from cusmc_tpu_torch.resampling.rolls import (
     roll_metropolis_draws,
     roll_metropolis_sweeps_expspace,
 )
+from cusmc_tpu_torch.utils.timing import host_scalar
 
 
 def _to_exp(logw_global: torch.Tensor) -> torch.Tensor:
@@ -328,6 +329,8 @@ class RingCdfResampleOp:
             out = vals0 if self.fused_local else take_columns(X, a)
             return self._ret(out, w_out, a, 1)
 
+        # Every rank's ancestor range in one read of a [P, 2] table, which
+        # ``host_scalar`` (0-dim reads) does not count.
         table = all_gather(torch.stack([torch.min(a), torch.max(a)]),
                            self.axis, tiled=False).tolist()
         a_min, a_max = table[p]
@@ -479,7 +482,7 @@ class RollMetropolisShardedOp:
         iota = torch.arange(L, device=dev)
         if self.exchange == "windowed":
             q, r, (shifts, u) = draws
-            qh = int(q)  # host read: the common peer
+            qh = host_scalar(q)  # the common peer
             window = torch.cat([ppermute(both, self.axis, self._perm(qh)),
                                 ppermute(both, self.axis,
                                          self._perm((qh + 1) % P))], 1)
@@ -491,7 +494,9 @@ class RollMetropolisShardedOp:
             return x_anc, w_out, a.to(torch.int32)
 
         qs, ss, u = draws
-        q_host = qs.tolist()  # host read: the common peers
+        # The common peers, one read of [B], which ``host_scalar`` (0-dim
+        # reads) does not count.
+        q_host = qs.tolist()
         if self.exchange == "binary":
             stack = both[None].expand((len(q_host),) + both.shape)
             for kbit in range(max((P - 1).bit_length(), 1)):

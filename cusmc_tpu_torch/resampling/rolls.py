@@ -45,6 +45,7 @@ import torch
 from cusmc_tpu_torch.device import is_cuda
 from cusmc_tpu_torch.ops import kernels
 from cusmc_tpu_torch.resampling.classic import systematic_ancestors
+from cusmc_tpu_torch.utils.timing import host_scalar
 
 MAX_SWEEPS = 4096  # the kernel keeps the shifts in shared memory
 MAX_BANDS = 65535  # the banded apply's grid.y
@@ -222,11 +223,11 @@ roll_metropolis_sweeps_expspace.bf16_launches = 0
 def auto_num_steps(w: torch.Tensor, num_steps: int = 10) -> int:
     """Sweep count of ``num_steps="auto"`` from the Kish ESS ratio:
     ess/N <= 0.5 -> B, <= 0.75 -> ceil(B/2), else ceil(B/4). Reads one
-    scalar back to the host."""
+    scalar back to the host (``host_scalar``)."""
     n = w.shape[-1]
     s1 = torch.sum(w)
     s2 = torch.sum(w * w)
-    ratio = float(s1 * s1 / (s2 * n))
+    ratio = host_scalar(s1 * s1 / (s2 * n))
     counts = sorted({num_steps, -(-num_steps // 2), -(-num_steps // 4)},
                     reverse=True)
     idx = int(ratio > 0.5) + int(ratio > 0.75)

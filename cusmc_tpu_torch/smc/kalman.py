@@ -13,6 +13,8 @@ import numpy as np
 
 
 def _f64(a):
+    # The exact oracle runs in NumPy on the host, off a particle filter
+    # run's path: its inputs cross once, not through ``host_scalar``.
     if hasattr(a, "detach"):
         a = a.detach().cpu().numpy()
     return np.asarray(a, np.float64)

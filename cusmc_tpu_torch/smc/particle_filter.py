@@ -74,6 +74,19 @@ its history and the resample's gathers are bfloat16; the weights, ESS,
 evidence and log-likelihoods stay float32 (``:776-777``). Both engines
 take it for metropolis, and ``engine="xla"`` for every resampler; the
 fused CDF step refuses it, as in the JAX package.
+
+Tracing (``utils.timing``): ``bootstrap_filter`` opens the run's spans
+and ``scan_steps`` one ``cusmc.filter.step`` a step, which stores the
+step's ESS and increment; every other kernel of a step is in exactly one
+of its phases: ``cusmc.normalize`` twice
+(the carried weights' ESS at the start; the max, exp and sums, the
+evidence increment and the renormalisation at the end),
+``cusmc.resample`` (the ESS-adaptive decision, the draws, the resample op;
+the fused CDF step's cumsum), ``cusmc.propagate``, ``cusmc.likelihood``,
+or in the fused steps ``cusmc.fused_step`` (the kernel's draws and call).
+Every read back to the host goes through ``host_scalar``: the
+ESS-adaptive decision once a step, the fused steps' log-normaliser once
+a run, ``num_steps="auto"``'s ratio once a resample.
 """
 
 from __future__ import annotations
@@ -128,6 +141,8 @@ from cusmc_tpu_torch.resampling.rolls import (
 )
 from cusmc_tpu_torch.utils.debug import assert_finite_weights, \
     nan_checks_enabled, raise_on_nan
+from cusmc_tpu_torch.utils.timing import host_scalar, named_scope, \
+    span_sequence
 
 
 @dataclass
@@ -337,19 +352,33 @@ def _step_factory(propagate_fn: Callable, logpdf_fn: Callable, resample_op,
     logpdf_fn = normalize_time_hook(logpdf_fn, "y")
 
     def step(x, logw, y_t, streams=None, draws=None, t=None):
+        phase = span_sequence()
+        if phase:
+            phase("cusmc.normalize")
         ess = effective_sample_size(logw, axis)
-        if ess_threshold is None or bool(ess < ess_threshold * n_global):
+        if phase:
+            phase("cusmc.resample")
+        if ess_threshold is None or host_scalar(
+                ess < ess_threshold * n_global):
             res_draws = (draws[0] if draws is not None
                          else resample_op.draw(streams, logw))
             x_anc, logw_pre, a = resample_op(x, logw, res_draws)
         else:
             x_anc, logw_pre = x, logw
             a = global_slots(logw.shape[0], axis, logw.device)
+        if phase:
+            phase("cusmc.propagate")
         x_new = _propagate(propagate_fn, x_anc, t, streams, draws)
+        if phase:
+            phase("cusmc.likelihood")
         ll = logpdf_fn(y_t, x_new, t)
+        if phase:
+            phase("cusmc.normalize")
         logw_new, lz_inc = log_normalize(logw_pre + ll, axis)
         if debug_checks:
             assert_finite_weights(logw_new, t)
+        if phase:
+            phase(None)
         return x_new, logw_new, ess, lz_inc, ll, a
 
     return step
@@ -371,13 +400,18 @@ def _fast_exp_step_factory(model, n_global: int, resample_op,
     logpdf_fn = normalize_time_hook(model.observation_logpdf_packed, "y")
 
     def step(x, w, y_t, streams=None, draws=None, t=None):
+        phase = span_sequence()
+        if phase:
+            phase("cusmc.normalize")
         s1 = torch.sum(w)
         s2 = torch.sum(w * w)
         if axis is not None:
             s1, s2 = axis.psum(torch.stack([s1, s2])).unbind()
         ess = s1 * s1 / s2
+        if phase:
+            phase("cusmc.resample")
         pred = (ess_threshold is None
-                or bool(ess < ess_threshold * n_global))
+                or host_scalar(ess < ess_threshold * n_global))
         if pred:
             res_draws = (draws[0] if draws is not None
                          else resample_op.draw(streams, w))
@@ -386,8 +420,14 @@ def _fast_exp_step_factory(model, n_global: int, resample_op,
         else:  # identity ancestry, in global indices
             x_anc = x
             a = global_slots(w.shape[0], axis, w.device)
+        if phase:
+            phase("cusmc.propagate")
         x_new = _propagate(propagate_fn, x_anc, t, streams, draws)
+        if phase:
+            phase("cusmc.likelihood")
         ll = logpdf_fn(y_t, x_new, t)
+        if phase:
+            phase("cusmc.normalize")
         m = pmax(torch.max(ll), axis)
         w_new = torch.exp(ll - m)
         if ess_threshold is None:
@@ -404,6 +444,8 @@ def _fast_exp_step_factory(model, n_global: int, resample_op,
             # Renormalise by the max so long skip runs cannot creep toward
             # f32 underflow (everything downstream is scale-invariant).
             w_new = w_new / pmax(torch.max(w_new), axis)
+        if phase:
+            phase(None)
         return x_new, w_new, ess, lz_inc, ll, a
 
     return step
@@ -416,7 +458,7 @@ def _fused_factors(model: DLM):
     mats = tuple(m.contiguous() for m in (model.G, model.W_sqrt, model.F,
                                           model.V_chol_inv))
     df = model.df_value if model.noise == "mvt" else None
-    return mats, df, float(model.log_norm)
+    return mats, df, host_scalar(model.log_norm)
 
 
 def _pallas_step_factory(model: DLM, num_particles: int, tile: int,
@@ -434,7 +476,12 @@ def _pallas_step_factory(model: DLM, num_particles: int, tile: int,
     log_n = math.log(num_particles)
 
     def step(x, logw, y_t, streams=None, draws=None, t=None):
+        phase = span_sequence()
+        if phase:
+            phase("cusmc.normalize")
         ess = effective_sample_size(logw)
+        if phase:
+            phase("cusmc.fused_step")
         if draws is None:
             draws = fused_filter_step_draws(streams.rank, num_particles, tile,
                                             x.device)
@@ -442,8 +489,13 @@ def _pallas_step_factory(model: DLM, num_particles: int, tile: int,
             x, logw, y_t, G, Q, F, Li, df, log_norm, draws,
             noise=model.noise, num_sweeps=num_sweeps, tile=tile,
             df_int=model.df_int, num_window_tiles=num_window_tiles)
+        if phase:
+            phase("cusmc.normalize")
         logw_new, lse = log_normalize(ll)
-        return x_new, logw_new, ess, lse - log_n, ll, a
+        lz_inc = lse - log_n
+        if phase:
+            phase(None)
+        return x_new, logw_new, ess, lz_inc, ll, a
 
     return step
 
@@ -459,19 +511,30 @@ def _fused_cdf_step_factory(model: DLM, num_particles: int, pos_mode: str,
     log_n = math.log(num_particles)
 
     def step(x, w, y_t, streams=None, draws=None, t=None):
+        phase = span_sequence()
+        if phase:
+            phase("cusmc.normalize")
         s1 = torch.sum(w)
         s2 = torch.sum(w * w)
         ess = s1 * s1 / s2
+        if phase:
+            phase("cusmc.resample")
         cdf, _ = blocked_cumsum(w)
+        if phase:
+            phase("cusmc.fused_step")
         if draws is None:
             draws = fused_cdf_filter_step_draws(streams.rank, x.device)
         x_new, ll, a = fused_cdf_filter_step(
             cdf, x, y_t, G, Q, F, Li, df, log_norm, draws,
             noise=model.noise, mode=pos_mode, tile=tile, sr=sr,
             df_int=model.df_int)
+        if phase:
+            phase("cusmc.normalize")
         m = torch.max(ll)
         w_new = torch.exp(ll - m)
         lz_inc = m + torch.log(torch.sum(w_new)) - log_n
+        if phase:
+            phase(None)
         return x_new, w_new, ess, lz_inc, ll, a
 
     return step
@@ -686,25 +749,33 @@ def scan_steps(step: Callable, x: torch.Tensor, w: torch.Tensor,
     the carry ``(x, w)``; row i of ``esss``, ``lzs`` and of each history
     buffer given (``xs``, ``lls``, ``ancs``) receives step t0 + i, and
     step i takes ``draws[i]`` when ``draws`` is given (a replay).
-    Returns the carry after the last step. Under
+    Returns the carry after the last step; each step runs in a
+    ``cusmc.filter.step`` span (its ``args``: t). Under
     ``utils.debug.debug_mode()`` each step's state, weights and evidence
     increment are checked for NaN (one host read a step), and the first
     NaN raises ``FloatingPointError`` naming the step."""
     check = nan_checks_enabled()
-    for i in range(ys.shape[0]):
-        t = t0 + i
-        x, w, ess, lz_inc, ll, a = step(
-            x, w, ys[i], streams, t=t,
-            draws=None if draws is None else draws[i])
-        esss[i] = ess
-        lzs[i] = lz_inc
-        if xs is not None:
-            xs[i] = x
-        if lls is not None:
-            lls[i] = ll
-            ancs[i] = a
-        if check:
-            raise_on_nan(t, x=x, weights=w, evidence=lz_inc)
+    span = span_sequence()
+    try:
+        for i in range(ys.shape[0]):
+            t = t0 + i
+            if span:
+                span("cusmc.filter.step", t)
+            x, w, ess, lz_inc, ll, a = step(
+                x, w, ys[i], streams, t=t,
+                draws=None if draws is None else draws[i])
+            esss[i] = ess
+            lzs[i] = lz_inc
+            if xs is not None:
+                xs[i] = x
+            if lls is not None:
+                lls[i] = ll
+                ancs[i] = a
+            if check:
+                raise_on_nan(t, x=x, weights=w, evidence=lz_inc)
+    finally:
+        if span:
+            span(None)
     return x, w
 
 
@@ -781,45 +852,62 @@ def bootstrap_filter(
     cloud in the layout's shape, "steps": [(resample draws, noise), one
     for each step t = 1 .. T-1]}``, each step's pair as its step's
     ``draws=`` takes it (``key`` is then unused).
+
+    Spans (``utils.timing.named_scope``): ``cusmc.filter.run`` holds the
+    call (its ``args``: N, T, the engine, layout, resampler and ESS
+    threshold asked for); inside it ``cusmc.filter.setup`` up to the first
+    step, a ``cusmc.filter.step`` a step (``scan_steps``) and
+    ``cusmc.filter.finish`` after the last.
     """
-    s = filter_setup(
-        key, model, num_particles, resampler=resampler,
-        resampler_kwargs=resampler_kwargs, ess_threshold=ess_threshold,
-        layout=layout, engine=engine, pallas_tile=pallas_tile,
-        axis_name=axis_name, num_particles_global=num_particles_global,
-        resample_op=resample_op, resample_op_weights=resample_op_weights,
-        debug_checks=debug_checks, device=device)
-    n, dev, x = num_particles, s.device, s.x0
-    if draws is not None:
-        x = torch.as_tensor(draws["x0"], dtype=x.dtype).to(dev)
-    wdtype = s.logw0.dtype
-    ys = torch.as_tensor(ys, dtype=wdtype).to(dev).contiguous()
-    num_steps = ys.shape[0]
-    esss = torch.empty((num_steps - 1,), dtype=wdtype, device=dev)
-    lzs = torch.empty((num_steps - 1,), dtype=wdtype, device=dev)
-    xs = lls = ancs = None
-    if return_history:
-        xs = torch.empty((num_steps,) + tuple(x.shape), dtype=x.dtype,
-                         device=dev)
-        lls = torch.empty((num_steps, n), dtype=wdtype, device=dev)
-        ancs = torch.empty((num_steps, n), dtype=torch.int32, device=dev)
-        xs[0] = x
-        lls[0] = s.logw0  # t=0 raw weight is the uniform 1/N fill
-        ancs[0] = global_slots(n, axis_name, dev)
+    with named_scope("cusmc.filter.run", dict(
+            N=num_particles, T=len(ys), engine=engine, layout=layout,
+            resampler=resampler, ess_threshold=ess_threshold)):
+        with named_scope("cusmc.filter.setup"):
+            s = filter_setup(
+                key, model, num_particles, resampler=resampler,
+                resampler_kwargs=resampler_kwargs,
+                ess_threshold=ess_threshold, layout=layout, engine=engine,
+                pallas_tile=pallas_tile, axis_name=axis_name,
+                num_particles_global=num_particles_global,
+                resample_op=resample_op,
+                resample_op_weights=resample_op_weights,
+                debug_checks=debug_checks, device=device)
+            n, dev, x = num_particles, s.device, s.x0
+            if draws is not None:
+                x = torch.as_tensor(draws["x0"], dtype=x.dtype).to(dev)
+            wdtype = s.logw0.dtype
+            ys = torch.as_tensor(ys, dtype=wdtype).to(dev).contiguous()
+            num_steps = ys.shape[0]
+            esss = torch.empty((num_steps - 1,), dtype=wdtype, device=dev)
+            lzs = torch.empty((num_steps - 1,), dtype=wdtype, device=dev)
+            xs = lls = ancs = None
+            if return_history:
+                xs = torch.empty((num_steps,) + tuple(x.shape),
+                                 dtype=x.dtype, device=dev)
+                lls = torch.empty((num_steps, n), dtype=wdtype, device=dev)
+                ancs = torch.empty((num_steps, n), dtype=torch.int32,
+                                   device=dev)
+                xs[0] = x
+                lls[0] = s.logw0  # t=0 raw weight is the uniform 1/N fill
+                ancs[0] = global_slots(n, axis_name, dev)
+            hist = (xs[1:], lls[1:], ancs[1:]) if return_history else ()
 
-    hist = (xs[1:], lls[1:], ancs[1:]) if return_history else ()
-    x, w = scan_steps(s.step, x, s.w0, ys[1:], 1, s.streams, esss, lzs,
-                      *hist, draws=None if draws is None else draws["steps"])
+        x, w = scan_steps(s.step, x, s.w0, ys[1:], 1, s.streams, esss, lzs,
+                          *hist,
+                          draws=None if draws is None else draws["steps"])
 
-    logw_f = final_log_weights(w, s.log_carry, axis_name)
-    ess = torch.cat([effective_sample_size(s.logw0, axis_name)[None], esss])
-    log_evidence = torch.sum(lzs)
-    x_f = x.T if s.packed else x
-    if not return_history:
-        return FilterResult(final_particles=x_f, final_log_weights=logw_f,
-                            ess=ess, log_evidence=log_evidence)
-    return FilterResult(
-        final_particles=x_f, final_log_weights=logw_f, ess=ess,
-        log_evidence=log_evidence,
-        particles=xs.transpose(1, 2) if s.packed else xs,
-        obs_loglik=lls, ancestors=ancs)
+        with named_scope("cusmc.filter.finish"):
+            logw_f = final_log_weights(w, s.log_carry, axis_name)
+            ess = torch.cat([effective_sample_size(s.logw0, axis_name)[None],
+                             esss])
+            log_evidence = torch.sum(lzs)
+            x_f = x.T if s.packed else x
+            if not return_history:
+                return FilterResult(final_particles=x_f,
+                                    final_log_weights=logw_f, ess=ess,
+                                    log_evidence=log_evidence)
+            return FilterResult(
+                final_particles=x_f, final_log_weights=logw_f, ess=ess,
+                log_evidence=log_evidence,
+                particles=xs.transpose(1, 2) if s.packed else xs,
+                obs_loglik=lls, ancestors=ancs)

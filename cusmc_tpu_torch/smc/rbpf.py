@@ -19,7 +19,7 @@ z; the weight is the closed-form predictive N(y; F m_pred + c, F P_pred F'
   a zero u, one shared covariance recursion, per-particle means only.
 
 The ESS-adaptive ``lax.cond`` becomes one host read a step (a bool,
-through ``_host_flag``), as in the port's generic step; nothing else in
+through ``host_scalar``), as in the port's generic step; nothing else in
 the loop reads back. Randomness: one ``torch.Generator`` (the initial
 cloud, then per step the resample, when it resamples, and the model's
 ``propagate_nl``); ``draws={"steps": [resampler keyword draws, ...]}``
@@ -43,14 +43,9 @@ from cusmc_tpu_torch.models.clgssm import CLGSSM
 from cusmc_tpu_torch.resampling import get_resampler
 from cusmc_tpu_torch.smc.particle_filter import _ancestors, model_device
 from cusmc_tpu_torch.utils.linalg import tri_solve
+from cusmc_tpu_torch.utils.timing import host_scalar
 
 _LOG_2PI = math.log(2.0 * math.pi)
-
-
-def _host_flag(x: torch.Tensor) -> bool:
-    """The resample decision, read back to the host (the one read of an
-    ESS-adaptive step)."""
-    return bool(x)
 
 
 @dataclass
@@ -179,7 +174,7 @@ def rao_blackwell_filter(
     for t in range(1, num_steps):
         ess = effective_sample_size(logw)
         esss[t] = ess
-        if ess_threshold is None or _host_flag(ess < ess_threshold * n):
+        if ess_threshold is None or host_scalar(ess < ess_threshold * n):
             res_d = gen if not replay else draws["steps"][t - 1]
             a = _ancestors(ancestor_fn, logw, res_d).long()
             u, m = u[a], m[a]

@@ -59,6 +59,7 @@ from cusmc_tpu_torch.diagnostics.metrics import effective_sample_size, \
 from cusmc_tpu_torch.ops.random import categorical, normal
 from cusmc_tpu_torch.resampling import get_resampler
 from cusmc_tpu_torch.smc.particle_filter import _ancestors
+from cusmc_tpu_torch.utils.timing import host_scalar
 
 
 @dataclass
@@ -157,7 +158,7 @@ def smc2(
         ess = effective_sample_size(logw_th)
         esss[t - 1] = ess
         # 2. Resample and rejuvenate (the step's one host read).
-        if float(ess) >= ess_threshold * nt:
+        if host_scalar(ess) >= ess_threshold * nt:
             continue
         a = _ancestors(theta_res, logw_th,
                        step_d["res"] if replay else gen).long()

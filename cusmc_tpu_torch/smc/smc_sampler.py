@@ -46,6 +46,7 @@ from cusmc_tpu_torch.mcmc.metropolis import MHState, mh_step
 from cusmc_tpu_torch.ops.random import categorical
 from cusmc_tpu_torch.resampling import get_resampler
 from cusmc_tpu_torch.smc.particle_filter import _ancestors
+from cusmc_tpu_torch.utils.timing import host_scalar
 
 
 @dataclass
@@ -120,7 +121,7 @@ def smc_sampler(
     acc = torch.zeros((), dtype=dtype, device=dev)
     stage = 0
     # The stage's one host read: lambda against 1.
-    while stage < max_stages and float(lam) < 1.0:
+    while stage < max_stages and host_scalar(lam) < 1.0:
         res_d, move_d = ((gen, [None] * rejuvenation_steps) if draws is None
                          else draws["stages"][stage])
         log_ratio = log_target(x) - log_prior(x)

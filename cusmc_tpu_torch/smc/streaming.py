@@ -76,18 +76,15 @@ from cusmc_tpu_torch.smc.particle_filter import (
 from cusmc_tpu_torch.utils.debug import FilterDivergedError
 from cusmc_tpu_torch.utils.rng import generator_state, resume_seed, \
     set_generator_state
+from cusmc_tpu_torch.utils.timing import host_scalar
 
 
 def _host_fetch(x: torch.Tensor) -> np.ndarray:
     """A device tensor on the host as numpy: the one path for arrays of
-    the run's size (history blocks, snapshots). The per-chunk halt guard
-    never takes it."""
+    the run's size (history blocks, snapshots), which a store or a
+    checkpoint asks for. The per-chunk halt guard, a 0-dim flag, is read
+    through ``host_scalar`` instead."""
     return x.detach().cpu().numpy()
-
-
-def _host_flag(flag: torch.Tensor) -> bool:
-    """The halt guard's one host read a chunk: a 0-dim device flag."""
-    return bool(flag.item())
 
 
 def _halt_flag(w: torch.Tensor, lzs: torch.Tensor, log_carry: bool,
@@ -121,6 +118,7 @@ def _global_states(local: list, axis, device) -> list:
         return local
     common, rank = local
     ranks = _gather_rows(torch.from_numpy(rank).to(device)[None], axis)
+    # A snapshot's array of states, not a 0-dim read: off ``host_scalar``.
     return [common] + list(ranks.cpu().numpy())
 
 
@@ -252,7 +250,7 @@ def streaming_bootstrap_filter(
         states = _global_states(states, axis, dev)
         if axis_index(axis) == 0:
             checkpoint.save(t_snap, rows, logw, states,
-                            float(torch.sum(incs)),
+                            host_scalar(torch.sum(incs)),
                             increments=_host_fetch(incs))
         if axis is not None:
             axis.barrier()
@@ -319,8 +317,8 @@ def streaming_bootstrap_filter(
         prev_states = _local_states(streams) if keep_states else None
         x, w = scan_steps(step, x, w, ys[t:t + k], t, streams, esss, lzs,
                           xs)
-        if halt_on_nonfinite and _host_flag(_halt_flag(w, lzs, log_carry,
-                                                       axis)):
+        if halt_on_nonfinite and host_scalar(_halt_flag(w, lzs, log_carry,
+                                                        axis)):
             snap = None
             if checkpoint is not None:
                 snap = save(prev_t - 1, prev_x, prev_w, prev_states,

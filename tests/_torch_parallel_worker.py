@@ -149,17 +149,17 @@ def stream_case(case, axis):
         raise AssertionError("the filter did not halt")
     if mode == "spy":
         reads, shapes = [], []
-        fetch, flag = streaming._host_fetch, streaming._host_flag
+        fetch, flag = streaming._host_fetch, streaming.host_scalar
         streaming._host_fetch = lambda x: shapes.append(
             tuple(x.shape)) or fetch(x)
-        streaming._host_flag = lambda x: reads.append(
+        streaming.host_scalar = lambda x: reads.append(
             tuple(x.shape)) or flag(x)
         try:
             res, _ = streaming.streaming_bootstrap_filter(
                 case["seed"], model, ys, case["N"], store_particles=False,
                 **kw)
         finally:
-            streaming._host_fetch, streaming._host_flag = fetch, flag
+            streaming._host_fetch, streaming.host_scalar = fetch, flag
         return reads, shapes, _numpy(res.log_evidence)
     if case.get("spill"):
         res, store = streaming.streaming_bootstrap_filter(

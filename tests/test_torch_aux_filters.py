@@ -578,14 +578,14 @@ def test_entry_points_on_device_none_need_the_card():
 @pytest.fixture
 def no_host_reads(monkeypatch):
     """Python-level reads of a tensor's value raise; the RBPF's ESS
-    decision is counted through its ``_host_flag``."""
+    decision is counted through its ``host_scalar``."""
     def refuse(*a, **k):
         raise AssertionError("a host read in the filter loop")
 
     for name in ("item", "__bool__", "__float__", "__int__", "tolist"):
         monkeypatch.setattr(torch.Tensor, name, refuse)
     reads = []
-    monkeypatch.setattr(trbpf, "_host_flag",
+    monkeypatch.setattr(trbpf, "host_scalar",
                         lambda x: reads.append(1) or bool(x.numpy()))
     return reads
 

@@ -191,10 +191,10 @@ def test_halt_guard_reads_one_flag_a_chunk(model, monkeypatch):
     # no checkpoint nothing of the run's size crosses to the host.
     ys = load_y_sim()[:41]
     reads, shapes = [], []
-    fetch, flag = streaming._host_fetch, streaming._host_flag
+    fetch, flag = streaming._host_fetch, streaming.host_scalar
     monkeypatch.setattr(streaming, "_host_fetch",
                         lambda x: shapes.append(tuple(x.shape)) or fetch(x))
-    monkeypatch.setattr(streaming, "_host_flag",
+    monkeypatch.setattr(streaming, "host_scalar",
                         lambda x: reads.append(tuple(x.shape)) or flag(x))
     res, store = streaming_bootstrap_filter(0, model, ys, 256, chunk_steps=8,
                                             resampler="systematic",
