@@ -23,7 +23,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    N = 2^20, d = 2, 16, 32, 64 and 128, MVN and MVT df=5, with the design
    each d takes ("thread" or "tile"); the fused inverse-CDF step,
    systematic and stratified, at N = 2^20 and N = 1_000_448, d = 2, 16,
-   32, 64 and 128, with its design. The search-only kernel, the
+   32, 64 and 128, with its design; the composed DLM step's two kernels
+   (propagate and log-likelihood, ops/packed_model.py) at d = 2, k = 2,
+   MVT df=5 and d = 13, k = 1, MVN, at N = 2^20 and at the benchmark's
+   composed cells' N (2^23, 2^22), timed beside their plain version (the
+   cuBLAS products and elementwise chain they replace), the cuBLAS
+   products alone and their bytes' bound. The search-only kernel, the
    search-and-apply and the fused inverse-CDF step search the cdf through
    a block window; the share of blocks whose stretch fits the window is
    printed for each weight kind. Ancestors must be equal; a
@@ -257,15 +262,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (150 observations, 256 x 256), its posterior mean within 3 sd + 0.03
    of the grid oracle, the share of its time its rejuvenations take; (e)
    PMMH on the 1-d DLM (T = 101, N = 2^16, 150 steps, systematic), its
-   posterior median and acceptance in the JAX test's bands, the cumsum
-   and the search-and-apply launched exactly 151 x 100 times each and no
-   other kernel in the whole phase, their inputs kept at four steps for
+   posterior median and acceptance in the JAX test's bands, the cumsum,
+   the search-and-apply and the composed step's two kernels launched
+   exactly 151 x 100 times each and no other kernel in the whole phase,
+   the first two's inputs kept at four steps for
    phase 5; (f) the chain-sharded MH, PT, ChEES
    and stretch samplers on a one-rank NCCL group, each bitwise the
    unsharded sampler with rank 0's seed, rates side by side.
 4j. The graft entry, the dry run and the examples, with every launch
    count set to 0 first: ``graft_entry.entry()``'s step (N=4096, MVT
-   df=5, metropolis; one roll walk launch and no other);
+   df=5, metropolis; one launch each of the roll walk and the composed
+   step's two kernels and no other);
    ``dryrun_multichip(1)`` on a one-rank NCCL group (the sharded filter
    for systematic, metropolis and residual, sharded streaming, the
    chain-sharded samplers, the sharded EnKF; N = 8); the eight examples
@@ -304,7 +311,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    this tree's; with it phase 3 holds each other tree's fused kernels
    bitwise to this tree's at FUSED_WIDTHS and times them in turns, and a
    last phase runs the pallas headline and structural rows with each
-   tree's fused wrappers in turns (``fused_row``). ``--rolls`` runs only
+   tree's fused wrappers in turns (``fused_row``). ``--packed`` runs
+   only the composed DLM step's kernels' part of phase 3 and prints no
+   result. ``--rolls`` runs only
    the roll walk's part of phase 3, those rows (keeping their inputs) and
    phase 5 on them, and prints no result; ``--fused`` only the fused
    kernels' part of phase 3, the pallas rows and the d >= 64 rows
@@ -561,6 +570,11 @@ FUSED_KERNEL = re.compile(r"(fused_(?:step|cdf)(?:_tile|_wide)?_kernel)I"
 # exact tiles (16 and 32) and the padded tile widths (32, 64 and 128 with
 # KM = 16 or DM), each Metropolis one in both state types.
 FUSED_INSTANCES = 3 * 8 + 3 * 2 + 3 * 6
+# The composed DLM step's kernels (csrc/packed_model.cu): the propagate in
+# each "thread" width DM, the log-likelihood in each bucket (DM, KM).
+PACKED_KERNEL = re.compile(r"(packed_(?:propagate|loglik)_kernel)I"
+                           r"((?:Li\d+E)+)")
+PACKED_INSTANCES = 4 + 8
 
 
 def ptxas_report(log: str) -> list:
@@ -574,32 +588,33 @@ def ptxas_report(log: str) -> list:
     return rows
 
 
-def check_fused_frames(rows) -> int:
-    """Fails unless every instantiation of both fused kernels, of both
-    designs and in every compiled width, reports a 0-byte stack frame and
-    no spill; prints each one's registers, stack and spills. Returns the
-    number of instantiations."""
+def check_fused_frames(rows, pattern=FUSED_KERNEL) -> int:
+    """Fails unless every instantiation of both fused kernels (or of the
+    kernels ``pattern`` names), of both designs and in every compiled
+    width, reports a 0-byte stack frame and no spill; prints each one's
+    registers, stack and spills. Returns the number of instantiations."""
     seen = {}
     for entry, line in rows:
-        m = FUSED_KERNEL.search(entry)
+        m = pattern.search(entry)
         if not m:
             continue
         widths = tuple(int(w) for w in re.findall(r"Li(\d+)E", m.group(2)))
+        elem = m.group(3) if pattern.groups > 2 else None
         key = (m.group(1), widths,
-               "bf16" if m.group(3) and "bf" in m.group(3) else "f32")
+               "bf16" if elem and "bf" in elem else "f32")
         seen.setdefault(key, []).append(line)
     for key, lines in sorted(seen.items()):
         text = " ".join(lines)
         frame = re.search(r"(\d+) bytes stack frame", text)
         spills = re.findall(r"(\d+) bytes spill", text)
         regs = re.search(r"Used (\d+) registers", text)
-        print(f"  fused {key[0]}<{', '.join(map(str, key[1]))}> {key[2]}: "
+        print(f"  {key[0]}<{', '.join(map(str, key[1]))}> {key[2]}: "
               f"{regs.group(1) if regs else '?'} registers, stack frame "
               f"{frame.group(1) if frame else '?'} bytes, spills "
               f"{'/'.join(spills) or '?'} bytes")
         assert frame and frame.group(1) == "0" and spills and \
             all(x == "0" for x in spills), \
-            f"{key}: stack frame or spill in a fused kernel"
+            f"{key}: stack frame or spill in a kernel"
     return len(seen)
 
 
@@ -684,6 +699,9 @@ def build_kernels() -> float:
         n = check_fused_frames(rows)
         assert n == FUSED_INSTANCES, \
             f"{n} fused instantiations compiled, expected {FUSED_INSTANCES}"
+        n = check_fused_frames(rows, PACKED_KERNEL)
+        assert n == PACKED_INSTANCES, \
+            f"{n} packed instantiations compiled, expected {PACKED_INSTANCES}"
     else:
         print("  (a cached build: no ptxas report to check)")
     return seconds
@@ -2046,6 +2064,88 @@ def check_model_kernels() -> dict:
     return errs
 
 
+# The composed DLM step's kernels (ops/packed_model.py) at the widths and
+# particle counts of the benchmark's composed cells, and at N = 2^20.
+PACKED_CASES = (("demo d=2, k=2, MVT df=5", "demo", (N_BIG, 1 << 23)),
+                ("monthly d=13, k=1, MVN", "monthly", (N_BIG, 1 << 22)))
+
+
+def check_packed_kernels() -> dict:
+    """Phase 3 for the composed DLM step's two kernels: each against its
+    plain version (the composed expressions: cuBLAS products and the
+    elementwise chain around them, which the kernels replace) on the same
+    draws at rtol 1e-4, atol 1e-4 (FMA chains against cuBLAS's order),
+    then timed beside it, beside the cuBLAS products alone (the library
+    column) and beside its bytes' bound, at every size of PACKED_CASES.
+    Returns the records at N = 2^20, d = 2, with the other sizes under
+    "sizes"."""
+    import torch
+
+    from cusmc_tpu_torch.io.data import demo_model_params
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.ops import packed_model as pm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    rec = {}
+    for title, kind, sizes in PACKED_CASES:
+        m = (DLM.create(noise="mvt", df=5.0, device=dev,
+                        **demo_model_params())
+             if kind == "demo" else monthly_model(dev))
+        d, k = m.state_dim, m.obs_dim
+        chi_rows = (0 if m.noise != "mvt" else
+                    1 if m.df_int is None else m.df_int // 2 + m.df_int % 2)
+        for n in sizes:
+            X = torch.randn((d, n), generator=gen, device=dev)
+            draws = m.packed_noise(gen, n)
+            y = 0.1 * torch.randn((k,), generator=gen, device=dev)
+            assert m.runs_kernels(X)
+            x_new = pm.packed_propagate(m, X, draws)
+            ll = pm.packed_loglik(m, y, x_new)
+            errs = {}
+            for name, got, want in (
+                    ("packed_propagate", x_new,
+                     pm.packed_propagate_plain(m, X, draws)),
+                    ("packed_loglik", ll,
+                     pm.packed_loglik_plain(m, y, x_new))):
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+                errs[name] = float((got - want).abs().max())
+            label = f"{title} N=2^{n.bit_length() - 1}"
+            print(f"  {label}: max |kernel - plain| propagate "
+                  f"{errs['packed_propagate']:.3g}, log-likelihood "
+                  f"{errs['packed_loglik']:.3g}")
+            z = draws[0]
+            rows = {
+                "packed_propagate": time_kernel(
+                    "packed_propagate",
+                    lambda: pm.packed_propagate(m, X, draws),
+                    lambda: pm.packed_propagate_plain(m, X, draws),
+                    lambda: (torch.matmul(m.G_f32, X),
+                             torch.matmul(m.W_sqrt_f32, z)),
+                    label + " (library: the two cuBLAS products alone)",
+                    4 * n * (3 * d + chi_rows), 4 * d * d * n),
+                "packed_loglik": time_kernel(
+                    "packed_loglik", lambda: pm.packed_loglik(m, y, x_new),
+                    lambda: pm.packed_loglik_plain(m, y, x_new),
+                    lambda: torch.matmul(m.V_chol_inv,
+                                         torch.matmul(m.F_f32, x_new)),
+                    label + " (library: the two cuBLAS products alone)",
+                    4 * n * (d + 1), 2 * k * (d + k) * n)}
+            for name, row in rows.items():
+                share = row["bound_ms"] / row["device_ms"]
+                print(f"  {name} {label}: {share:.1%} of its bound (device "
+                      f"time), plain / kernel "
+                      f"{row['plain_ms'] / row['ms']:.2f}x (events)")
+                row["max_abs_err"] = errs[name]
+                if kind == "demo" and n == N_BIG:
+                    rec[name] = dict(row, sizes={})
+                else:
+                    rec[name]["sizes"][label] = row
+    torch.cuda.synchronize()
+    return rec
+
+
 def pmmh_width_kernels(gen, dev) -> dict:
     """The cumsum and the search-and-apply at PMMH's N = PMMH_N, d = 1
     (phase 4i), on the weight kinds of ``check_kernels`` (exp-space,
@@ -2848,6 +2948,10 @@ KERNELS = (
      "cusmc_tpu/ops/monotone_gather.py:277", "bf16"),
     ("take_columns[bf16]", GATHER_CU,
      "cusmc_tpu/ops/monotone_gather.py:204", ("generic", "family")),
+    ("packed_propagate", "cusmc_tpu_torch/csrc/packed_model.cu",
+     "none (XLA fusion of cusmc_tpu/models/dlm.py)", "main"),
+    ("packed_loglik", "cusmc_tpu_torch/csrc/packed_model.cu",
+     "none (XLA fusion of cusmc_tpu/models/dlm.py)", "main"),
 )
 
 
@@ -2858,6 +2962,8 @@ def _wrappers():
     from cusmc_tpu_torch.ops.fused_step import fused_filter_step
     from cusmc_tpu_torch.ops.monotone_gather import inverse_cdf_apply, \
         inverse_cdf_search, take_columns
+    from cusmc_tpu_torch.ops.packed_model import packed_loglik, \
+        packed_propagate
     from cusmc_tpu_torch.resampling.rolls import \
         roll_metropolis_sweeps_expspace
 
@@ -2877,7 +2983,9 @@ def _wrappers():
             "inverse_cdf_apply[bf16]": (inverse_cdf_apply, "bf16_launches"),
             "inverse_cdf_apply[bf16 local_base]": (inverse_cdf_apply,
                                                    "bf16_local_launches"),
-            "take_columns[bf16]": (take_columns, "bf16_launches")}
+            "take_columns[bf16]": (take_columns, "bf16_launches"),
+            "packed_propagate": (packed_propagate, "launches"),
+            "packed_loglik": (packed_loglik, "launches")}
 
 
 def _counts():
@@ -2907,6 +3015,10 @@ FUSED_KERNELS = ("fused_filter_step", "fused_cdf_filter_step")
 COMPOSED_KERNELS = CDF_KERNELS + ROLL_KERNELS
 SHARD_KERNELS = ("inverse_cdf_search", "take_columns",
                  "inverse_cdf_apply[local_base]")
+# The composed DLM step's kernels: one launch each a step wherever a
+# float32 DLM with d, k <= 16 runs the packed layout's composed step.
+PACKED_KERNELS = ("packed_propagate", "packed_loglik")
+PACKED_STEP = dict.fromkeys(PACKED_KERNELS, 1)
 
 
 def main_path(card: str) -> None:
@@ -3239,16 +3351,17 @@ GENERIC_KEY = "metropolis_indexed"  # resampling.metropolis under a new key
 GENERIC_ROWS = {
     "debug_checks metropolis": (
         dict(resampler="metropolis", resampler_kwargs={"num_steps": 10},
-             debug_checks=True), {"roll_metropolis_sweeps_expspace": 1}),
+             debug_checks=True),
+        {"roll_metropolis_sweeps_expspace": 1, **PACKED_STEP}),
     "debug_checks systematic": (
         dict(resampler="systematic", debug_checks=True),
-        {"blocked_cumsum": 1, "inverse_cdf_apply": 1}),
+        {"blocked_cumsum": 1, "inverse_cdf_apply": 1, **PACKED_STEP}),
     "debug_checks residual": (
         dict(resampler="residual", debug_checks=True),
-        {"blocked_cumsum": 3, "inverse_cdf_apply": 2}),
+        {"blocked_cumsum": 3, "inverse_cdf_apply": 2, **PACKED_STEP}),
     "custom key": (
         dict(resampler=GENERIC_KEY, resampler_kwargs={"num_steps": 10}),
-        {"take_columns": 1}),
+        {"take_columns": 1, **PACKED_STEP}),
     "batch systematic": (dict(layout="batch", resampler="systematic"), {}),
     "CustomSSM systematic": (dict(resampler="systematic"), {}),
 }
@@ -4199,7 +4312,8 @@ def models_path(card: str) -> None:
                                            resampler_kwargs=kw,
                                            engine=engine,
                                            return_history=False),
-                MODEL_RUNS[engine, resampler], steps, width)
+                {**MODEL_RUNS[engine, resampler],
+                 **(PACKED_STEP if engine == "xla" else {})}, steps, width)
             lz = float(res.log_evidence)
             limit = STRUCT_BANDS[engine, resampler] * abs(kll)
             print(f"  structural monthly (trend + seasonal(12)) MVN "
@@ -4544,7 +4658,9 @@ def family_path(card: str) -> None:
                         same += " and the single-device run"
                     _counted_best(f"f32 sharded {tag}",
                                   lambda _: sharded("f32"),
-                                  FAMILY_LAUNCHES[r, "f32"], steps, reps=0)
+                                  {**FAMILY_LAUNCHES[r, "f32"],
+                                   **(PACKED_STEP if d <= 16 else {})},
+                                  steps, reps=0)
                     best = _best_of({
                         "f32": lambda: sharded("f32", 2),
                         "bf16": lambda: sharded("bf16", 2)})
@@ -4598,7 +4714,8 @@ def family_path(card: str) -> None:
             _, _, kll = kalman_filter(ys, **{k: p[k] for k in oracle_keys})
             mesh = Mesh({"chains": 1, "particles": 1})
             for r, used in (("metropolis",
-                             {"roll_metropolis_sweeps_expspace": 4}),
+                             {"roll_metropolis_sweeps_expspace": 4,
+                              **dict.fromkeys(PACKED_KERNELS, 4)}),
                             ("systematic", {"blocked_cumsum": 4,
                                             "inverse_cdf_search": 4})):
                 secs, res = _counted_best(
@@ -5091,9 +5208,10 @@ def pmmh_row(dev, card="", n=PMMH_N, steps=PMMH_STEPS) -> dict:
     """(e): PMMH over log V of the 1-d DLM (T = PMMH_T), n particles,
     ``steps`` steps of size 0.4, systematic, the model built on ``dev``
     from the chain's theta every step: posterior median of V in (0.3, 3)
-    x the true V, acceptance in (0.02, 0.9); on the card, the cumsum and
-    the search-and-apply launched exactly (steps + 1) (T - 1) times each
-    and no other kernel. Prints PMMH steps/s and particle-steps/s."""
+    x the true V, acceptance in (0.02, 0.9); on the card, the cumsum, the
+    search-and-apply and the composed step's two kernels launched exactly
+    (steps + 1) (T - 1) times each and no other kernel. Prints PMMH
+    steps/s and particle-steps/s."""
     import numpy as np
     import torch
 
@@ -5134,7 +5252,7 @@ def pmmh_row(dev, card="", n=PMMH_N, steps=PMMH_STEPS) -> dict:
     out = {"acceptance": acc, "median_V": med}
     if on_card:
         after = _counts()
-        want = {k: runs * (PMMH_T - 1) for k in CDF_KERNELS}
+        want = {k: runs * (PMMH_T - 1) for k in CDF_KERNELS + PACKED_KERNELS}
         for name in after:
             grown = after[name] - before[name]
             assert grown == want.get(name, 0), \
@@ -5230,7 +5348,8 @@ def samplers_path(card: str) -> None:
     sharded_mcmc_rows(card)
     runs = PMMH_STEPS + 1
     for name, count in _counts().items():
-        want = runs * (PMMH_T - 1) if name in CDF_KERNELS else 0
+        want = (runs * (PMMH_T - 1)
+                if name in CDF_KERNELS + PACKED_KERNELS else 0)
         assert count == want, f"phase 4i: {name} launched {count} times, " \
             f"expected {want} (PMMH's alone)"
 
@@ -5339,12 +5458,13 @@ def check_example(name, out) -> None:
 
 
 def graft_path(card: str, dev: str = "cuda") -> None:
-    """Phase 4j: the graft entry's step on the card (one roll walk), the
-    dry run on a one-rank NCCL group, the eight examples in process at
-    their own sizes (each quantity in its band, each timed; the sweep
-    counts of 06's auto schedule in {10, 5, 3}) and example 01 as a
-    script; the kernels' inputs kept for phase 5. ``dev="cpu"`` runs it
-    all on the CPU (gloo; no launch is counted there)."""
+    """Phase 4j: the graft entry's step on the card (one roll walk and the
+    composed step's two kernels), the dry run on a one-rank NCCL group,
+    the eight examples in process at their own sizes (each quantity in its
+    band, each timed; the sweep counts of 06's auto schedule in {10, 5,
+    3}) and example 01 as a script; the kernels' inputs kept for phase 5.
+    ``dev="cpu"`` runs it all on the CPU (gloo; no launch is counted
+    there)."""
     import torch
 
     from cusmc_tpu_torch import graft_entry
@@ -5370,7 +5490,7 @@ def graft_path(card: str, dev: str = "cuda") -> None:
     assert all(bool(torch.isfinite(t).all()) for t in out), "entry"
     for name in after:
         grown = after[name] - before[name]
-        assert grown == (on_card and name == walk), \
+        assert grown == (on_card and name in (walk,) + PACKED_KERNELS), \
             f"entry: {name} launched {grown} times"
     print(f"  entry(): one step, N=4096, d=2, MVT df=5, metropolis B=10, "
           f"ess {float(out[2]):.1f}, lz {float(out[3]):.6g} "
@@ -6185,6 +6305,11 @@ def main(argv=None) -> int:
              "rows of phases 4b and 4g with each tree's fused kernels; "
              "prints no result")
     parser.add_argument(
+        "--packed", action="store_true",
+        help="run only the composed DLM step's kernels' checks and timings "
+             "(phase 3's packed cases, at N = 2^20 and the benchmark's "
+             "composed cells' sizes); prints no result")
+    parser.add_argument(
         "--rolls", action="store_true",
         help="run only the roll walk's checks: phase 3's widths, the "
              "composed metropolis rows (keeping their inputs) and phase 5 "
@@ -6222,6 +6347,13 @@ def main(argv=None) -> int:
         print(f"chip_smoke --fused: {time.perf_counter() - t_start:.1f} s; "
               f"card: {card}")
         return 0
+    if args.packed:
+        with phase("the composed DLM step's kernels against their plain "
+                   "versions"):
+            check_packed_kernels()
+        print(f"chip_smoke --packed: {time.perf_counter() - t_start:.1f} s; "
+              f"card: {card}")
+        return 0
     if args.rolls:
         with phase("the roll walk at every width"):
             check_roll_widths(others)
@@ -6238,6 +6370,7 @@ def main(argv=None) -> int:
         rec["blocked_cumsum"]["zero_steps"] = check_zero_steps(others)
         rec.update(check_shard_kernels())
         rec.update(check_fused_kernels())
+        rec.update(check_packed_kernels())
         walk = rec["roll_metropolis_sweeps_expspace"]
         walk["max_abs_err"] = max(walk["max_abs_err"], check_roll_sweeps())
     with phase("the roll walk at every width"):

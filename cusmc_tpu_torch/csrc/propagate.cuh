@@ -1,5 +1,8 @@
 // Propagate and reweight one particle a thread: the second half of both
-// fused step kernels' "thread" design (fused_step.cu, fused_cdf_step.cu).
+// fused step kernels' "thread" design (fused_step.cu, fused_cdf_step.cu),
+// and, with the draws read from memory, the composed path's two kernels
+// (packed_model.cu: stage_transition, stage_observation, propagate_rows,
+// quad_forms, reweight).
 //
 // The TPU kernels' stages (cusmc_tpu/ops/fused_step.py:291-343,
 // ops/fused_cdf_step.py:257-304), for the particle whose ancestor is a:
@@ -203,13 +206,12 @@ struct BucketModel {
   float y[KM];
 };
 
-// Stages m's matrices into `s` (the block's); the caller synchronises the
-// block before they are read.
+// Stages m's transition matrices (G, Q transposed) into `s` (the
+// block's); the caller synchronises the block before they are read.
 template <int DM, int KM, typename T>
-__device__ __forceinline__ void stage_bucket(const StepModelT<T>& m,
-                                             BucketModel<DM, KM>& s) {
+__device__ __forceinline__ void stage_transition(const StepModelT<T>& m,
+                                                 BucketModel<DM, KM>& s) {
   const int d = m.d;
-  const int k = m.k;
   for (int i = threadIdx.x; i < DM * DM; i += blockDim.x) {
     const int r = i / DM;
     const int c = i % DM;
@@ -217,6 +219,14 @@ __device__ __forceinline__ void stage_bucket(const StepModelT<T>& m,
     s.G[i] = in ? widen(m.G[r * d + c]) : 0.0f;
     s.Qt[i] = in ? widen(m.Q[c * d + r]) : 0.0f;
   }
+}
+
+// Stages m's observation side (F, Li, y) into `s`, as stage_transition.
+template <int DM, int KM, typename T>
+__device__ __forceinline__ void stage_observation(const StepModelT<T>& m,
+                                                  BucketModel<DM, KM>& s) {
+  const int d = m.d;
+  const int k = m.k;
   for (int i = threadIdx.x; i < KM * DM; i += blockDim.x) {
     const int j = i / DM;
     const int c = i % DM;
@@ -231,6 +241,14 @@ __device__ __forceinline__ void stage_bucket(const StepModelT<T>& m,
     s.y[threadIdx.x] = static_cast<int>(threadIdx.x) < k ? m.y[threadIdx.x]
                                                          : 0.0f;
   }
+}
+
+// Stages all of m's matrices into `s`.
+template <int DM, int KM, typename T>
+__device__ __forceinline__ void stage_bucket(const StepModelT<T>& m,
+                                             BucketModel<DM, KM>& s) {
+  stage_transition(m, s);
+  stage_observation(m, s);
 }
 
 // A staged row of W floats (16-byte aligned), in vector loads.
@@ -268,6 +286,89 @@ __device__ __forceinline__ void load_columns(const T* __restrict__ X,
     for (int i = 0; i < P; ++i) {
       x[i][c] = 0.0f;
       if (c < d) x[i][c] = widen(X[static_cast<size_t>(c) * n + a[i]]);
+    }
+  }
+}
+
+// x_new = G x + (Q z) s of P particles from their states x and their
+// sums xq = Q z, row by row: each row's G x an FMA chain over the columns
+// in order, (Q z) s rounded once (MVT), and their sum once, to T. Row r
+// of particle i is stored at Xo[r * n + p[i]] where store[i], and its
+// stored value is returned widened in xn[i][r] (0 from d on).
+template <int DM, int KM, int P, typename T>
+__device__ __forceinline__ void propagate_rows(
+    const BucketModel<DM, KM>& sm, const StepModelT<T>& m,
+    const float (&x)[P][DM], const float (&xq)[P][DM],
+    const float (&scale)[P], unsigned n, T* __restrict__ Xo,
+    const unsigned (&p)[P], const bool (&store)[P], float (&xn)[P][DM]) {
+  const int d = m.d;
+#pragma unroll
+  for (int r = 0; r < DM; ++r) {
+#pragma unroll
+    for (int i = 0; i < P; ++i) xn[i][r] = 0.0f;
+    if (r < d) {
+      float gr[DM];
+      load_row<DM>(sm.G + r * DM, gr);
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int c = 0; c < DM; ++c) {
+          if (c < d) acc = fmaf(gr[c], x[i][c], acc);
+        }
+        const float qz = m.mvt ? __fmul_rn(xq[i][r], scale[i]) : xq[i][r];
+        const T xt = narrow<T>(__fadd_rn(acc, qz));
+        xn[i][r] = widen(xt);
+        if (store[i]) Xo[static_cast<size_t>(r) * n + p[i]] = xt;
+      }
+    }
+  }
+}
+
+// quad = |Li (y - F x)|^2 of P particles' states x (0 from d on): each
+// residual y_j - F_j x with F_j x an FMA chain over the columns in order,
+// each row of Li r one over the residuals, and their squares summed in an
+// FMA chain over the rows.
+template <int DM, int KM, int P>
+__device__ __forceinline__ void quad_forms(const BucketModel<DM, KM>& sm,
+                                           int d, int k,
+                                           const float (&x)[P][DM],
+                                           float (&quad)[P]) {
+  float res[P][KM];
+#pragma unroll
+  for (int j = 0; j < KM; ++j) {
+#pragma unroll
+    for (int i = 0; i < P; ++i) res[i][j] = 0.0f;
+    if (j < k) {
+      float fr[DM];
+      load_row<DM>(sm.F + j * DM, fr);
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int c = 0; c < DM; ++c) {
+          if (c < d) acc = fmaf(fr[c], x[i][c], acc);
+        }
+        res[i][j] = __fsub_rn(sm.y[j], acc);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < P; ++i) quad[i] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < KM; ++r) {
+    if (r < k) {
+      float lr[KM];
+      load_row<KM>(sm.Li + r * KM, lr);
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < KM; ++j) {
+          if (j < k) acc = fmaf(lr[j], res[i][j], acc);
+        }
+        quad[i] = fmaf(acc, acc, quad[i]);
+      }
     }
   }
 }
@@ -316,66 +417,13 @@ __device__ __forceinline__ void propagate_bucket(
 #pragma unroll
     for (int i = 0; i < P; ++i) scale[i] = 1.0f;
   }
+  bool all[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) all[i] = true;
   float xn[P][DM];
-#pragma unroll
-  for (int r = 0; r < DM; ++r) {
-#pragma unroll
-    for (int i = 0; i < P; ++i) xn[i][r] = 0.0f;
-    if (r < d) {
-      float gr[DM];
-      load_row<DM>(sm.G + r * DM, gr);
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int c = 0; c < DM; ++c) {
-          if (c < d) acc = fmaf(gr[c], x[i][c], acc);
-        }
-        const float qz = m.mvt ? __fmul_rn(xq[i][r], scale[i]) : xq[i][r];
-        const T xt = narrow<T>(__fadd_rn(acc, qz));
-        xn[i][r] = widen(xt);
-        Xo[static_cast<size_t>(r) * n + p[i]] = xt;
-      }
-    }
-  }
-  float res[P][KM];
-#pragma unroll
-  for (int j = 0; j < KM; ++j) {
-#pragma unroll
-    for (int i = 0; i < P; ++i) res[i][j] = 0.0f;
-    if (j < k) {
-      float fr[DM];
-      load_row<DM>(sm.F + j * DM, fr);
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int c = 0; c < DM; ++c) {
-          if (c < d) acc = fmaf(fr[c], xn[i][c], acc);
-        }
-        res[i][j] = __fsub_rn(sm.y[j], acc);
-      }
-    }
-  }
+  propagate_rows(sm, m, x, xq, scale, n, Xo, p, all, xn);
   float quad[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) quad[i] = 0.0f;
-#pragma unroll
-  for (int r = 0; r < KM; ++r) {
-    if (r < k) {
-      float lr[KM];
-      load_row<KM>(sm.Li + r * KM, lr);
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int j = 0; j < KM; ++j) {
-          if (j < k) acc = fmaf(lr[j], res[i][j], acc);
-        }
-        quad[i] = fmaf(acc, acc, quad[i]);
-      }
-    }
-  }
+  quad_forms(sm, d, k, xn, quad);
 #pragma unroll
   for (int i = 0; i < P; ++i) ll[p[i]] = reweight(m, quad[i]);
 }

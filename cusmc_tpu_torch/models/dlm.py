@@ -18,7 +18,7 @@ every step.
 
 Randomness: every sampling method takes a ``torch.Generator``. The packed
 methods also take ``noise=``, the draws of ``packed_noise``, so that tests
-can hand them the numbers JAX drew (``_sample_packed`` splits its key as
+can hand them the numbers JAX drew (JAX's ``_sample_packed`` splits its key as
 ``kz, kg``: z from ``kz``, the chi-square draws from ``kg``). The batch
 methods take ``noise=(z,)`` or ``(z, g)`` with ``g`` the chi-square
 variates themselves, since the JAX batch sampler draws them with
@@ -34,6 +34,11 @@ are taken in float32 and rounded once (``ops/packed.matvec``), and each
 elementwise operation rounds to bfloat16, as XLA computes them.
 ``per_dim_chi=True`` draws one chi-square per state component
 (``:192``); the fused engines refuse it.
+
+The packed step's propagate and log-density are ``ops/packed_model``'s:
+on the card, for a float32 state with d, k <= 16 (``runs_kernels``), two
+hand-written kernels; elsewhere the composed expressions, its plain
+versions.
 """
 
 from __future__ import annotations
@@ -48,9 +53,11 @@ from torch import nn
 from cusmc_tpu_torch.device import as_tensor, resolve_device
 from cusmc_tpu_torch.distributions.mvn import mvn_logpdf, mvn_sample
 from cusmc_tpu_torch.distributions.mvt import mvt_logpdf, mvt_sample
-from cusmc_tpu_torch.ops.packed import matvec, quadform
-from cusmc_tpu_torch.ops.random import chi2_draws, chi2_transform, \
-    integer_df, normal
+from cusmc_tpu_torch.ops.packed import matvec
+from cusmc_tpu_torch.ops.packed_model import packed_loglik, \
+    packed_loglik_plain, packed_propagate, packed_propagate_plain, \
+    sample_packed_plain, takes_kernel
+from cusmc_tpu_torch.ops.random import chi2_draws, integer_df, normal
 from cusmc_tpu_torch.utils.linalg import chol_sqrt, cov_sqrt
 
 
@@ -261,47 +268,38 @@ class DLM(nn.Module):
 
     def sample_initial_packed(self, gen: Optional[torch.Generator], n: int,
                               noise: Optional[tuple] = None) -> torch.Tensor:
-        """x_0 draws in packed layout [d, n]."""
-        return self._sample_packed(gen, self.m0[:, None], self.C0_sqrt, n,
+        """x_0 draws in packed layout [d, n] (once a run: the composed
+        expressions, ``ops/packed_model.sample_packed_plain``)."""
+        if noise is None:
+            noise = self.packed_noise(gen, n)
+        return sample_packed_plain(self, self.m0[:, None], self.C0_sqrt,
                                    noise)
+
+    def runs_kernels(self, X: torch.Tensor) -> bool:
+        """Whether the packed step on state ``X`` runs the kernels of
+        ``ops/packed_model`` (``takes_kernel``'s rule)."""
+        return takes_kernel(X.device, X.dtype, self.V_chol.dtype,
+                            self.state_dim, self.obs_dim, X.shape[-1],
+                            X.stride(-1), self.per_dim_chi)
 
     def propagate_packed(self, gen: Optional[torch.Generator],
                          X_prev: torch.Tensor,
                          noise: Optional[tuple] = None) -> torch.Tensor:
         """X_t | X_{t-1} for packed X [d, n]: G @ X plus Dist(0, W)."""
-        mean = matvec(self.G_f32, X_prev, out_dtype=X_prev.dtype)
-        return self._sample_packed(gen, mean, self.W_sqrt_f32,
-                                   X_prev.shape[-1], noise)
+        if noise is None:
+            noise = self.packed_noise(gen, X_prev.shape[-1])
+        if self.runs_kernels(X_prev):
+            return packed_propagate(self, X_prev, noise)
+        return packed_propagate_plain(self, X_prev, noise)
 
     def observation_logpdf_packed(self, y: torch.Tensor,
                                   X: torch.Tensor) -> torch.Tensor:
         """log p(y | x) for packed X [d, n] -> [n], through the inverse
         Cholesky factor of V, in the weight dtype (``F X`` is taken in it
         whatever the state dtype)."""
-        wdtype = self.V_chol.dtype
-        resid = y[:, None].to(wdtype) - matvec(self.F_f32, X,
-                                               out_dtype=wdtype)
-        quad = quadform(self.V_chol_inv, resid)
-        if self.noise == "mvt":
-            k = self.obs_dim
-            return self.log_norm - 0.5 * (self.df_value + k) * torch.log1p(
-                quad / self.df)
-        return self.log_norm - 0.5 * quad
-
-    def _sample_packed(self, gen, mean, scale, n, noise):
-        """mean [d, n] (or [d, 1]) + scale @ z in the state dtype (``scale``
-        may be a float32 copy); MVT applies the chi-square scale mixture
-        along the particle axis, its factor ``sqrt(df / g)`` computed in
-        the weight dtype and cast once to the state dtype."""
-        if noise is None:
-            noise = self.packed_noise(gen, n)
-        z = noise[0]
-        sdtype = self.state_dtype
-        if self.noise != "mvt":
-            return mean + matvec(scale, z, out_dtype=sdtype)
-        lz = matvec(scale, z, out_dtype=sdtype)
-        g = chi2_transform(self.df_value, self.df_int, noise[1])
-        return mean + lz * torch.sqrt(torch.div(self.df, g)).to(sdtype)
+        if self.runs_kernels(X):
+            return packed_loglik(self, y, X)
+        return packed_loglik_plain(self, y, X)
 
     # -- data generation --------------------------------------------------
 

@@ -72,6 +72,13 @@ SIGNATURES = {
     # noise, df_int, df, log_norm, tiled, dm, km, stream
     "cusmc_fused_cdf_step": (_P,) * 12 + (_LL, _LL) + (_I,) * 5
     + (_F, _F, _I, _I, _I, _P),
+    # X, ldx, z, ldz, u, ldu, zc, G, Q, Xo, n, d, noise, df_int, df, dm,
+    # stream
+    "cusmc_packed_propagate": (_P, _LL, _P, _LL, _P, _LL) + (_P,) * 4
+    + (_LL, _I, _I, _I, _F, _I, _P),
+    # X, ldx, y, F, Li, log_norm, ll, n, d, k, noise, df, dm, km, stream
+    "cusmc_packed_loglik": (_P, _LL) + (_P,) * 5
+    + (_LL, _I, _I, _I, _F, _I, _I, _P),
 }
 
 # Filled by ``library()``: the build's wall time and nvcc's output (ptxas

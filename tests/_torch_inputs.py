@@ -57,3 +57,21 @@ def offset_clgssm(device, mats_constant):
     import chip_smoke
 
     return chip_smoke.bench_clgssm(mats_constant, device)
+
+
+def dense_dlm(d, k, noise, df, device, state_dtype=None):
+    """A DLM of state width d and observation width k made from a seed,
+    with every factor dense: G a damped rotation, F [k, d] of scale 0.3,
+    W and V full covariances (so W_sqrt and V^-1/2 are full triangles),
+    m0 = 0, C0 = I; ``noise`` and ``df`` as ``DLM.create`` takes them."""
+    from cusmc_tpu_torch.models.dlm import DLM
+
+    rng = np.random.default_rng(100 * d + k)
+    a = rng.standard_normal((d, d))
+    b = rng.standard_normal((k, k))
+    return DLM.create(F=0.3 * rng.standard_normal((k, d)),
+                      G=0.9 * np.linalg.qr(rng.standard_normal((d, d)))[0],
+                      m0=np.zeros(d), C0=np.eye(d),
+                      V=0.01 * (b @ b.T / k + np.eye(k)),
+                      W=0.001 * (a @ a.T / d + np.eye(d)), noise=noise,
+                      df=df, state_dtype=state_dtype, device=device)

@@ -23,6 +23,8 @@ atol 1e-4 (the kernel sums its d- and k-term products in FMA chains, or
 at d = k in {16, 32} in 3xTF32 tensor-core tiles, cuBLAS in its own
 order; the residual y - F x cancels, and the quadratic form multiplies it
 by Li), in every width bucket of the "thread" design and beyond it. The
+composed DLM step's two kernels (ops/packed_model.py) at the same
+tolerance and for the same reason, on the plain versions' own draws. The
 "tile" design's statistical oracle runs here with
 chip_smoke.py's functions and limits (tests/test_torch_wide_oracle.py
 states them), so chip_smoke.py must sit at the root of the checkout.
@@ -33,11 +35,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_inputs import monthly_dlm, offset_clgssm, search_inputs
+from _torch_inputs import dense_dlm, monthly_dlm, offset_clgssm, \
+    search_inputs
 
 from cusmc_tpu_torch.io.data import demo_model_params
 from cusmc_tpu_torch.ops import fused_cdf_step as fc
 from cusmc_tpu_torch.ops import fused_step as fs
+from cusmc_tpu_torch.ops import packed_model as pm
 from cusmc_tpu_torch.ops.cumsum import FOLD, TILE, blocked_cumsum, \
     blocked_cumsum_plain
 from cusmc_tpu_torch.ops.kernels import SEARCH_BLOCK
@@ -492,6 +496,75 @@ def _model_args(d, cuda, noise, df):
 
 def _close(ours, plain):
     torch.testing.assert_close(ours, plain, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k", [(1, 1), (2, 2), (5, 3), (13, 1), (16, 16)])
+@pytest.mark.parametrize("noise,df", [("mvn", None), ("mvt", 5.0),
+                                      ("mvt", 4.0), ("mvt", 4.5)])
+def test_cuda_packed_model_kernels(cuda, d, k, noise, df):
+    # Each kernel against its plain version on the same draws, on a
+    # contiguous state and on a column slice of a wider one (a sharded
+    # rank's block, read through its row stride), at a ragged N.
+    m = dense_dlm(d, k, noise, df, cuda)
+    n = (1 << 16) + 37
+    gen = torch.Generator(device=cuda).manual_seed(10 * d + k)
+    wide = torch.randn((d, 3 * n), generator=gen, device=cuda)
+    y = 0.1 * torch.randn((k,), generator=gen, device=cuda)
+    for X in (wide[:, :n].contiguous(), wide[:, n + 5:2 * n + 5]):
+        assert m.runs_kernels(X)
+        draws = m.packed_noise(gen, n)
+        before = (pm.packed_propagate.launches, pm.packed_loglik.launches)
+        x_new = m.propagate_packed(None, X, draws)
+        ll = m.observation_logpdf_packed(y, x_new)
+        assert (pm.packed_propagate.launches, pm.packed_loglik.launches) \
+            == (before[0] + 1, before[1] + 1)
+        assert x_new.is_contiguous() and x_new.shape == (d, n)
+        _close(x_new, pm.packed_propagate_plain(m, X, draws))
+        _close(ll, pm.packed_loglik_plain(m, y, x_new))
+
+
+@pytest.mark.cuda
+def test_cuda_packed_model_wrappers_check_their_arguments(cuda):
+    m = dense_dlm(2, 2, "mvt", 5.0, cuda)
+    X = torch.zeros((2, 64), device=cuda)
+    draws = m.packed_noise(None, 64)
+    for bad in (X.double(), torch.zeros((3, 64), device=cuda), X[:, ::2],
+                X.T.contiguous().T):
+        with pytest.raises(ValueError):
+            pm.packed_propagate(m, bad, draws)
+        with pytest.raises(ValueError):
+            pm.packed_loglik(m, torch.zeros(2, device=cuda), bad)
+    with pytest.raises(ValueError):
+        pm.packed_loglik(m, torch.zeros(3, device=cuda), X)
+    wide = dense_dlm(20, 1, "mvn", None, cuda)
+    with pytest.raises(ValueError):
+        pm.packed_propagate(wide, torch.zeros((20, 64), device=cuda),
+                            wide.packed_noise(None, 64))
+
+
+@pytest.mark.cuda
+def test_cuda_composed_filter_counts_the_packed_kernels(cuda):
+    # A float32 d = 2 run of T steps launches each kernel T - 1 times; a
+    # bfloat16 state and d = 20 keep the composed expressions.
+    from cusmc_tpu_torch.models.dlm import DLM
+    from cusmc_tpu_torch.smc.particle_filter import bootstrap_filter
+
+    steps = 30
+    for d, state_dtype, launches in ((2, None, steps - 1),
+                                     (2, torch.bfloat16, 0), (20, None, 0)):
+        p = demo_model_params(d)
+        gen = torch.Generator(device=cuda).manual_seed(d)
+        _, ys = DLM.create(noise="mvt", df=5.0, device=cuda,
+                           **p).simulate(gen, steps)
+        model = DLM.create(noise="mvt", df=5.0, device=cuda,
+                           state_dtype=state_dtype, **p)
+        before = (pm.packed_propagate.launches, pm.packed_loglik.launches)
+        res = bootstrap_filter(0, model, ys, 1 << 14, engine="xla")
+        assert (pm.packed_propagate.launches - before[0],
+                pm.packed_loglik.launches - before[1]) == \
+            (launches, launches), (d, state_dtype)
+        assert bool(torch.isfinite(res.log_evidence))
 
 
 @pytest.mark.cuda
