@@ -24,7 +24,9 @@ from cusmc_tpu_torch.ops.random import chi2_transform
 F32, BF16, F64 = torch.float32, torch.bfloat16, torch.float64
 CUDA = torch.device("cuda", 0)
 NOISES = [("mvn", None), ("mvt", 5.0), ("mvt", 4.0), ("mvt", 4.5)]
-SHAPES = [(1, 1), (2, 2), (5, 3), (13, 1), (16, 16)]
+# (3, 20): past the kernels' widths, k > d as in a dynamic factor model,
+# where only the plain versions run.
+SHAPES = [(1, 1), (2, 2), (5, 3), (13, 1), (16, 16), (3, 20)]
 
 
 @pytest.mark.parametrize("device,state,weight,d,k,n,stride,per_dim,takes", [
